@@ -1,0 +1,136 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each source under `csrc/` becomes one shared library with a plain C
+interface, compiled for Hopper only:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas=-v \
+         -o build/torch_kernels/lib<name>-<hash>.so <name>.cu
+
+(ptxas's register / spill report lands in lib<name>-<hash>.log.)
+
+The build happens at first use, into `build/torch_kernels/` at the repo
+root, keyed by a hash of the sources and flags, so a changed source is
+rebuilt and an unchanged one is loaded as it is. `build_all()` starts one
+nvcc per source at once. A failed build raises with nvcc's stderr.
+Nothing here runs at import time: the CPU tests import every module on a
+machine with no nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+KERNELS = ("paged_attention", "paged_prefill", "flash_attention")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# dtype codes shared with csrc/common.cuh:rt::DType
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.int8: 3, torch.float8_e4m3fn: 4}
+# what the kernels are instantiated for: query / activation dtypes, the
+# quantized pool dtypes (which come with float32 scale tables), head dims
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+HEAD_DIMS = (64, 128)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of the extern "C" entry points (pointers and the stream as
+# c_void_p so ctypes does not cut them to 32 bits)
+SIGNATURES = {
+    "paged_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
+    "flash_attention": [_P] * 4 + [_I] * 8 + [_F, _P],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           "/usr/local/cuda/bin); the CUDA kernels are "
+                           "built at first use on a machine with the CUDA "
+                           "toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start one nvcc writing to a temporary file; returns (proc, tmp)."""
+    tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> None:
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {name} "
+                           f"(exit {proc.returncode}):\n{stderr}{stdout}")
+    # ptxas's per-kernel registers / shared memory / spills, kept beside
+    # the library
+    _lib_path(name).with_suffix(".log").write_text(stderr + stdout)
+    os.replace(tmp, _lib_path(name))
+
+
+def build_all(names: List[str] = KERNELS) -> Dict[str, Path]:
+    """Build every kernel whose library is missing, one nvcc each, all
+    started together. Returns {name: library path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {n: _start(n) for n in names if not _lib_path(n).exists()}
+    try:
+        for n, (proc, tmp) in procs.items():
+            _finish(n, proc, tmp)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {n: _lib_path(n) for n in names}
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str):
+    """The kernel's C entry point (building its library first if needed),
+    with its argument types declared."""
+    path = build_all([name])[name]
+    fn = getattr(ctypes.CDLL(str(path)), name)
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ptr(t) -> int | None:
+    """Device pointer of a tensor, or None (a C null) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError "
+                           f"{err}")

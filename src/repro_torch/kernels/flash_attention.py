@@ -1,0 +1,49 @@
+"""Blocked GQA flash attention (forward): CUDA kernel wrapper.
+
+The port of `repro/kernels/flash_attention.py` (a Pallas TPU kernel). The
+kernel is `csrc/flash_attention.cu`; `ref.flash_attention_ref` is its
+plain twin. A CPU tensor takes the twin; a CUDA tensor launches the kernel
+or raises. `flash_attention.launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd), one float dtype; KV head
+    h // (H / KV). Returns (B, H, Sq, hd)."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    for t in (k, v):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: k/v on {t.device} {t.dtype},"
+                             f" q on {q.device} {q.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: inputs must be contiguous")
+    if q.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype}")
+    if (k.shape != (B, KV, Sk, hd) or v.shape != k.shape or H % KV
+            or hd not in HEAD_DIMS):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; "
+                         f"the CUDA kernel takes head_dim in {HEAD_DIMS}")
+    out = torch.empty_like(q)
+    fn = build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd,
+                 int(causal), hd ** -0.5, build.stream())
+    build.check_launch("flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,114 @@
+"""Configs and the weight bridge: every architecture's config equals the
+JAX package's field for field, and JAX params converted to the port's
+layout hold exactly cfg.param_count() elements."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+
+ALL_ARCHS = list(jconfigs.ARCHS)
+MODEL_ARCHS = jconfigs.list_archs()
+SUPPORTED = ["smollm-135m", "codeqwen1.5-7b", "minitron-4b", "stablelm-3b"]
+
+
+def test_registry_matches():
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
+    with pytest.raises(KeyError):
+        tconfigs.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_config_fields_match(arch):
+    j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    if arch == "paper-lsq":
+        return
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
+    assert (t.n_super, t.prefix_pattern) == (j.n_super, j.prefix_pattern)
+    for tdt, jdt in ((t.act_dtype, j.act_dtype), (t.p_dtype, j.p_dtype)):
+        assert str(tdt).removeprefix("torch.") == jdt.name
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_converted_param_count(arch):
+    cfg = tconfigs.get_config(arch).reduced()
+    jparams = jax.device_get(jlm.init_params(jax.random.PRNGKey(0),
+                                             jconfigs.get_config(arch)
+                                             .reduced()))
+    params = convert.from_jax(jparams, cfg)
+    n = convert.param_count(params)
+    assert n == sum(np.size(a) for a in jax.tree.leaves(jparams))
+    if not {"rwkv", "rec"} & set(cfg.block_pattern):
+        # the JAX package's analytic count disagrees with its own
+        # init_params for the recurrent blocks (ROADMAP queue 3), so the
+        # recurrent archs are held to the JAX tree alone
+        assert n == cfg.param_count()
+    for pi in range(cfg.pattern_len):
+        assert len(params["blocks"][f"p{pi}"]) == cfg.n_super
+
+
+def test_converted_values_unstack_the_scan_axis():
+    cfg = tconfigs.get_config("smollm-135m").reduced()
+    jparams = jax.device_get(jlm.init_params(jax.random.PRNGKey(1),
+                                             jconfigs.get_config(
+                                                 "smollm-135m").reduced()))
+    params = convert.from_jax(jparams, cfg)
+    for s in range(cfg.n_super):
+        np.testing.assert_array_equal(
+            params["blocks"]["p0"][s]["attn"]["wq"].numpy(),
+            jparams["blocks"]["p0"]["attn"]["wq"][s])
+    np.testing.assert_array_equal(params["embed"].numpy(), jparams["embed"])
+
+
+def test_bf16_params_convert_exactly():
+    cfg = tconfigs.get_config("grok-1-314b").reduced(param_dtype="bfloat16")
+    jcfg = jconfigs.get_config("grok-1-314b").reduced(param_dtype="bfloat16")
+    jparams = jax.device_get(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    params = convert.from_jax(jparams, cfg)
+    assert params["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(params["embed"].float().numpy(),
+                                  np.asarray(jparams["embed"], np.float32))
+
+
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_port_init_params_count(arch):
+    cfg = tconfigs.get_config(arch).reduced()
+    params = tlm.init_params(0, cfg, device="cpu")
+    assert convert.param_count(params) == cfg.param_count()
+
+
+def test_full_width_smollm_count_and_dtypes():
+    cfg = tconfigs.get_config("smollm-135m")
+    assert cfg.param_count() == jconfigs.get_config("smollm-135m") \
+        .param_count() == 134515008
+    assert cfg.act_dtype == torch.bfloat16 and cfg.p_dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b",
+                                  "grok-1-314b", "paligemma-3b",
+                                  "musicgen-medium"])
+def test_unported_archs_raise(arch):
+    with pytest.raises(NotImplementedError):
+        tlm.init_params(0, tconfigs.get_config(arch).reduced(),
+                        device="cpu")
+
+
+def test_init_params_needs_a_device_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.init_params(0, tconfigs.get_config("smollm-135m").reduced())
