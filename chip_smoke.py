@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. build   the three CUDA kernels from src/repro_torch/kernels/csrc/
+  1. build   the four CUDA kernels from src/repro_torch/kernels/csrc/
              (one nvcc per source, all started together);
-  2. kernels each kernel against its plain PyTorch twin at the shapes
-             smollm-135m serving gives it (error vs a stated tolerance,
-             the bytes-or-flops bound);
+  2. kernels each kernel against its plain PyTorch twin at the shapes its
+             main path gives it (error vs a stated tolerance, the
+             bytes-or-flops bound): the attention kernels at smollm-135m
+             serving shapes, svrg_update at 2^20, an odd tail and an
+             unaligned view, float32 and bf16;
   3. small   a reduced float32 smollm on the card against the same model
              on the CPU (forward logits, engine tokens vs generate());
   4. forward full-width smollm-135m lm.forward on 2 x 256 tokens: finite
@@ -18,18 +20,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (prefix cache hits) and repetitive (speculate=4) streams;
              every completion checked against generate() under the margin
              rule; the paged kernels launched;
-  6. timings kernel / twin / library device time (torch.profiler) and
+  6. core    the paper core on paper-lsq (d = 64, m = 8 machines, b = 128,
+             T = 8): MP-DSVRG, MP-DANE (exact) and minibatch-prox (exact)
+             on the card against the same runs on the CPU over the same
+             replayed data, each within its rate bound; MP-DSVRG launches
+             svrg_update T * K * batch times. Then MP-DSVRG at d = 2^20
+             (X is 4 GiB a step on the card): wall time, launches, each
+             step's prox subproblem solved to a stated share of its gap,
+             w_avg near the exact minibatch-prox path's, the closed-form
+             suboptimality reported;
+  7. timings kernel / twin / library device time (torch.profiler) and
              wall time on phase 2's inputs, then one profiled window of
-             engine decode steps (device busy vs wall, top kernels).
-Launch counters are zeroed just before phases 4 and 5 and read just after,
-so the launches reported are the main path's own. The last lines are the
-card's name and power limit, the kernels JSON line and
+             engine decode steps and one profiled MP-DSVRG outer step at
+             d = 2^20 (device busy vs wall, top kernels).
+Launch counters are zeroed just before phases 4, 5 (per stream) and 6 and
+read just after, so the launches reported are the main paths' own. The
+last lines are the card's name and power limit, the kernels JSON line and
 {"ok": true, "device": {...}}. `--record PATH` also writes the full
-record (per-stream telemetry, every divergence, the decode profile) as
-JSON. It needs a CUDA device and the repo's src/.
+record (per-stream telemetry, every divergence, the profiles) as JSON. It
+needs a CUDA device and the repo's src/.
 """
 import argparse
+import dataclasses
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,6 +75,28 @@ ULP_FLOOR = 2.0 ** -8
 # excuse a typical token).
 MARGIN_BOUND = 0.05
 MARGIN_BOUND_F32 = 1e-3
+# svrg_update against its twin: float32 within 1e-6 (1 + |twin|) (the JAX
+# kernel test's 1e-6); bf16 within 1 ulp of max(|twin|, 2^-8), since both
+# compute in float32 and round once
+SVRG_TOL_F32 = 1e-6
+SVRG_TOL_ULPS = 1
+# the core phase's CUDA runs against the same runs on the CPU: float32
+# iterates within 1e-5 absolute, the tolerance tests/test_torch_core.py
+# states for the port against the JAX package
+CORE_ATOL = 1e-5
+# the d = 2^20 arm. MP-DSVRG's K = 10 inner iterations close each outer
+# step's prox-subproblem gap f_t(w) - f_t(w_t*) to <= PROX_GAP_RATIO of its
+# value at w_{t-1} (about 2^-K is expected), and its w_avg lies within
+# EXACT_PATH_DIST (relative) of the exact minibatch-prox path's average on
+# the same data; tests/test_torch_core.py::
+# test_mp_dsvrg_tracks_exact_prox_path holds the same bounds on the CPU at
+# d = 16 and 1024, and test_exact_path_bounds_catch_a_faulty_update shows
+# both fail at d = 1024 when a term of the update is dropped or wrong. At this width the population suboptimality cannot show
+# learning: each sample's signal variance is ~1/d against a noise variance
+# of 0.01, and the exact path itself ends next to, or above, the value at
+# w = 0; the run reports the three values without a bound between them.
+PROX_GAP_RATIO = 1e-2
+EXACT_PATH_DIST = 0.1
 
 
 def _time_ms(fn, reps=50, warmup=5):
@@ -130,30 +167,36 @@ def phase_build():
                                            for n, p in paths.items()}}
 
 
-def _check(name, got, want):
+def _check(name, got, want, tol_ulps=TOL_ULPS, f32_tol=None):
     """Kernel output against its twin's; returns (max abs error, max
-    error in bf16 ulps of max(|twin|, ULP_FLOOR))."""
+    error in bf16 ulps of max(|twin|, ULP_FLOOR)). With f32_tol, every
+    element must also be within f32_tol * (1 + |twin|)."""
     diff = (got.float() - want.float()).abs()
     _, e = torch.frexp(want.float().abs().clamp_min(ULP_FLOOR))
     ulps = (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
     err = diff.max().item()
-    ok = ulps <= TOL_ULPS and bool(torch.isfinite(got).all())
+    ok = ulps <= tol_ulps and bool(torch.isfinite(got).all())
+    if f32_tol is not None:
+        ok = ok and bool((diff <= f32_tol * (1 + want.float().abs())).all())
+    tol = f"{tol_ulps} bf16 ulps" + (f", {f32_tol} (1 + |twin|)"
+                                     if f32_tol is not None else "")
     print(f"[kernels] {name}: max_abs_err {err:.3g}, max {ulps:.3g} bf16 "
-          f"ulps (tolerance {TOL_ULPS}) {'ok' if ok else 'FAIL'}")
+          f"ulps (tolerance {tol}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its twin "
-                             f"({ulps} bf16 ulps > {TOL_ULPS}; max abs err "
-                             f"{err})")
+                             f"(max {ulps} bf16 ulps, max abs err {err}; "
+                             f"tolerance {tol})")
     return err, ulps
 
 
 def phase_kernels(dev):
-    """Each kernel against its twin at the shapes smollm-135m serving
-    gives it: every arm must be within TOL_ULPS; a kernel's max_abs_err
-    and max_ulps are the largest over its arms."""
+    """Each kernel against its twin at the shapes its main path gives it:
+    every arm must be within its tolerance; a kernel's max_abs_err and
+    max_ulps are the largest over its arms."""
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, paged_attention,
-                                     paged_prefill_attention, ref)
+                                     paged_prefill_attention, ref,
+                                     svrg_update)
     g = torch.Generator(device=dev).manual_seed(0)
     H, KV, hd, bs, M = 9, 3, 64, 16, 32
     bf = torch.bfloat16
@@ -168,14 +211,14 @@ def phase_kernels(dev):
         return (1 + torch.randperm(rows * m, generator=g, device=dev)
                 ).reshape(rows, m).int()
 
-    def arm(arms, name, got, want):
-        err, ulps = _check(name, got, want)
+    def arm(arms, name, got, want, **tol):
+        err, ulps = _check(name, got, want, **tol)
         arms.append({"arm": name, "max_abs_err": err, "max_ulps": ulps})
 
-    def worst(arms):
+    def worst(arms, tolerance=f"{TOL_ULPS} bf16 ulps per element"):
         return dict(max_abs_err=max(a["max_abs_err"] for a in arms),
                     max_ulps=max(a["max_ulps"] for a in arms),
-                    tolerance=f"{TOL_ULPS} bf16 ulps per element", arms=arms)
+                    tolerance=tolerance, arms=arms)
 
     out = []
     # -- paged_attention: 8 slots, ragged ctx incl. 0, bf16 / int8 / fp8
@@ -299,6 +342,36 @@ def phase_kernels(dev):
                   q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=bound, bound_by=by,
         shape=dict(B=2, H=H, KV=KV, S=S, hd=hd), **worst(arms)))
+
+    # -- svrg_update: n = 64 (the core phase's paper-lsq width), n = 2^20
+    # (parameter-sized vectors), an odd tail, and views one element into
+    # their buffers (not 16-byte aligned: the scalar path), float32 and bf16
+    arms = []
+    for n, offset in ((64, 0), (1 << 20, 0), (100003, 0), (100003, 1)):
+        for dt in (torch.float32, bf):
+            xs = [rn(n + offset, dt=dt)[offset:] for _ in range(5)]
+            tol = (dict(f32_tol=SVRG_TOL_F32) if dt == torch.float32
+                   else dict(tol_ulps=SVRG_TOL_ULPS))
+            arm(arms, f"svrg_update n={n} offset={offset} {dt}",
+                svrg_update(*xs, 0.1, 0.5),
+                ref.svrg_update_ref(*xs, 0.1, 0.5), **tol)
+    n = 1 << 20
+    # timed cold, as the bound assumes (every byte from device memory): the
+    # calls rotate over four input sets, 4 x 20 MB against the 50 MB L2, so
+    # a set has left the L2 by its next turn
+    sets = itertools.cycle([[rn(n, dt=torch.float32) for _ in range(5)]
+                            for _ in range(4)])
+    # five vectors read and one written; 7 float32 operations per element
+    bound, by = _bound_ms(6 * 4 * n, 7 * n, "f32")
+    out.append(dict(
+        name="svrg_update", route="cuda",
+        source="src/repro_torch/kernels/csrc/svrg_update.cu",
+        replaces="src/repro/kernels/svrg_update.py:35",
+        _fns=(lambda: svrg_update(*next(sets), 0.1, 0.5),
+              lambda: ref.svrg_update_ref(*next(sets), 0.1, 0.5), None),
+        bound_ms=bound, bound_by=by, shape=dict(n=n, dtype="float32"),
+        **worst(arms, f"float32 {SVRG_TOL_F32} (1 + |twin|); bf16 "
+                      f"{SVRG_TOL_ULPS} ulp")))
     return out
 
 
@@ -468,7 +541,7 @@ def phase_engine(params, cfg, dev):
         prefills = stats["prefill"]["dispatches"]
         want = {"paged_prefill": cfg.n_layers * (prefills + verifies),
                 "paged_attention": cfg.n_layers * (eng.steps - verifies),
-                "flash_attention": 0}
+                "flash_attention": 0, "svrg_update": 0}
         results.append((name, reqs, done, stats))
         print(f"[engine] {name}: {stats['requests']} requests, "
               f"{stats['generated_tokens']} tokens, "
@@ -523,6 +596,253 @@ def phase_engine(params, cfg, dev):
         raise AssertionError(f"generate()'s median gap {m['median']} is not "
                              f"above the margin bound {MARGIN_BOUND}")
     return record, engines[0]
+
+
+class Replay:
+    """A stream that ignores its generator and hands out pre-drawn data in
+    order: the same batches through the CUDA and the CPU runs."""
+
+    def __init__(self, dim, items):
+        self.dim = dim
+        self._items = iter(items)
+
+    def sample(self, generator, n):
+        return next(self._items)
+
+    def sample_distributed(self, generator, m, b):
+        return next(self._items)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _prox_point_wide(w_prev, Xm, ym, gamma):
+    """The exact union minibatch-prox point (eq. 12), in float64, for d far
+    above the n = m * b rows: through the n x n system (Woodbury),
+    (X^T X / n + gamma I)^-1 v = (v - X^T (X X^T + n gamma I)^-1 X v) / gamma
+    with v = X^T y / n + gamma w_prev."""
+    X = Xm.reshape(-1, Xm.shape[-1]).double()
+    y = ym.reshape(-1).double()
+    n = X.shape[0]
+    v = X.T @ y / n + gamma * w_prev.double()
+    G = X @ X.T + n * gamma * torch.eye(n, dtype=X.dtype, device=X.device)
+    return (v - X.T @ torch.linalg.solve(G, X @ v)) / gamma
+
+
+def _prox_gap(w, w_star, Xm, gamma):
+    """f_t(w) - f_t(w_star) of the least-squares prox subproblem at its
+    exact minimizer w_star, with no cancellation: 0.5 (|X e|^2 / n +
+    gamma |e|^2), e = w - w_star, in float64."""
+    X = Xm.reshape(-1, Xm.shape[-1]).double()
+    e = w.double() - w_star
+    return 0.5 * ((X @ e).square().sum() / X.shape[0]
+                  + gamma * e.square().sum()).item()
+
+
+def phase_core(dev):
+    """The paper core on the card. paper-lsq at its own widths (d = 64,
+    noise 0.1, decay 0.5; spec from 8192 rows) with the quickstart's
+    m = 8, b = 128, T = 8: MP-DSVRG, MP-DANE (exact) and minibatch-prox
+    (exact, b * m rows a step) run on the card and on the CPU over the same
+    data, drawn once on the card; iterates must agree within CORE_ATOL,
+    plans and ledgers must be equal, and each w_avg's population
+    suboptimality must be within its theorem's bound. Then MP-DSVRG at
+    d = 2^20. svrg_update's counter is zeroed before each CUDA run and
+    read after it. Returns the record and a function that profiles one
+    outer step at d = 2^20 (called after the other profiles)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import losses, theory
+    from repro_torch.core.minibatch_prox import run_minibatch_prox
+    from repro_torch.core.mp_dane import run_mp_dane
+    from repro_torch.core.mp_dsvrg import _dsvrg_inner, run_mp_dsvrg
+    from repro_torch.data.synthetic import LeastSquaresStream
+    cfg = get_config("paper-lsq")
+    m, b, T = 8, 128, 8
+    stream = LeastSquaresStream(dim=cfg.dim, noise=cfg.noise,
+                                decay=cfg.decay, seed=0)
+    X, y = stream.sample(torch.Generator(device=dev).manual_seed(1), 8192)
+    L, beta = losses.loss_constants(X, y, radius=cfg.radius)
+    spec = theory.ProblemSpec(L=L, beta=beta, B=1.0, dim=cfg.dim)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = [stream.sample_distributed(gen, m, b) for _ in range(T)]
+    flat = [(Xm.reshape(m * b, -1), ym.reshape(-1)) for Xm, ym in draws]
+    print(f"[core] paper-lsq d={cfg.dim}, m={m}, b={b}, T={T}: L {L:.4f}, "
+          f"beta {beta:.4f}")
+    record = {"paper_lsq": {"dim": cfg.dim, "m": m, "b": b, "T": T,
+                            "L": L, "beta": beta}}
+    launches = 0
+    runs = (
+        ("mp_dsvrg", run_mp_dsvrg, (m, b, T), draws, {}, False),
+        ("mp_dane", run_mp_dane, (m, b, T), draws,
+         {"local_solver": "exact"}, False),
+        ("minibatch_prox", run_minibatch_prox, (m * b, T), flat,
+         {"solver": "exact"}, True))
+    for name, run, shape, data, kw, exact in runs:
+        kernels.reset_launch_counts()
+        got, secs = _timed(lambda: run(Replay(cfg.dim, data), spec, *shape,
+                                       device=dev, **kw))
+        counts = kernels.launch_counts()
+        want = run(Replay(cfg.dim, [(a.cpu(), c.cpu()) for a, c in data]),
+                   spec, *shape, device="cpu", **kw)
+        err = (got.iterates.cpu() - want.iterates).abs().max().item()
+        sub = stream.population_suboptimality(got.w_avg).item()
+        closed = stream.expected_suboptimality(got.w_avg).item()
+        bound = theory.rate_bound_weakly_convex(spec, m * b, T, exact=exact)
+        plan = (dataclasses.asdict(got.plan) if hasattr(got, "plan")
+                else None)
+        rec = {"seconds": secs, "launches": counts, "cpu_max_abs_err": err,
+               "population_suboptimality": sub,
+               "closed_form_suboptimality": closed, "rate_bound": bound,
+               "ledger": got.ledger.as_dict(), "plan": plan}
+        record[name] = rec
+        print(f"[core] {name}: {secs * 1e3:.1f} ms on the card; iterates vs "
+              f"CPU max_abs_err {err:.3g} (tolerance {CORE_ATOL}); "
+              f"suboptimality {sub:.5f} (closed form {closed:.5f}) <= bound "
+              f"{bound:.5f}; ledger {rec['ledger']}; launches {counts}")
+        if not err <= CORE_ATOL:
+            raise AssertionError(f"{name}: CUDA and CPU iterates differ by "
+                                 f"{err}")
+        if got.ledger.as_dict() != want.ledger.as_dict() or (
+                plan is not None and plan != dataclasses.asdict(want.plan)):
+            raise AssertionError(f"{name}: ledger or plan differs from the "
+                                 f"CPU run's")
+        if not sub <= bound:
+            raise AssertionError(f"{name}: suboptimality {sub} above the "
+                                 f"rate bound {bound}")
+        want_svrg = (T * got.plan.K * got.plan.batch if name == "mp_dsvrg"
+                     else 0)
+        if counts["svrg_update"] != want_svrg:
+            raise AssertionError(f"{name}: svrg_update launched "
+                                 f"{counts['svrg_update']} times, expected "
+                                 f"T * K * batch = {want_svrg}")
+        launches += counts["svrg_update"]
+
+    # -- scale arm: MP-DSVRG at d = 2^20, X (8, 128, 2^20) float32 = 4 GiB
+    # a step. The T steps' data is drawn first (32 GiB on the card) and
+    # replayed, so the exact minibatch-prox path can be run on the same
+    # data beside it.
+    d = 1 << 20
+    big = LeastSquaresStream(dim=d, noise=cfg.noise, decay=cfg.decay, seed=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    consts = [losses.loss_constants(*big.sample(g, 1024), radius=cfg.radius)
+              for _ in range(8)]                        # 8192 rows
+    spec_big = theory.ProblemSpec(L=max(c[0] for c in consts),
+                                  beta=max(c[1] for c in consts), B=1.0,
+                                  dim=d)
+    g = torch.Generator(device=dev).manual_seed(0)
+    draws, draw_secs = _timed(lambda: [big.sample_distributed(g, m, b)
+                                       for _ in range(T)])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res, secs = _timed(lambda: run_mp_dsvrg(Replay(d, draws), spec_big, m,
+                                            b, T, device=dev))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plan = res.plan
+    # each outer step's prox subproblem: how much of the gap between the
+    # previous iterate and the exact prox point the K inner iterations
+    # closed; and the exact minibatch-prox path (Theorem 4's algorithm,
+    # the same gamma) on the same data
+    ratios, exact = [], []
+    w_prev = w_exact = torch.zeros(d, device=dev)
+    for t, (Xm, ym) in enumerate(draws):
+        star = _prox_point_wide(w_prev, Xm, ym, plan.gamma)
+        ratios.append(_prox_gap(res.iterates[t], star, Xm, plan.gamma)
+                      / _prox_gap(w_prev, star, Xm, plan.gamma))
+        w_prev = res.iterates[t]
+        w_exact = _prox_point_wide(w_exact, Xm, ym, plan.gamma)
+        exact.append(w_exact)
+    last = draws[-1]
+    del draws, star
+    w_exact_avg = torch.stack(exact).mean(0)
+    dist = (torch.linalg.vector_norm(res.w_avg.double() - w_exact_avg)
+            / torch.linalg.vector_norm(w_exact_avg)).item()
+    sub = big.expected_suboptimality(res.w_avg).item()
+    sub_exact = big.expected_suboptimality(w_exact_avg).item()
+    sub0 = big.expected_suboptimality(torch.zeros(d, device=dev)).item()
+    rec = {"dim": d, "m": m, "b": b, "T": T, "L": spec_big.L,
+           "beta": spec_big.beta, "plan": dataclasses.asdict(plan),
+           "seconds": secs, "draw_seconds": draw_secs, "launches": counts,
+           "peak_memory_gib": peak, "prox_gap_ratios": ratios,
+           "distance_to_exact_path": dist,
+           "closed_form_suboptimality": sub,
+           "closed_form_suboptimality_exact_path": sub_exact,
+           "closed_form_suboptimality_at_0": sub0}
+    record["scale"] = rec
+    print(f"[core] MP-DSVRG d=2^20, m={m}, b={b}, T={T} (plan K={plan.K}, "
+          f"p={plan.p}, batch={plan.batch}, gamma={plan.gamma:.4f}): "
+          f"{secs:.3f} s wall (data drawn before, in {draw_secs:.3f} s), "
+          f"launches {counts}, peak {peak:.2f} GiB; prox gap closed to "
+          f"<= {max(ratios):.3e} of its start in every step (tolerance "
+          f"{PROX_GAP_RATIO}); w_avg within {dist:.3e} of the exact "
+          f"minibatch-prox path's (tolerance {EXACT_PATH_DIST}); "
+          f"closed-form suboptimality {sub:.6e} (exact path {sub_exact:.6e}, "
+          f"w = 0 {sub0:.6e})")
+    if counts["svrg_update"] != T * plan.K * plan.batch:
+        raise AssertionError(f"scale arm: svrg_update launched "
+                             f"{counts['svrg_update']} times, expected "
+                             f"{T * plan.K * plan.batch}")
+    if not (math.isfinite(sub) and max(ratios) <= PROX_GAP_RATIO
+            and dist <= EXACT_PATH_DIST):
+        raise AssertionError(f"scale arm: suboptimality {sub}, prox gap "
+                             f"ratios {ratios}, distance to the exact path "
+                             f"{dist}")
+    launches += counts["svrg_update"]
+    record["svrg_update_launches"] = launches
+
+    def profile_outer_step():
+        """One MP-DSVRG outer step at d = 2^20 (K inner iterations on the
+        last step's data) under torch.profiler: wall, device busy, the
+        idle share and svrg_update's device time per call."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        Xm, ym = last
+        eta = 0.3 / (spec_big.beta + plan.gamma)
+        w = res.w_last
+        step = lambda: _dsvrg_inner(losses.least_squares(), w, w, Xm, ym,
+                                    plan.gamma, eta, plan.p, plan.K, 0.0)
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = _timed(step)
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        svrg = [e for e in kern if "svrg_update" in e.key]
+        if busy <= 0 or not svrg:
+            raise AssertionError("torch.profiler reported no device time "
+                                 "for the outer step")
+        out = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+               "idle_share": 1.0 - busy / (wall * 1e3),
+               "svrg_update_calls": sum(e.count for e in svrg),
+               "svrg_update_device_ms_per_call":
+               sum(e.self_device_time_total for e in svrg) / 1e3
+               / sum(e.count for e in svrg),
+               "top_kernels": [
+                   {"name": e.key[:80],
+                    "ms": e.self_device_time_total / 1e3, "calls": e.count}
+                   for e in sorted(kern,
+                                   key=lambda e: -e.self_device_time_total)[
+                                       :6]]}
+        print(f"[profile] MP-DSVRG outer step d=2^20: wall "
+              f"{out['wall_ms']:.2f} ms, device busy "
+              f"{out['device_busy_ms']:.3f} ms (idle "
+              f"{out['idle_share']:.1%}); svrg_update "
+              f"{out['svrg_update_device_ms_per_call'] * 1e3:.2f} us per "
+              f"call x {out['svrg_update_calls']}")
+        for t in out["top_kernels"]:
+            print(f"[profile]   {t['ms']:.4f} ms x {t['calls']}  "
+                  f"{t['name']}")
+        return out
+
+    return record, profile_outer_step
 
 
 def profile_decode(eng, vocab, n_steps=10):
@@ -603,14 +923,17 @@ def main(argv=None):
     params = lm.cast_params(lm.init_params(0, cfg, device=dev), cfg)
     record["forward"] = phase_forward(params, cfg, dev)
     record["engine"], engine = phase_engine(params, cfg, dev)
+    record["core"], profile_outer_step = phase_core(dev)
     # profiled last: torch.profiler's hooks stay behind in the process
     phase_timings(kern)
     record["decode_profile"] = profile_decode(engine, cfg.vocab_size)
+    record["core_profile"] = profile_outer_step()
     launches = {"flash_attention":
                 record["forward"]["launches"]["flash_attention"],
                 "paged_attention":
                 record["engine"]["launches"]["paged_attention"],
-                "paged_prefill": record["engine"]["launches"]["paged_prefill"]}
+                "paged_prefill": record["engine"]["launches"]["paged_prefill"],
+                "svrg_update": record["core"]["svrg_update_launches"]}
     for k in kern:
         k["launches"] = launches[k["name"]]
     record["kernels"] = kern

@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-KERNELS = ("paged_attention", "paged_prefill", "flash_attention")
+KERNELS = ("paged_attention", "paged_prefill", "flash_attention",
+           "svrg_update")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -44,13 +45,15 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 HEAD_DIMS = (64, 128)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signatures of the extern "C" entry points (pointers and the stream as
 # c_void_p so ctypes does not cut them to 32 bits)
 SIGNATURES = {
     "paged_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
     "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
     "flash_attention": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
 }
 
 

@@ -1,4 +1,4 @@
-// Shared helpers for the port's attention kernels (sm_90a, built with nvcc
+// Shared helpers for the port's kernels (sm_90a, built with nvcc
 // into plain-C shared libraries and bound with ctypes; see kernels/build.py).
 #pragma once
 

@@ -1,7 +1,7 @@
 """Plain PyTorch twins of the port's CUDA kernels.
 
 Each `*_ref` computes exactly what its kernel computes (float32 math,
-output in q's dtype). A wrapper takes its twin for a tensor on the CPU;
+output in the dtype of q or x). A wrapper takes its twin for a tensor on the CPU;
 `chip_smoke.py` and the CUDA-marked tests hold each kernel to its twin on
 the card; the CPU tests hold each twin to the JAX package's oracles and
 Pallas kernels (run in interpret mode).
@@ -105,3 +105,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
         valid = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
     o = _masked_attention(qf, kf, vf, valid, hd ** -0.5)
     return o.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def svrg_update_ref(x, g_x, g_z, mu, w_anchor, eta: float, gamma: float):
+    """One fused variance-reduced prox step (paper Alg. 1 step 2):
+
+        x <- x - eta * (g_x - g_z + mu + gamma * (x - w_anchor))
+
+    on 1-D vectors of one length, in float32 and in this order, rounded
+    once to x's dtype; eta and gamma are Python floats."""
+    xf, gx, gz, m, w = (t.float() for t in (x, g_x, g_z, mu, w_anchor))
+    return (xf - eta * (gx - gz + m + gamma * (xf - w))).to(x.dtype)

@@ -4,14 +4,17 @@ Imports torch only (the GPU machine has no JAX), so it runs there with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 and skips, test by test, where no CUDA device is present. Shapes are
 smollm-135m's serving shapes (9 heads over 3 KV heads, head_dim 64);
-float32 at 2e-5, bf16 at 2e-2 (one bf16 rounding of outputs <= ~4)."""
+float32 at 2e-5, bf16 at 2e-2 (one bf16 rounding of outputs <= ~4).
+svrg_update is held at float32 1e-6 (the JAX kernel test's own) and, in
+bf16 / f16, to within one rounding of its twin (both compute in float32
+and round once)."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
-                                 paged_prefill_attention, ref)
+                                 paged_prefill_attention, ref, svrg_update)
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +151,51 @@ def test_wrappers_raise_on_bad_inputs(cuda):
     kv = torch.zeros(1, KV, 8, HD, device=cuda)
     with pytest.raises(ValueError):                     # k/v on the CPU
         flash_attention(x, kv.cpu(), kv.cpu())
+
+
+def _svrg_args(rng, n, dtype, dev, offset=0):
+    """Five vectors of length n; with offset > 0 each is a view starting
+    `offset` elements into its buffer (not 16-byte aligned)."""
+    return [_rand(rng, n + offset, dtype=dtype, dev=dev)[offset:]
+            for _ in range(5)]
+
+
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (100003, 0), (17, 0),
+                                      (4099, 1)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2 ** -7),
+                                       (torch.float16, 2 ** -10)])
+def test_svrg_update_matches_twin(cuda, n, offset, dtype, tol):
+    """float32 within 1e-6 (1 + |twin|); bf16 / f16 within tol (1 + |twin|),
+    tol being one ulp at 1 (8 and 11 significant bits): kernel and twin
+    both round the same float32 value once."""
+    rng = np.random.default_rng(n + offset)
+    args = _svrg_args(rng, n, dtype, cuda, offset)
+    assert all(a.is_contiguous() for a in args)
+    before = svrg_update.launches
+    got = svrg_update(*args, 0.1, 0.5)
+    torch.cuda.synchronize()
+    assert svrg_update.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n,)
+    want = ref.svrg_update_ref(*args, 0.1, 0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_svrg_update_raises_on_bad_inputs(cuda):
+    rng = np.random.default_rng(0)
+    x, gx, gz, mu, w = _svrg_args(rng, 64, torch.float32, cuda)
+    before = svrg_update.launches
+    with pytest.raises(ValueError):                     # lengths differ
+        svrg_update(x, gx, gz, mu[:63], w, 0.1, 0.5)
+    with pytest.raises(ValueError):                     # 2-D
+        svrg_update(x.view(8, 8), gx.view(8, 8), gz.view(8, 8),
+                    mu.view(8, 8), w.view(8, 8), 0.1, 0.5)
+    with pytest.raises(TypeError):                      # dtypes differ
+        svrg_update(x, gx.bfloat16(), gz, mu, w, 0.1, 0.5)
+    with pytest.raises(TypeError):                      # float64
+        svrg_update(*(t.double() for t in (x, gx, gz, mu, w)), 0.1, 0.5)
+    with pytest.raises(ValueError):                     # one on the CPU
+        svrg_update(x, gx, gz, mu.cpu(), w, 0.1, 0.5)
+    with pytest.raises(ValueError):                     # strided view
+        svrg_update(x[::2], gx[::2], gz[::2], mu[::2], w[::2], 0.1, 0.5)
+    assert svrg_update.launches == before

@@ -1,6 +1,7 @@
 """The port's kernel twins (repro_torch/kernels/ref.py) held to the JAX
 package: each against its Pallas kernel run in interpret mode and against
-its jnp oracle, in float32 at 2e-5 (the JAX kernels' own tolerance).
+its jnp oracle, in float32 at 2e-5 (the JAX kernels' own tolerance;
+svrg_update at tests/test_kernels.py's 1e-6 in float32 and 2e-2 in bf16).
 Inputs come from numpy seeds and reach both packages as numpy arrays.
 
 The CUDA kernels themselves are held to these twins on the card by
@@ -18,10 +19,11 @@ from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E40
 from repro.kernels.paged_attention import paged_attention as jpaged  # noqa: E402
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as jprefill  # noqa: E402
+from repro.kernels.svrg_update import svrg_update as jsvrg  # noqa: E402
 from repro.models.attention import \
     streamed_paged_attention as jstreamed  # noqa: E402
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
-                                 paged_prefill_attention, ref)
+                                 paged_prefill_attention, ref, svrg_update)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -212,3 +214,36 @@ def test_wrappers_refuse_other_devices():
         paged_attention(q, q, q, q, q)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    x = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError):
+        svrg_update(x, x, x, x, x, 0.1, 0.5)
+
+
+# ----------------------------------------------------------------------------
+# fused variance-reduced prox step
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [17, 256, 4096, 100003])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_svrg_update_twin_matches_jax(n, dtype):
+    """The twin (float32 math, one rounding) against the Pallas kernel
+    (interpret mode) and the jnp oracle, which compute in the input dtype;
+    bf16 inputs are the same bits in both packages."""
+    rng = np.random.default_rng(n)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    jargs = [jnp.asarray(rng.standard_normal(n), jd) for _ in range(5)]
+    targs = [_t(np.array(a, np.float32)).to(td) for a in jargs]
+    got = ref.svrg_update_ref(*targs, 0.1, 0.5)
+    assert got.dtype == td and got.shape == (n,)
+    pallas = jsvrg(*jargs, 0.1, 0.5)
+    oracle = jref.svrg_update_ref(*jargs, jnp.asarray(0.1, jd),
+                                  jnp.asarray(0.5, jd))
+    tol = 1e-6 if dtype == "float32" else 2e-2
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=tol,
+                                   rtol=tol)
+    before = svrg_update.launches
+    torch.testing.assert_close(svrg_update(*targs, 0.1, 0.5), got, rtol=0,
+                               atol=0)
+    assert svrg_update.launches == before
