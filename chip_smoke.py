@@ -4,15 +4,22 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. build   the four CUDA kernels from src/repro_torch/kernels/csrc/
+  1. build   the five CUDA kernels from src/repro_torch/kernels/csrc/
              (one nvcc per source, all started together);
   2. kernels each kernel against its plain PyTorch twin at the shapes its
              main path gives it (error vs a stated tolerance, the
              bytes-or-flops bound): the attention kernels at smollm-135m
-             serving shapes, svrg_update at 2^20, an odd tail and an
-             unaligned view, float32 and bf16;
+             serving shapes and at recurrentgemma-2b's (10 heads over 1 KV
+             head, hd 256: flash at 2304 tokens with window 2048 and
+             without, paged decode over one 2048-slot block per row),
+             svrg_update at 2^20, an odd tail and an unaligned view,
+             rglru_scan at 2 x 512, 1 x 2304 and 4 x 1 by 2560 channels
+             (float32 bit-equal), float32 and bf16;
   3. small   a reduced float32 smollm on the card against the same model
              on the CPU (forward logits, engine tokens vs generate());
+     small_hybrid  the same for a reduced float32 recurrentgemma-2b with
+             the full model's attention shapes (forward on 2 x 40 tokens
+             past its window of 16, generate() token for token);
   4. forward full-width smollm-135m lm.forward on 2 x 256 tokens: finite
              logits, the flash kernel launched;
   5. engine  full-width smollm-135m (30 layers, d_model 576, seeded random
@@ -29,16 +36,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
              step's prox subproblem solved to a stated share of its gap,
              w_avg near the exact minibatch-prox path's, the closed-form
              suboptimality reported;
-  7. timings kernel / twin / library device time (torch.profiler) and
+  7. recurrentgemma  full-width recurrentgemma-2b (26 layers, 2.9 B seeded
+             random params, bf16): lm.forward on 1 x 2304 tokens (18
+             rglru_scan + 8 flash_attention launches), generate() on 4 x
+             64-token prompts with 32 new tokens (96 steps x 18 rglru_scan
+             and x 8 paged_attention launches), the margin rule in float32
+             (prefill + decode from its cache vs generate()), then the
+             naive serve CLI once;
+  8. timings kernel / twin / library device time (torch.profiler) and
              wall time on phase 2's inputs, then one profiled window of
-             engine decode steps and one profiled MP-DSVRG outer step at
-             d = 2^20 (device busy vs wall, top kernels).
-Launch counters are zeroed just before phases 4, 5 (per stream) and 6 and
-read just after, so the launches reported are the main paths' own. The
-last lines are the card's name and power limit, the kernels JSON line and
-{"ok": true, "device": {...}}. `--record PATH` also writes the full
-record (per-stream telemetry, every divergence, the profiles) as JSON. It
-needs a CUDA device and the repo's src/.
+             engine decode steps, one profiled MP-DSVRG outer step at
+             d = 2^20 and profiled recurrentgemma decode steps (device busy
+             vs wall, top kernels).
+Launch counters are zeroed just before phases 4, 5 (per stream), 6 and 7
+(its forward and its generate() run) and read just after, so the launches
+reported are the main paths' own. The last lines are the card's name and
+power limit, the kernels JSON line and {"ok": true, "device": {...}}.
+`--record PATH` also writes the full record (per-stream telemetry, every
+divergence, the profiles) as JSON. It needs a CUDA device and the repo's
+src/.
 """
 import argparse
 import dataclasses
@@ -196,7 +212,7 @@ def phase_kernels(dev):
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      paged_prefill_attention, ref,
-                                     svrg_update)
+                                     rglru_scan, svrg_update)
     g = torch.Generator(device=dev).manual_seed(0)
     H, KV, hd, bs, M = 9, 3, 64, 16, 32
     bf = torch.bfloat16
@@ -253,6 +269,21 @@ def phase_kernels(dev):
              i32([[0]]), i32([270]))
     arm(arms, f"paged_attention generate() dense bs={s_max}",
         paged_attention(*dense), ref.paged_attention_ref(*dense))
+    # recurrentgemma-2b's attn_local decode: 10 query heads over 1 KV head,
+    # hd 256, each row's rolling buffer one block of window = 2048 slots
+    rg_ctx = i32([2048, 1500, 700, 1])
+    rg = (rn(4, 10, 256), rn(4, 2048, 1, 256), rn(4, 2048, 1, 256),
+          i32([[0], [1], [2], [3]]), rg_ctx)
+    arm(arms, "paged_attention hd256 group10 4x2048 bf16",
+        paged_attention(*rg), ref.paged_attention_ref(*rg))
+    rg_tok = int(rg_ctx.sum())
+    rg_bound = _bound_ms(2 * _nbytes(rg[0]) + _nbytes(rg[3], rg[4])
+                         + 2 * rg_tok * 256 * 2, 4 * 10 * 256 * rg_tok)
+    rg_arm = dict(label="hd256 group10 B=4, one 2048-slot block, ctx "
+                        "2048/1500/700/1, bf16",
+                  _fns=(lambda a=rg: paged_attention(*a),
+                        lambda a=rg: ref.paged_attention_ref(*a), None),
+                  bound_ms=rg_bound[0], bound_by=rg_bound[1])
     n_tok = int(ctx.sum())
     # q in, out back, the tables, and each context token's K and V once
     nbytes = (2 * _nbytes(q) + _nbytes(tables, ctx)
@@ -266,7 +297,7 @@ def phase_kernels(dev):
               lambda a=args: ref.paged_attention_ref(*a), None),
         bound_ms=bound, bound_by=by,
         shape=dict(B=B, H=H, KV=KV, hd=hd, bs=bs, M=M, ctx=ctx.tolist()),
-        **worst(arms)))
+        _extra=[rg_arm], **worst(arms)))
 
     # -- paged_prefill, at each shape the engine gives it: an admission of
     # 4 x 128 (a fresh prompt, a cached prefix, a long cached prefix and a
@@ -332,6 +363,26 @@ def phase_kernels(dev):
             ref.flash_attention_ref(q, k, v, causal=causal))
     bound, by = _bound_ms(2 * _nbytes(q) + _nbytes(k, v),
                           4 * 2 * H * hd * S * (S + 1) // 2)
+    # recurrentgemma-2b's lm.forward at 2304 tokens: 10 heads over 1 KV
+    # head, hd 256, the attn_local window 2048 (and plain causal)
+    Sr, Wr = 2304, 2048
+    qr, kr, vr = rn(1, 10, Sr, 256), rn(1, 1, Sr, 256), rn(1, 1, Sr, 256)
+    for w in (Wr, 0):
+        arm(arms, f"flash_attention 1x10x{Sr} hd256 window={w}",
+            flash_attention(qr, kr, vr, window=w),
+            ref.flash_attention_ref(qr, kr, vr, window=w))
+    pairs = sum(min(i + 1, Wr) for i in range(Sr))
+    fb = _bound_ms(2 * _nbytes(qr) + _nbytes(kr, vr), 4 * 10 * 256 * pairs)
+    kpos = torch.arange(Sr, device=dev)
+    mask = ((kpos[None, :] <= kpos[:, None])
+            & (kpos[None, :] > kpos[:, None] - Wr))
+    fl_arm = dict(label=f"1 x 10 x {Sr}, hd 256, window {Wr}, bf16",
+                  _fns=(lambda: flash_attention(qr, kr, vr, window=Wr),
+                        lambda: ref.flash_attention_ref(qr, kr, vr,
+                                                        window=Wr),
+                        lambda: F.scaled_dot_product_attention(
+                            qr, kr, vr, attn_mask=mask, enable_gqa=True)),
+                  bound_ms=fb[0], bound_by=fb[1])
     out.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -341,7 +392,8 @@ def phase_kernels(dev):
               lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=bound, bound_by=by,
-        shape=dict(B=2, H=H, KV=KV, S=S, hd=hd), **worst(arms)))
+        shape=dict(B=2, H=H, KV=KV, S=S, hd=hd), _extra=[fl_arm],
+        **worst(arms)))
 
     # -- svrg_update: n = 64 (the core phase's paper-lsq width), n = 2^20
     # (parameter-sized vectors), an odd tail, and views one element into
@@ -372,6 +424,54 @@ def phase_kernels(dev):
         bound_ms=bound, bound_by=by, shape=dict(n=n, dtype="float32"),
         **worst(arms, f"float32 {SVRG_TOL_F32} (1 + |twin|); bf16 "
                       f"{SVRG_TOL_ULPS} ulp")))
+
+    # -- rglru_scan at recurrentgemma-2b's width (rnn_width 2560): a
+    # prefill of 2 x 512, lm.forward's 1 x 2304, and a decode step of 4
+    # lanes (T = 1, the carried state as h0); float32 (the model's own
+    # inputs: its gates are float32) bit-equal to the twin, bf16 within
+    # the ulp tolerance; h_T bit-equal in every arm
+    arms = []
+    C = 2560
+    for B_, T_ in ((2, 512), (1, 2304), (4, 1)):
+        for dt in (torch.float32, bf):
+            for with_h0 in (False, True):
+                a_ = torch.sigmoid(rn(B_, T_, C, dt=torch.float32) * 2
+                                   ).to(dt)
+                x_ = (rn(B_, T_, C, dt=torch.float32) * 0.3).to(dt)
+                h0 = rn(B_, C, dt=torch.float32) if with_h0 else None
+                got, got_h = rglru_scan(a_, x_, h0)
+                want, want_h = ref.rglru_scan_ref(a_, x_, h0)
+                name = (f"rglru_scan {B_}x{T_}x{C} {dt} "
+                        f"h0={'yes' if with_h0 else 'no'}")
+                tol = (dict(f32_tol=0.0) if dt == torch.float32
+                       else dict(tol_ulps=TOL_ULPS))
+                arm(arms, name, got, want, **tol)
+                arm(arms, name + " h_T", got_h, want_h, f32_tol=0.0)
+    # the decode step's shape, where 1728 of a generate() run's launches
+    # go; two reads, one write per element, plus h0 read and h_T written
+    dec = (torch.sigmoid(rn(4, 1, C, dt=torch.float32)),
+           rn(4, 1, C, dt=torch.float32), rn(4, C, dt=torch.float32))
+    bound, by = _bound_ms(3 * _nbytes(dec[0]) + 2 * _nbytes(dec[2]),
+                          2 * dec[0].numel(), "f32")
+    fw = (torch.sigmoid(rn(1, 2304, C, dt=torch.float32)),
+          rn(1, 2304, C, dt=torch.float32), rn(1, C, dt=torch.float32))
+    fwb = _bound_ms(3 * _nbytes(fw[0]) + 2 * _nbytes(fw[2]),
+                    2 * fw[0].numel(), "f32")
+    out.append(dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:44",
+        _fns=(lambda: rglru_scan(*dec), lambda: ref.rglru_scan_ref(*dec),
+              None),
+        bound_ms=bound, bound_by=by, shape=dict(B=4, T=1, C=C,
+                                                dtype="float32"),
+        # the twin is a 2304-step host loop: 3 timed calls, not 20
+        _extra=[dict(label=f"1 x 2304 x {C} float32 (lm.forward)",
+                     _fns=(lambda: rglru_scan(*fw),
+                           lambda: ref.rglru_scan_ref(*fw), None),
+                     bound_ms=fwb[0], bound_by=fwb[1], _reps=3)],
+        **worst(arms, f"float32 bit-equal; bf16 {TOL_ULPS} bf16 ulps; "
+                      f"h_T bit-equal")))
     return out
 
 
@@ -380,21 +480,28 @@ def phase_timings(kern):
     inputs: ms / plain_ms / library_ms are device time per call, with the
     wall-clock (CUDA event) time per call of each beside it. Runs after
     the main path, so the profiler's hooks cannot slow it."""
-    for r in kern:
+    def timed(r):
+        reps = r.pop("_reps", 20)
         for key, fn in zip(("ms", "plain_ms", "library_ms"), r.pop("_fns")):
             wall_key = key.replace("ms", "wall_ms")
             if fn is None:
                 r[key], r[wall_key] = None, None
                 continue
-            dev_ms, r[wall_key] = _times(fn)
+            dev_ms, r[wall_key] = _times(fn, reps)
             if dev_ms is None:
                 raise AssertionError("torch.profiler reported no device "
                                      "time")
             r[key] = dev_ms
-        print(f"[timings] {r['name']}: device {r['ms']:.4f} ms per call "
-              f"(wall {r['wall_ms']:.4f}); twin {r['plain_ms']:.4f} (wall "
-              f"{r['plain_wall_ms']:.4f}); library {r['library_ms']}; "
-              f"bound {r['bound_ms']:.5f} by {r['bound_by']}")
+        return (f"device {r['ms']:.4f} ms per call (wall {r['wall_ms']:.4f}"
+                f"); twin {r['plain_ms']:.4f} (wall {r['plain_wall_ms']:.4f})"
+                f"; library {r['library_ms']}; bound {r['bound_ms']:.5f} by "
+                f"{r['bound_by']}")
+
+    for r in kern:
+        print(f"[timings] {r['name']}: {timed(r)}")
+        r["timed_arms"] = r.pop("_extra", [])
+        for e in r["timed_arms"]:
+            print(f"[timings]   {r['name']} at {e['label']}: {timed(e)}")
 
 
 def _first_divergence(a, b):
@@ -465,6 +572,243 @@ def phase_small(dev):
           f"{rec['requests']} exact, "
           f"{len(rec['diverged_within_bound'])} within the margin bound")
     return {"forward_max_abs_err": err, "engine_vs_generate": rec}
+
+
+def phase_small_hybrid(dev):
+    """A reduced float32 recurrentgemma-2b at the full model's attention
+    shapes (10 query heads over 1 KV head, head_dim 256; window 16, 2 + 2 x
+    (rec, rec, attn_local) layers) on the card against the same model on
+    the CPU (the kernels' twins): forward logits on 2 x 40 tokens, so the
+    window bites, within 1e-4; greedy generate() token for token."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import to_device
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_config("recurrentgemma-2b").reduced(head_dim=256, n_heads=10,
+                                                  n_kv_heads=1)
+    params = lm.init_params(0, cfg, device="cpu")
+    cuda_params = to_device(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    want, _ = lm.forward(params, cfg, {"tokens": toks})
+    got, _ = lm.forward(cuda_params, cfg, {"tokens": toks.to(dev)})
+    err = (got.cpu() - want).abs().max().item()
+    print(f"[small_hybrid] forward logits cuda vs cpu (window "
+          f"{cfg.window}, 40 tokens): max_abs_err {err:.3g} (tolerance "
+          f"1e-4)")
+    if err > 1e-4:
+        raise AssertionError(f"small hybrid forward differs: {err}")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24),
+                            generator=torch.Generator().manual_seed(2))
+    want_t = generate(params, cfg, prompts, 32, device="cpu")
+    got_t = generate(cuda_params, cfg, prompts, 32, device=dev)
+    same = bool(torch.equal(got_t.cpu(), want_t))
+    print(f"[small_hybrid] generate() 2 x 24 + 32 tokens cuda vs cpu: "
+          f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("small hybrid generate() differs between the "
+                             "card and the CPU")
+    return {"forward_max_abs_err": err, "generate_equal": same}
+
+
+def _greedy_from_prefill(params, cfg, prompts, gen_len):
+    """Greedy decode from lm.prefill's cache (the whole prompt in one
+    pass, then decode_step from the state it leaves)."""
+    from repro_torch.models import lm
+    P = prompts.shape[1]
+    logits, cache = lm.prefill(params, cfg, {"tokens": prompts})
+    state = lm.decode_state_from_prefill(cfg, cache, P + gen_len + 1)
+    logits = logits[:, -1]
+    out = []
+    for i in range(gen_len):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+        logits, state = lm.decode_step(params, cfg, state, tok, P + i)
+    return torch.stack(out, dim=1)
+
+
+def phase_recurrentgemma(dev):
+    """Full-width recurrentgemma-2b (26 layers: 18 RG-LRU, 8 attn_local
+    with window 2048; d_model 2560, 10 heads over 1 KV head, head_dim 256,
+    vocab 256000; seeded random weights, float32 master and the bf16 cast
+    on the card). lm.forward on 1 x 2304 tokens (past the window);
+    generate() on 4 x 64-token prompts with 32 new tokens; the margin rule
+    on two rows in float32 (prefill + decode from its cache against
+    generate()). Launch counters are zeroed before, and read after, the
+    forward and the generate() run: each must launch exactly its derived
+    counts. Returns (record, the bf16 params, for the decode profile)."""
+    import numpy as np
+    from repro_torch import convert, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_config("recurrentgemma-2b")
+    kinds = lm.layer_kinds(cfg)
+    n_rec, n_attn = kinds.count("rec"), kinds.count("attn_local")
+    t0 = time.perf_counter()
+    master = lm.init_params(0, cfg, device=dev)
+    params = lm.cast_params(master, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = convert.param_count(master)
+    gib = torch.cuda.memory_allocated() / 2**30
+    print(f"[recurrentgemma] {cfg.n_layers} layers ({n_rec} rec, {n_attn} "
+          f"attn_local), {n_params} params, init + bf16 cast {init_s:.2f} s, "
+          f"{gib:.1f} GiB allocated")
+    rec = {"params": n_params, "init_s": init_s, "allocated_gib": gib}
+    zero = {k: 0 for k in kernels.launch_counts()}
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    S = 2304
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device=dev, generator=g)
+    with torch.inference_mode():
+        lm.forward(params, cfg, {"tokens": toks[:, :64]})     # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = lm.forward(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    want = dict(zero, rglru_scan=n_rec, flash_attention=n_attn)
+    print(f"[recurrentgemma] forward 1 x {S}: logits {shape} finite={finite}"
+          f" in {fwd_s * 1e3:.1f} ms; launches {counts}")
+    if not finite or shape != (1, S, cfg.vocab_size):
+        raise AssertionError("full-width forward logits are not finite or "
+                             "misshapen")
+    if counts != want:
+        raise AssertionError(f"forward launches {counts}, expected {want}")
+    rec["forward"] = {"tokens": S, "ms": fwd_s * 1e3, "launches": counts}
+
+    B, P, N = 4, 64, 32
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                            generator=g)
+    generate(params, cfg, prompts[:, :2], 2, device=dev)     # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, margins = generate(params, cfg, prompts, N, device=dev,
+                               return_margins=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    steps = P + N
+    want = dict(zero, rglru_scan=steps * n_rec,
+                paged_attention=steps * n_attn)
+    gen = {"batch": B, "prompt": P, "new": N, "decode_steps": steps,
+           "seconds": gen_s, "tokens_per_s": B * N / gen_s,
+           "ms_per_step": gen_s * 1e3 / steps, "launches": counts,
+           "margin_median": float(margins.median())}
+    print(f"[recurrentgemma] generate() {B} x {P} + {N}: {gen_s:.2f} s, "
+          f"{gen['tokens_per_s']:.1f} tokens/s, {gen['ms_per_step']:.2f} ms "
+          f"per decode step ({steps} steps); launches {counts}")
+    if counts != want:
+        raise AssertionError(f"generate() launches {counts}, expected "
+                             f"{want} ({steps} steps x {n_rec} rec / "
+                             f"{n_attn} attn_local layers)")
+    if tokens.shape != (B, N) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("generate() tokens misshapen or out of range")
+    rec["generate"] = gen
+
+    # the margin rule in float32: prefill + decode from its cache against
+    # generate() on the same two prompts
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p2 = prompts[:2]
+    ref_t, ref_m = generate(master, cfg32, p2, N, device=dev,
+                            return_margins=True)
+    with torch.inference_mode():
+        got_t = _greedy_from_prefill(master, cfg32, p2, N)
+    rows = []
+    for r in range(2):
+        a, b = got_t[r].cpu().numpy(), ref_t[r].cpu().numpy()
+        i = _first_divergence(a, b)
+        gap = None if i is None else float(ref_m[r, i])
+        rows.append({"row": r, "first_divergence": i, "margin": gap})
+        if i is not None and gap > MARGIN_BOUND_F32:
+            raise AssertionError(
+                f"row {r}: prefill + decode and generate() diverge at token "
+                f"{i} where generate()'s top-1/top-2 margin is {gap:.5f} > "
+                f"{MARGIN_BOUND_F32}")
+    m32 = ref_m.float().cpu().numpy().ravel()
+    rec["margin_rule_f32"] = {"rows": rows, "bound": MARGIN_BOUND_F32,
+                              "generate_margin_median": float(np.median(m32)),
+                              "generate_margin_min": float(m32.min())}
+    print(f"[recurrentgemma] float32 prefill + decode vs generate() (2 x "
+          f"{P} + {N}): first divergences {[x['first_divergence'] for x in rows]}"
+          f" (margin bound {MARGIN_BOUND_F32}); generate() gaps median "
+          f"{np.median(m32):.4f}, min {m32.min():.2e}")
+    del master
+    torch.cuda.empty_cache()
+    return rec, params
+
+
+def profile_rg_decode(params, cfg, dev, n_steps=4):
+    """Where one full-width recurrentgemma decode step's time goes: 4 lanes
+    at position 100 (8 warm-up steps first), n_steps lm.decode_step calls
+    under torch.profiler. Wall and device-busy ms per step, the idle share,
+    kernel launches per step and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    B, start = 4, 100
+    state = lm.init_decode_state(cfg, B, start + 8 + n_steps + 1, device=dev)
+    tok = torch.zeros(B, dtype=torch.int32, device=dev)
+    pos = start
+    with torch.inference_mode():
+        for _ in range(8):
+            logits, state = lm.decode_step(params, cfg, state, tok, pos)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            pos += 1
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                logits, state = lm.decode_step(params, cfg, state, tok, pos)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                pos += 1
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n_steps
+    if busy <= 0:
+        raise AssertionError("torch.profiler reported no device time for "
+                             "the recurrentgemma decode step")
+    launches = sum(e.count for e in kern) / n_steps
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"batch": B, "position": start + 8, "wall_ms_per_step": wall,
+           "device_busy_ms_per_step": busy, "idle_share": 1.0 - busy / wall,
+           "kernel_launches_per_step": launches,
+           "top_kernels": [{"name": e.key[:80], "ms_per_step":
+                            e.self_device_time_total / 1e3 / n_steps,
+                            "calls_per_step": e.count / n_steps}
+                           for e in top]}
+    print(f"[profile] recurrentgemma decode step (4 lanes): wall {wall:.2f} "
+          f"ms, device busy {busy:.3f} ms (idle {out['idle_share']:.1%}), "
+          f"{launches:.0f} kernel launches per step")
+    for t in out["top_kernels"]:
+        print(f"[profile]   {t['ms_per_step']:.4f} ms x "
+              f"{t['calls_per_step']:.0f}  {t['name']}")
+    return out
+
+
+def phase_serve_cli(dev):
+    """The naive serve CLI once at full width (its own seeded params)."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    serve.main(["--arch", "recurrentgemma-2b", "--full-width", "--mode",
+                "naive", "--batch", "2", "--prompt-len", "16", "--max-new",
+                "8", "8", "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"[serve_cli] recurrentgemma-2b --full-width --mode naive: "
+          f"{secs:.1f} s")
+    return {"seconds": secs}
 
 
 def phase_forward(params, cfg, dev):
@@ -541,7 +885,7 @@ def phase_engine(params, cfg, dev):
         prefills = stats["prefill"]["dispatches"]
         want = {"paged_prefill": cfg.n_layers * (prefills + verifies),
                 "paged_attention": cfg.n_layers * (eng.steps - verifies),
-                "flash_attention": 0, "svrg_update": 0}
+                "flash_attention": 0, "svrg_update": 0, "rglru_scan": 0}
         results.append((name, reqs, done, stats))
         print(f"[engine] {name}: {stats['requests']} requests, "
               f"{stats['generated_tokens']} tokens, "
@@ -915,25 +1259,47 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
-    record["build"] = phase_build()
-    kern = phase_kernels(dev)
-    record["small"] = phase_small(dev)
+              "cuda": torch.version.cuda, "phase_seconds": {}}
+
+    def phase(name, fn, *a):
+        """Run one phase; its wall seconds go to record["phase_seconds"]."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        record["phase_seconds"][name] = time.perf_counter() - t0
+        return out
+
+    record["build"] = phase("build", phase_build)
+    kern = phase("kernels", phase_kernels, dev)
+    record["small"] = phase("small", phase_small, dev)
+    record["small_hybrid"] = phase("small_hybrid", phase_small_hybrid, dev)
     cfg = get_config("smollm-135m")
     params = lm.cast_params(lm.init_params(0, cfg, device=dev), cfg)
-    record["forward"] = phase_forward(params, cfg, dev)
-    record["engine"], engine = phase_engine(params, cfg, dev)
-    record["core"], profile_outer_step = phase_core(dev)
+    record["forward"] = phase("forward", phase_forward, params, cfg, dev)
+    record["engine"], engine = phase("engine", phase_engine, params, cfg,
+                                     dev)
+    record["core"], profile_outer_step = phase("core", phase_core, dev)
+    record["recurrentgemma"], rg_params = phase(
+        "recurrentgemma", phase_recurrentgemma, dev)
+    record["serve_cli"] = phase("serve_cli", phase_serve_cli, dev)
     # profiled last: torch.profiler's hooks stay behind in the process
-    phase_timings(kern)
-    record["decode_profile"] = profile_decode(engine, cfg.vocab_size)
-    record["core_profile"] = profile_outer_step()
+    phase("timings", phase_timings, kern)
+    record["decode_profile"] = phase("decode_profile", profile_decode,
+                                     engine, cfg.vocab_size)
+    record["core_profile"] = phase("core_profile", profile_outer_step)
+    record["recurrentgemma_decode_profile"] = phase(
+        "recurrentgemma_decode_profile", profile_rg_decode, rg_params,
+        get_config("recurrentgemma-2b"), dev)
+    rg = record["recurrentgemma"]
     launches = {"flash_attention":
-                record["forward"]["launches"]["flash_attention"],
+                record["forward"]["launches"]["flash_attention"]
+                + rg["forward"]["launches"]["flash_attention"],
                 "paged_attention":
-                record["engine"]["launches"]["paged_attention"],
+                record["engine"]["launches"]["paged_attention"]
+                + rg["generate"]["launches"]["paged_attention"],
                 "paged_prefill": record["engine"]["launches"]["paged_prefill"],
-                "svrg_update": record["core"]["svrg_update_launches"]}
+                "svrg_update": record["core"]["svrg_update_launches"],
+                "rglru_scan": rg["forward"]["launches"]["rglru_scan"]
+                + rg["generate"]["launches"]["rglru_scan"]}
     for k in kern:
         k["launches"] = launches[k["name"]]
     record["kernels"] = kern
@@ -942,7 +1308,9 @@ def main(argv=None):
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(record, indent=1))
-    print(f"[done] {record['seconds']:.1f} s")
+    print(f"[done] {record['seconds']:.1f} s; by phase "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      record["phase_seconds"].items()))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

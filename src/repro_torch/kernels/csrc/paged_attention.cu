@@ -19,16 +19,27 @@
 // entries (the TPU kernel's scalar prefetch) and sweeps only ceil(ctx/bs)
 // blocks' worth of tokens. Four warps split the tokens; within a warp each
 // lane owns hd/32 dims, dots are warp-shuffle reductions, and m / l / acc
-// stay in float32 registers. The four warps' partial states are merged in
-// shared memory. Tokens at or past ctx are never read. Splitting the token
-// axis across blocks (flash-decoding) to fill the card is a later change.
+// stay in float32 registers, and so does q up to hd 128 (a group of up to
+// 8). At hd 256 (a group of up to 16: recurrentgemma-2b has 10 query heads
+// over one KV head) q sits in dynamic shared memory instead, which keeps
+// the registers for acc. After the sweep the four warps' partial acc
+// (4 * group * hd floats: 40 KiB at group 10, hd 256) are merged in the
+// same dynamic buffer. Tokens at or past ctx are never read. Splitting the
+// token axis across blocks (flash-decoding) to fill the card is a later
+// change.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NW = 4;    // warps per block
-constexpr int MAXG = 8;  // largest GQA group (H / KV) supported
+constexpr int NW = 4;  // warps per block
+
+// Largest GQA group (H / KV) an instantiation takes. The per-group loops
+// are unrolled to this bound, the groups past H / KV skipped; a bound of
+// 16 at hd 64 slowed smollm's group-3 decode by a quarter (PERF.md), so it
+// stays 8 where the configs' groups fit (hd 64 / 128) and is 16 at hd 256.
+template <int HD>
+__host__ __device__ constexpr int max_group() { return HD >= 256 ? 16 : 8; }
 
 template <typename TQ, typename TKV, int HD, bool QUANT>
 __global__ void __launch_bounds__(NW * 32)
@@ -42,24 +53,41 @@ __global__ void __launch_bounds__(NW * 32)
                            TQ* __restrict__ out, int H, int KV, int bs, int M,
                            float scale) {
   constexpr int PER = HD / 32;  // dims per lane
+  constexpr int MAXG = max_group<HD>();
+  // q in registers up to hd 128 (MAXG * PER <= 32 floats a lane); at hd
+  // 256 a group of 16 would need 128 more, so q waits in shared memory
+  constexpr bool Q_SMEM = HD >= 256;
+  // the warps' acc (NW x group x HD) after the sweep; q (group x HD)
+  // during it when Q_SMEM
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float sm_m[NW][MAXG], sm_l[NW][MAXG];
   const int b = blockIdx.x, kvh = blockIdx.y;
   const int group = H / KV;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ctx = min(ctx_lens[b], M * bs);
 
-  float qv[MAXG][PER], acc[MAXG][PER], m[MAXG], l[MAXG];
+  // the group's query rows are contiguous: heads kvh * group + g
+  const TQ* qg = q + ((size_t)b * H + (size_t)kvh * group) * HD;
+  float qv[Q_SMEM ? 1 : MAXG][PER];
+  if constexpr (Q_SMEM) {
+    for (int e = threadIdx.x; e < group * HD; e += NW * 32)
+      smem[e] = rt::to_f(qg[e]);
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        qv[g][i] = g < group ? rt::to_f(qg[g * HD + lane + 32 * i]) : 0.f;
+  }
+
+  float acc[MAXG][PER], m[MAXG], l[MAXG];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = rt::NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      acc[g][i] = 0.f;
-      qv[g][i] = g < group
-                     ? rt::to_f(q[((size_t)b * H + kvh * group + g) * HD +
-                                  lane + 32 * i])
-                     : 0.f;
-    }
+    for (int i = 0; i < PER; ++i) acc[g][i] = 0.f;
   }
 
   for (int t = warp; t < ctx; t += NW) {
@@ -79,7 +107,11 @@ __global__ void __launch_bounds__(NW * 32)
       if (g < group) {
         float part = 0.f;
 #pragma unroll
-        for (int i = 0; i < PER; ++i) part += qv[g][i] * kf[i];
+        for (int i = 0; i < PER; ++i) {
+          const float qi = Q_SMEM ? smem[g * HD + lane + 32 * i]
+                                  : qv[Q_SMEM ? 0 : g][i];
+          part += qi * kf[i];
+        }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, o);
@@ -95,9 +127,9 @@ __global__ void __launch_bounds__(NW * 32)
     }
   }
 
-  // merge the warps' partial states
-  __shared__ float sm_m[NW][MAXG], sm_l[NW][MAXG];
-  __shared__ float sm_acc[NW][MAXG][HD];
+  // merge the warps' partial states (every warp done with q in smem first)
+  __syncthreads();
+  float* sm_acc = smem;
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     if (g < group) {
@@ -106,7 +138,8 @@ __global__ void __launch_bounds__(NW * 32)
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < PER; ++i) sm_acc[warp][g][lane + 32 * i] = acc[g][i];
+      for (int i = 0; i < PER; ++i)
+        sm_acc[((size_t)warp * group + g) * HD + lane + 32 * i] = acc[g][i];
     }
   }
   __syncthreads();
@@ -120,7 +153,7 @@ __global__ void __launch_bounds__(NW * 32)
     for (int w = 0; w < NW; ++w) {
       const float a = expf(sm_m[w][g] - mx);
       L += a * sm_l[w][g];
-      A += a * sm_acc[w][g][d];
+      A += a * sm_acc[((size_t)w * group + g) * HD + d];
     }
     out[((size_t)b * H + kvh * group + g) * HD + d] =
         rt::from_f<TQ>(A / fmaxf(L, 1e-30f));
@@ -133,7 +166,14 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int32_t* ctx, void* out, int B, int H, int KV, int bs,
                    int M, float scale, cudaStream_t stream) {
   dim3 grid(B, KV);
-  paged_attention_kernel<TQ, TKV, HD, QUANT><<<grid, NW * 32, 0, stream>>>(
+  const size_t smem = (size_t)NW * (H / KV) * HD * sizeof(float);
+  if (smem > 48 * 1024) {  // past the default dynamic limit: opt in
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_kernel<TQ, TKV, HD, QUANT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  paged_attention_kernel<TQ, TKV, HD, QUANT><<<grid, NW * 32, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
       static_cast<const TKV*>(vp), ks, vs, tables, ctx, static_cast<TQ*>(out),
       H, KV, bs, M, scale);
@@ -171,6 +211,9 @@ cudaError_t by_hd(int hd, int kv_dtype, int q_dtype, const void* q,
   if (hd == 128)
     return by_pool<TQ, 128>(kv_dtype, q_dtype, q, kp, vp, ks, vs, tables,
                             ctx, out, B, H, KV, bs, M, scale, stream);
+  if (hd == 256)
+    return by_pool<TQ, 256>(kv_dtype, q_dtype, q, kp, vp, ks, vs, tables,
+                            ctx, out, B, H, KV, bs, M, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -185,7 +228,9 @@ extern "C" int paged_attention(const void* q, const void* k_pool,
                                const void* ctx_lens, void* out, int q_dtype,
                                int kv_dtype, int B, int H, int KV, int hd,
                                int bs, int M, float scale, void* stream) {
-  if (H % KV != 0 || H / KV > MAXG) return cudaErrorInvalidValue;
+  if (H % KV != 0 || KV <= 0) return cudaErrorInvalidValue;
+  if (H / KV > (hd >= 256 ? max_group<256>() : max_group<64>()))
+    return cudaErrorInvalidValue;
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int32_t* tb = static_cast<const int32_t*>(tables);

@@ -10,14 +10,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS
+from repro_torch.kernels.build import FLOAT_DTYPES
+
+HEAD_DIMS = build.HEAD_DIMS["flash_attention"]
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd), one float dtype; KV head
-    h // (H / KV). Returns (B, H, Sq, hd)."""
+    h // (H / KV). window > 0: key u is visible to query i only when
+    u > i - window (local attention). Returns (B, H, Sq, hd)."""
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, Sq, hd = q.shape
@@ -40,7 +43,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd,
-                 int(causal), hd ** -0.5, build.stream())
+                 int(causal), max(int(window), 0), hd ** -0.5,
+                 build.stream())
     build.check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out

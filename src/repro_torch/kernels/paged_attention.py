@@ -10,9 +10,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS, QUANT_DTYPES
+from repro_torch.kernels.build import FLOAT_DTYPES, QUANT_DTYPES
 
-MAX_GROUP = 8              # largest H / KV the CUDA kernel takes
+HEAD_DIMS = build.HEAD_DIMS["paged_attention"]
+# largest H / KV the CUDA kernel takes, by head dim (csrc max_group)
+MAX_GROUP = {64: 8, 128: 8, 256: 16}
 
 
 def _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale):
@@ -43,9 +45,9 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale):
     if v_pool.shape != k_pool.shape or hd_p != hd or H % KV:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} vs pool "
                          f"{tuple(k_pool.shape)}")
-    if hd not in HEAD_DIMS or H // KV > MAX_GROUP:
+    if hd not in HEAD_DIMS or H // KV > MAX_GROUP[hd]:
         raise ValueError(f"paged_attention: CUDA kernel takes head_dim in "
-                         f"{HEAD_DIMS} and H/KV <= {MAX_GROUP}; got "
+                         f"{HEAD_DIMS} and H/KV up to {MAX_GROUP}; got "
                          f"hd={hd}, H/KV={H // KV}")
     if quant and (k_scale.shape != (N, bs, KV) or v_scale.shape != (N, bs, KV)
                   or k_scale.dtype != torch.float32

@@ -90,19 +90,22 @@ def paged_prefill_ref(q, k_suf, v_suf, k_pool, v_pool, block_tables, starts,
     return o.permute(0, 3, 1, 2, 4).reshape(N, Ls, H, hd).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd); KV head h // (H / KV).
-    Returns (B, H, Sq, hd) in q's dtype."""
+    Key u is visible to query i when u <= i (causal) and, for window > 0,
+    u > i - window (the JAX path's local-attention mask). Returns
+    (B, H, Sq, hd) in q's dtype."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, KV, H // KV, Sq, hd)
     kf = k.float()[:, :, None]
     vf = v.float()[:, :, None]
-    if causal:
-        valid = (torch.arange(Sk, device=q.device)[None, :]
-                 <= torch.arange(Sq, device=q.device)[:, None])
-    else:
-        valid = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    valid = (kpos <= qpos) if causal else torch.ones(
+        Sq, Sk, dtype=torch.bool, device=q.device)
+    if window > 0:
+        valid = valid & (kpos > qpos - window)
     o = _masked_attention(qf, kf, vf, valid, hd ** -0.5)
     return o.reshape(B, H, Sq, hd).to(q.dtype)
 
@@ -116,3 +119,23 @@ def svrg_update_ref(x, g_x, g_z, mu, w_anchor, eta: float, gamma: float):
     once to x's dtype; eta and gamma are Python floats."""
     xf, gx, gz, m, w = (t.float() for t in (x, g_x, g_z, mu, w_anchor))
     return (xf - eta * (gx - gz + m + gamma * (xf - w))).to(x.dtype)
+
+
+def rglru_scan_ref(a, x, h0=None):
+    """Gated linear recurrence h_t = a_t * h_{t-1} + x_t per channel.
+
+    a, x: (B, T, C) of one float dtype; h0: (B, C) float32 or None (zeros).
+    The state is float32; each step is a float32 multiply then a float32
+    add, each rounded on its own (no fused multiply-add), as the kernel
+    does them. Returns (h_seq (B, T, C) in x's dtype, h_T (B, C) float32)."""
+    B, T, C = a.shape
+    h = (torch.zeros(B, C, dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, xf = a.float(), x.float()
+    hs = []
+    for t in range(T):
+        h = af[:, t] * h + xf[:, t]
+        hs.append(h)
+    h_seq = (torch.stack(hs, dim=1) if hs
+             else torch.empty(B, 0, C, device=a.device))
+    return h_seq.to(x.dtype), h

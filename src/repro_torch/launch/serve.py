@@ -13,11 +13,18 @@
     # on a machine without a GPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
+    # the hybrid recurrentgemma-2b (RG-LRU + local attention) through the
+    # fixed-batch generate() path:
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b --mode naive --device cpu
+
 The CLI serves the `.reduced()` config (like the JAX CLI) through the
 single-replica engine; `--full-width` serves the published config. The
-router, autoscaler and SLO flags, sampled decoding and the quantized /
-host-tier KV options belong to later slices and stop the CLI with an
-error naming them.
+engine takes attention-only archs: for recurrentgemma-2b `--mode engine`
+raises NotImplementedError (the hybrid engine slice) and `--mode naive`
+runs it. The router, autoscaler and SLO flags, sampled decoding and the
+quantized / host-tier KV options belong to later slices and stop the CLI
+with an error naming them.
 
 `generate()` is the reference path: it primes a dense KV cache one token
 at a time and decodes a fixed batch in lockstep; the engine's greedy
@@ -51,7 +58,7 @@ from repro_torch.serving.observability import (NULL_OBS, Observability,
 @torch.inference_mode()
 def generate(params, cfg, prompts, gen_len: int, *, temperature: float = 0.0,
              seed: int = 0, device=None, return_margins: bool = False):
-    """prompts: (B, P) int. Greedy decode with a dense KV cache primed
+    """prompts: (B, P) int (an array, list or tensor). Greedy decode with a dense KV cache primed
     token by token from the prompt. Returns (B, gen_len) int32 tokens on
     the device; with return_margins also the (B, gen_len) float32
     top-1 minus top-2 logit gap of the step that chose each token.
@@ -63,7 +70,7 @@ def generate(params, cfg, prompts, gen_len: int, *, temperature: float = 0.0,
             "the PyTorch port decodes greedily until the sampling slice")
     dev = resolve_device(device)
     params = lm.cast_params(to_device(params, dev), cfg)
-    prompts = torch.as_tensor(np.asarray(prompts), device=dev)
+    prompts = torch.as_tensor(prompts, device=dev)
     B, P = prompts.shape
     state = lm.init_decode_state(cfg, B, P + gen_len + 1, device=dev)
     logits = None

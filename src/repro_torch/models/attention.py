@@ -15,8 +15,9 @@ their plain twins on CPU tensors):
   paged_prefill_attention_block   -> kernels.paged_prefill
 
 Caches and pools are updated in place (the JAX runner donates them).
-Quantized (int8 / fp8) pools, the paged decode `window` and the dense
-path's `window` / `prefix_len` on CUDA belong to later slices and raise.
+The dense path's local-attention `window` runs through the flash kernel;
+quantized (int8 / fp8) pools, the paged decode `window` and the dense
+path's bidirectional `prefix_len` on CUDA belong to later slices and raise.
 """
 from __future__ import annotations
 
@@ -91,22 +92,24 @@ def attention_block(params, x, positions, cfg, *, window: int = 0,
                     prefix_len: int = 0, return_kv: bool = False):
     """Full attention sub-layer (projections + causal attention).
 
-    Plain causal attention (window 0, no prefix) runs through the flash
-    kernel wrapper; `cfg.attn_impl` ("chunked" / "bisect") selects between
-    two TPU-side formulations of the same exact attention and has no
-    counterpart here. return_kv=True also returns the rope'd (k, v)."""
+    Causal attention, with or without a local `window`, runs through the
+    flash kernel wrapper; `cfg.attn_impl` ("chunked" / "bisect") selects
+    between two TPU-side formulations of the same exact attention and has
+    no counterpart here. A bidirectional prefix (prefix_len > 0) takes
+    `chunked_causal_attention` on the CPU and raises on CUDA.
+    return_kv=True also returns the rope'd (k, v)."""
     B, S, D = x.shape
     q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                    positions, cfg.rope_theta)
-    if window == 0 and prefix_len == 0:
+    if prefix_len == 0:
         o = flash_attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(),
-                            causal=True).transpose(1, 2)
+                            causal=True, window=window).transpose(1, 2)
     elif x.device.type == "cuda":
         raise NotImplementedError(
-            "flash attention with a window or a bidirectional prefix has no "
-            "CUDA kernel yet (a later slice)")
+            "flash attention with a bidirectional prefix has no CUDA kernel "
+            "yet (the MoE-and-frontends slice)")
     else:
         o = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk,
                                      window=window, prefix_len=prefix_len)

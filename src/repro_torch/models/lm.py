@@ -1,4 +1,4 @@
-"""Decoder LM, attention-only paths (PyTorch port of `repro.models.lm`).
+"""Decoder LM (PyTorch port of `repro.models.lm`).
 
 Layer layout mirrors the JAX param tree with the scan axis unstacked:
 
@@ -14,10 +14,12 @@ and the decode / paged states follow the same tree. The JAX package's
 Entry points match the JAX module: init_params, cast_params, forward,
 prefill, init_decode_state, decode_step, prefill_paged, decode_step_paged,
 decode_verify_paged and commit_decode_state. Attention layers ("attn",
-"attn_local") are ported; "moe", "rwkv", "rec" blocks and the vision /
-audio frontends raise NotImplementedError until their slice. Attention
-state (dense caches, paged pools) is updated in place, and every function
-that takes a state returns the same object.
+"attn_local") and RG-LRU layers ("rec", recurrentgemma) are ported; the
+paged entry points (the serving engine) take attention-only patterns, and
+"rec" there raises until the hybrid engine slice. "moe" and "rwkv" blocks
+and the vision / audio frontends raise NotImplementedError until their
+slice. Decode state (dense caches, paged pools, recurrent state) is updated
+in place, and every function that takes a state returns the same object.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention
+from repro_torch.models import attention, recurrent
 from repro_torch.models.layers import init_embed, init_mlp, mlp, rms_norm
 
 ATTN_KINDS = ("attn", "attn_local")
@@ -43,13 +45,25 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: MoE blocks are not ported yet (the "
                 f"MoE-and-frontends slice)")
-        if kind in ("rwkv", "rec"):
+        if kind == "rwkv":
             raise NotImplementedError(
-                f"{cfg.name}: recurrent '{kind}' blocks are not ported yet "
-                f"(the recurrent-archs slice, with the rwkv6_scan / "
-                f"rglru_scan kernels)")
-        if kind not in ATTN_KINDS:
+                f"{cfg.name}: RWKV6 blocks are not ported yet (the "
+                f"rwkv6_scan slice)")
+        if kind not in ATTN_KINDS + ("rec",):
             raise ValueError(kind)
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    """The paged entry points take attention-only patterns: recurrent slot
+    state in the runner and the verify snapshots come with the hybrid
+    engine slice."""
+    _check_supported(cfg)
+    if "rec" in cfg.prefix_pattern + cfg.block_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: the paged serving path (engine) for recurrent "
+            f"'rec' blocks is not ported yet (the hybrid engine slice: "
+            f"recurrent slot state in the runner, return_states snapshots); "
+            f"use lm.decode_step / generate()")
 
 
 def _layers(tree, cfg: ModelConfig) -> Iterator[Tuple[str, dict]]:
@@ -79,6 +93,11 @@ def _init_block(gen, cfg: ModelConfig, kind: str):
     D, dt = cfg.d_model, cfg.p_dtype
     norms = {"norm1": torch.zeros(D, dtype=dt, device=gen.device),
              "norm2": torch.zeros(D, dtype=dt, device=gen.device)}
+    if kind == "rec":
+        return {**norms,
+                "rec": recurrent.init_rglru_block(gen, D, cfg.rnn_width,
+                                                  cfg.conv_width, dt),
+                "mlp": init_mlp(gen, D, cfg.d_ff, dt, cfg.mlp_kind)}
     return {**norms,
             "attn": attention.init_attention(gen, D, cfg.n_heads,
                                              cfg.n_kv_heads, cfg.head_dim,
@@ -142,11 +161,22 @@ def _mlp_residual(p, x, cfg: ModelConfig):
 # ----------------------------------------------------------------------------
 
 def _run_blocks_seq(params, cfg: ModelConfig, h, positions,
-                    collect_kv: bool = False):
-    """All layers over a full sequence. Returns (h, per-layer (k, v) list
-    when collect_kv else None)."""
+                    collect_kv: bool = False, lengths=None):
+    """All layers over a full sequence. Returns (h, per-layer states when
+    collect_kv else None): {"k", "v"} for attention layers, {"rec": {"h",
+    "conv"}} for RG-LRU layers. `lengths` freezes recurrent layers past
+    each row's true length (attention needs no mask: trailing pads are
+    causally invisible)."""
     kvs: List = []
     for kind, p in _layers(params, cfg):
+        if kind == "rec":
+            o, st = recurrent.rglru_block_seq(
+                p["rec"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
+                lengths=lengths)
+            if collect_kv:
+                kvs.append({"rec": st})
+            h = _mlp_residual(p, h + o, cfg)
+            continue
         o = attention.attention_block(
             p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), positions, cfg,
             window=_window(cfg, kind), return_kv=collect_kv)
@@ -188,15 +218,17 @@ def _to_tree(cfg: ModelConfig, per_layer: List):
 def prefill(params, cfg: ModelConfig, batch):
     """Single-shot prefill: (logits (B, S, V), cache) where cache mirrors
     init_decode_state's tree with each attention layer's rope'd
-    {"k", "v"} of shape (B, S, KV, hd). A "lengths" entry in batch changes
-    nothing for attention (trailing pads are causally invisible)."""
+    {"k", "v"} of shape (B, S, KV, hd) and each RG-LRU layer's final
+    {"rec": {"h", "conv"}}. A "lengths" entry in batch ((B,) true lengths
+    of right-padded rows) freezes the recurrent layers past each row's
+    length; attention needs no mask."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     h = _embed(params, cfg, tokens)
     h, kvs = _run_blocks_seq(params, cfg, h,
                              _positions(*tokens.shape, tokens.device),
-                             collect_kv=True)
+                             collect_kv=True, lengths=batch.get("lengths"))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, h), _to_tree(cfg, kvs)
 
@@ -208,11 +240,19 @@ def prefill(params, cfg: ModelConfig, batch):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device):
     """Dense per-layer KV caches (B, S, KV, hd) in the activation dtype;
-    local-attention layers keep a rolling buffer of min(window, max_len)."""
+    local-attention layers keep a rolling buffer of min(window, max_len).
+    RG-LRU layers hold {"rec": {"h": (B, rnn_width) float32, "conv":
+    (B, conv_width - 1, rnn_width)}}."""
     _check_supported(cfg)
     dev = torch.device(device)
 
     def one(kind):
+        if kind == "rec":
+            return {"rec": {
+                "h": torch.zeros(batch, cfg.rnn_width, dtype=torch.float32,
+                                 device=dev),
+                "conv": torch.zeros(batch, cfg.conv_width - 1, cfg.rnn_width,
+                                    dtype=cfg.act_dtype, device=dev)}}
         n = min(cfg.window, max_len) if kind == "attn_local" else max_len
         return attention.init_kv_cache(batch, n, cfg.n_kv_heads,
                                        cfg.head_dim, cfg.act_dtype, dev)
@@ -220,12 +260,41 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     return _to_tree(cfg, [one(kind) for kind in layer_kinds(cfg)])
 
 
+def decode_state_from_prefill(cfg: ModelConfig, cache, max_len: int):
+    """init_decode_state's tree holding a `prefill` cache of S tokens, so
+    decode_step continues at pos = S: attention K/V at slots 0..S-1 (a
+    local-attention layer's rolling buffer keeps the last min(window,
+    max_len) positions p at slot p % window), RG-LRU state as it is."""
+    first = next(c for _, c in _layers(cache, cfg))
+    ref_t = first["rec"]["h"] if "rec" in first else first["k"]
+    state = init_decode_state(cfg, ref_t.shape[0], max_len,
+                              device=ref_t.device)
+    for (kind, st), (_, c) in zip(_layers(state, cfg), _layers(cache, cfg)):
+        if kind == "rec":
+            st["rec"] = {k: t.clone() for k, t in c["rec"].items()}
+            continue
+        S, n = c["k"].shape[1], st["k"].shape[1]
+        p = torch.arange(max(0, S - n), S, device=ref_t.device)
+        slot = p % cfg.window if kind == "attn_local" else p
+        st["k"][:, slot] = c["k"][:, p]
+        st["v"][:, slot] = c["v"][:, p]
+    return state
+
+
 def decode_step(params, cfg: ModelConfig, state, tokens, pos: int):
     """tokens: (B,) int; pos: the position being fed (an int). Returns
-    (logits (B, V), state) — the caches are updated in place."""
+    (logits (B, V), state) — the caches are updated in place, and each
+    RG-LRU layer's {"rec"} entry is replaced by its new state (the block
+    runs with S = 1)."""
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
     for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
+        if kind == "rec":
+            o, st["rec"] = recurrent.rglru_block_seq(
+                p["rec"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
+                st["rec"])
+            h = _mlp_residual(p, h + o, cfg)
+            continue
         o, _ = attention.decode_attention_block(
             p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, pos, cfg,
             window=_window(cfg, kind))
@@ -258,6 +327,7 @@ def prefill_paged(params, cfg: ModelConfig, state, tokens, lengths,
     cached_lens: (N,) int32; block_tables: (N, max_blocks) int32; slots:
     (N,) decode-slot per row (used by recurrent layers only, so unused
     here, as is `resume`). Returns (last-token logits (N, V), state)."""
+    _check_paged(cfg)
     params = cast_params(params, cfg)
     N, Ls = tokens.shape
     starts = torch.minimum(cached_lens, (lengths - 1).clamp_min(0))
@@ -281,6 +351,7 @@ def decode_verify_paged(params, cfg: ModelConfig, state, tokens, positions,
     cached = positions, lengths = positions + counts). Returns (logits
     (B, T, V), state, snapshots) — snapshots mirror the state tree with
     None for every (attention) layer."""
+    _check_paged(cfg)
     params = cast_params(params, cfg)
     B, T = tokens.shape
     pos_grid = (positions[:, None]
@@ -299,7 +370,7 @@ def commit_decode_state(cfg: ModelConfig, state, snapshots, idx):
     """Commit recurrent slot state after a verify step. Attention state
     needs no commit (positions are the rollback), so with attention-only
     layers this returns `state` unchanged."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     return state
 
 
@@ -308,6 +379,7 @@ def decode_step_paged(params, cfg: ModelConfig, state, tokens, positions,
     """One decode iteration for a slot batch. tokens / positions: (B,)
     int32; block_tables: (B, max_blocks) int32. Returns (logits (B, V),
     state)."""
+    _check_paged(cfg)
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
     for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):

@@ -47,7 +47,7 @@ def init_paged_state(cfg: ModelConfig, num_slots: int, num_blocks: int,
     attention-only layers of this slice do not have."""
     dt = pool_dtype(cfg, kv_dtype)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-    lm._check_supported(cfg)
+    lm._check_paged(cfg)
     return lm._to_tree(cfg, [
         {"k": torch.zeros(shape, dtype=dt, device=device),
          "v": torch.zeros(shape, dtype=dt, device=device)}

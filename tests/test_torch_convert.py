@@ -14,6 +14,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
+from repro_torch.serving import kv_cache as tkv  # noqa: E402
 
 ALL_ARCHS = list(jconfigs.ARCHS)
 MODEL_ARCHS = jconfigs.list_archs()
@@ -102,9 +103,46 @@ def test_full_width_smollm_count_and_dtypes():
                                   "grok-1-314b", "paligemma-3b",
                                   "musicgen-medium"])
 def test_unported_archs_raise(arch):
+    """Each arch's unported path raises: the whole model, or for
+    recurrentgemma-2b (whose lm and generate() paths are ported) the paged
+    engine state."""
+    cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
-        tlm.init_params(0, tconfigs.get_config(arch).reduced(),
-                        device="cpu")
+        if arch == "recurrentgemma-2b":
+            tkv.init_paged_state(cfg, 2, 8, 4, device="cpu")
+        else:
+            tlm.init_params(0, cfg, device="cpu")
+
+
+def test_recurrentgemma_tree_converts_leaf_for_leaf():
+    """The JAX recurrentgemma tree (the rec subtree's log_lambda, conv_w,
+    conv_b included) converts to exactly the port's own init tree: the
+    same keys, shapes and dtypes, every layer unstacked."""
+    cfg = tconfigs.get_config("recurrentgemma-2b").reduced()
+    jparams = jax.device_get(jlm.init_params(
+        jax.random.PRNGKey(0),
+        jconfigs.get_config("recurrentgemma-2b").reduced()))
+    got = convert.from_jax(jparams, cfg)
+    want = tlm.init_params(0, cfg, device="cpu")
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, path + (i,))
+        else:
+            yield path, tuple(tree.shape), tree.dtype
+
+    assert list(leaves(got)) == list(leaves(want))
+    rec = got["prefix"][0]["rec"]
+    assert rec["log_lambda"].dtype == torch.float32
+    np.testing.assert_array_equal(rec["log_lambda"].numpy(),
+                                  jparams["prefix"][0]["rec"]["log_lambda"])
+    np.testing.assert_array_equal(
+        got["blocks"]["p1"][1]["rec"]["conv_w"].numpy(),
+        jparams["blocks"]["p1"]["rec"]["conv_w"][1])
 
 
 def test_init_params_needs_a_device_without_gpu():

@@ -723,6 +723,8 @@ def test_entry_points_default_to_cuda(stream, spec):
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.data.synthetic\n"
+            "import repro_torch.models.recurrent, repro_torch.kernels.rglru_scan\n"
+            "import repro_torch.models.lm, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"

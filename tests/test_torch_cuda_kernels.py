@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
                                  paged_prefill_attention, ref, svrg_update)
+from repro_torch.kernels import rglru_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -199,3 +200,80 @@ def test_svrg_update_raises_on_bad_inputs(cuda):
     with pytest.raises(ValueError):                     # strided view
         svrg_update(x[::2], gx[::2], gz[::2], mu[::2], w[::2], 0.1, 0.5)
     assert svrg_update.launches == before
+
+
+# ----------------------------------------------------------------------------
+# recurrentgemma-2b's shapes: 10 query heads over 1 KV head, head_dim 256,
+# local window; the RG-LRU scan at rnn_width 2560
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,window", [(300, 128), (300, 0), (2304, 2048)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_hd256_window_matches_twin(cuda, S, window, dtype, tol):
+    rng = np.random.default_rng(S + window)
+    q = _rand(rng, 1, 10, S, 256, dtype=dtype, dev=cuda)
+    k, v = (_rand(rng, 1, 1, S, 256, dtype=dtype, dev=cuda)
+            for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_attention_group10_hd256_matches_twin(cuda, dtype, tol):
+    """generate()'s dense decode of an attn_local layer: one 2048-slot
+    block per row (the rolling buffer), ragged contexts."""
+    rng = np.random.default_rng(10)
+    B, n = 4, 2048
+    q = _rand(rng, B, 10, 256, dtype=dtype, dev=cuda)
+    kp, vp = (_rand(rng, B, n, 1, 256, dtype=dtype, dev=cuda)
+              for _ in range(2))
+    bt = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    ctx = torch.tensor([n, 1500, 97, 1], dtype=torch.int32, device=cuda)
+    got = paged_attention(q, kp, vp, bt, ctx)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(q, kp, vp, bt, ctx)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,T", [(2, 512), (4, 1), (1, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_bit_equal_to_twin(cuda, B, T, dtype, with_h0):
+    """Kernel and twin round each step's multiply and add on their own in
+    float32 and round h_seq once to x's dtype: equal bits."""
+    rng = np.random.default_rng(B * T)
+    C = 2560
+    a = torch.sigmoid(_rand(rng, B, T, C, dev=cuda) * 2).to(dtype)
+    x = (_rand(rng, B, T, C, dev=cuda) * 0.3).to(dtype)
+    h0 = _rand(rng, B, C, dev=cuda) if with_h0 else None
+    before = rglru_scan.launches
+    got, got_h = rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    assert got.dtype == dtype and got_h.dtype == torch.float32
+    want, want_h = ref.rglru_scan_ref(a, x, h0)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(got_h, want_h, atol=0, rtol=0)
+
+
+def test_rglru_scan_raises_on_bad_inputs(cuda):
+    a = torch.zeros(2, 4, 8, device=cuda)
+    before = rglru_scan.launches
+    with pytest.raises(ValueError):                     # shapes differ
+        rglru_scan(a, a[:, :3].contiguous())
+    with pytest.raises(ValueError):                     # dtypes differ
+        rglru_scan(a, a.bfloat16())
+    with pytest.raises(ValueError):                     # h0 not float32
+        rglru_scan(a, a, torch.zeros(2, 8, device=cuda).bfloat16())
+    with pytest.raises(ValueError):                     # strided
+        rglru_scan(a[:, ::2], a[:, ::2])
+    with pytest.raises(TypeError):                      # float64
+        rglru_scan(a.double(), a.double())
+    assert rglru_scan.launches == before

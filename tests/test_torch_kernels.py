@@ -19,11 +19,15 @@ from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E40
 from repro.kernels.paged_attention import paged_attention as jpaged  # noqa: E402
 from repro.kernels.paged_prefill import \
     paged_prefill_attention as jprefill  # noqa: E402
+from repro.kernels.rglru_scan import rglru_scan as jrglru  # noqa: E402
 from repro.kernels.svrg_update import svrg_update as jsvrg  # noqa: E402
+from repro.models.attention import \
+    chunked_causal_attention as jchunked  # noqa: E402
 from repro.models.attention import \
     streamed_paged_attention as jstreamed  # noqa: E402
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
                                  paged_prefill_attention, ref, svrg_update)
+from repro_torch.kernels import rglru_scan  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -247,3 +251,86 @@ def test_svrg_update_twin_matches_jax(n, dtype):
     torch.testing.assert_close(svrg_update(*targs, 0.1, 0.5), got, rtol=0,
                                atol=0)
     assert svrg_update.launches == before
+
+
+# ----------------------------------------------------------------------------
+# windowed flash attention (recurrentgemma's attn_local layers)
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,KV,S,hd,window", [
+    (2, 4, 2, 40, 16, 16),       # the reduced config's window, S > window
+    (1, 10, 1, 24, 256, 7),      # recurrentgemma's heads and head_dim
+    (1, 4, 4, 12, 16, 64),       # a window wider than the sequence
+])
+def test_flash_twin_window_matches_jax_chunked(B, H, KV, S, hd, window):
+    """The twin's window (key u visible to query i when i - window < u <=
+    i) against the JAX model's chunked_causal_attention(window=...), which
+    attn_local layers run; float32 at 2e-5."""
+    rng = np.random.default_rng(S + hd + window)
+    q = _rand(rng, B, S, H, hd)
+    k = _rand(rng, B, S, KV, hd)
+    v = _rand(rng, B, S, KV, hd)
+    got = ref.flash_attention_ref(_t(q.transpose(0, 2, 1, 3)),
+                                  _t(k.transpose(0, 2, 1, 3)),
+                                  _t(v.transpose(0, 2, 1, 3)),
+                                  window=window).numpy().transpose(0, 2, 1, 3)
+    want = np.asarray(jchunked(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), chunk=8, window=window))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+# ----------------------------------------------------------------------------
+# rg-lru scan
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,T,C", [(1, 64, 32), (2, 48, 160)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_twin_matches_jax(B, T, C, dtype, with_h0):
+    """The twin against the Pallas kernel (interpret mode; T a multiple of
+    its time chunk) and the jnp oracle: float32 at 1e-5, bf16 (the same bf16 bits in both packages)
+    at 5e-2, the tolerances of tests/test_kernels.py's rglru tests."""
+    rng = np.random.default_rng(T + C)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    a = jnp.asarray(1 / (1 + np.exp(-2 * _rand(rng, B, T, C))), jd)
+    x = jnp.asarray(0.3 * _rand(rng, B, T, C), jd)
+    h0 = _rand(rng, B, C) if with_h0 else None
+    ta, tx = (_t(np.array(z, np.float32)).to(td) for z in (a, x))
+    th0 = None if h0 is None else _t(h0)
+    got, got_h = ref.rglru_scan_ref(ta, tx, th0)
+    assert got.dtype == td and got_h.dtype == torch.float32
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    for want, want_h in (jrglru(a, x, jh0, tc=16, cb=32, interpret=True),
+                         jref.rglru_ref(a, x, jh0)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=tol,
+                                   rtol=tol)
+        np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h),
+                                   atol=tol, rtol=tol)
+    before = rglru_scan.launches
+    wrapped, wrapped_h = rglru_scan(ta, tx, th0)
+    assert rglru_scan.launches == before          # no kernel on the CPU
+    torch.testing.assert_close(wrapped, got, rtol=0, atol=0)
+    torch.testing.assert_close(wrapped_h, got_h, rtol=0, atol=0)
+
+
+def test_rglru_twin_rounds_each_step_like_the_kernel():
+    """Each step is a float32 multiply then a float32 add, rounded on
+    their own: the kernel's __fmul_rn / __fadd_rn, so kernel and twin can
+    be held bit for bit on the card."""
+    rng = np.random.default_rng(3)
+    a, x = _t(_rand(rng, 2, 9, 5)), _t(_rand(rng, 2, 9, 5))
+    h0 = _t(_rand(rng, 2, 5))
+    got, h_T = ref.rglru_scan_ref(a, x, h0)
+    h = h0.numpy()
+    for t in range(9):
+        h = np.float32(a[:, t].numpy() * h) + x[:, t].numpy()
+        np.testing.assert_array_equal(got[:, t].numpy(), h)
+    np.testing.assert_array_equal(h_T.numpy(), h)
+
+
+def test_rglru_wrapper_refuses_other_devices():
+    a = torch.zeros(1, 4, 16, device="meta")
+    with pytest.raises(ValueError):
+        rglru_scan(a, a)

@@ -37,7 +37,8 @@ def _np(x):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "codeqwen1.5-7b",
-                                  "minitron-4b", "stablelm-3b"])
+                                  "minitron-4b", "stablelm-3b",
+                                  "recurrentgemma-2b"])
 def test_forward_logits_match_jax(arch):
     jcfg, jparams, tcfg, tparams = _models(arch)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 24))
@@ -181,3 +182,94 @@ def test_generate_margins_and_sampling_refusal():
     assert (margins >= 0).all()
     with pytest.raises(NotImplementedError):
         tgenerate(tparams, tcfg, prompts, 5, device="cpu", temperature=0.7)
+
+
+# ----------------------------------------------------------------------------
+# recurrentgemma-2b: RG-LRU layers and local attention (window 16 reduced)
+# ----------------------------------------------------------------------------
+
+RG = "recurrentgemma-2b"
+
+
+def _layer_states(cache, cfg):
+    """[(layer index, name, tensor)] over a prefill cache in the port's
+    layout: h and conv of RG-LRU layers, K and V of attention layers."""
+    out = []
+    for i, (kind, st) in enumerate(tlm._layers(cache, cfg)):
+        src = st["rec"] if kind == "rec" else st
+        for name in ("h", "conv") if kind == "rec" else ("k", "v"):
+            out.append((i, name, src[name]))
+    return out
+
+
+def test_recurrentgemma_prefill_logits_and_states_match_jax():
+    """Right-padded rows (lengths 40 and 31, both past the window): logits
+    at 1e-4; the first layer's h / conv at 1e-5 (the per-block tolerance);
+    every layer's states at 1e-4, the model-level tolerance, since the
+    packages' one-ulp exp differences (magnified near a = 1 by
+    sqrt(1 - a^2)) add up through the residual stream (6.0e-5 at most on
+    this input, in the last attn_local layer's V)."""
+    jcfg, jparams, tcfg, tparams = _models(RG)
+    toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 40))
+    lengths = np.asarray([40, 31], np.int32)
+    want, jcache = jlm.prefill(jparams, jcfg, {
+        "tokens": jnp.asarray(toks), "lengths": jnp.asarray(lengths)})
+    got, tcache = tlm.prefill(tparams, tcfg, {
+        "tokens": torch.from_numpy(toks),
+        "lengths": torch.from_numpy(lengths)})
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    jcache = convert.from_jax(jax.device_get(jcache), tcfg)
+    pairs = list(zip(_layer_states(tcache, tcfg),
+                     _layer_states(jcache, tcfg)))
+    assert [(i, n) for (i, n, _), _ in pairs] == [
+        (i, n) for _, (i, n, _) in pairs]
+    assert {n for (_, n, _), _ in pairs} == {"h", "conv", "k", "v"}
+    for (i, name, t), (_, _, j) in pairs:
+        tol = dict(atol=1e-5, rtol=1e-5) if i == 0 else TOL
+        np.testing.assert_allclose(_np(t), _np(j), err_msg=f"{i} {name}",
+                                   **tol)
+    assert tcache["prefix"][0]["rec"]["h"].dtype == torch.float32
+
+
+def test_recurrentgemma_prefill_then_decode_matches_stepwise():
+    """decode_state_from_prefill: decoding on from a 24-token prefill (the
+    local layers' rolling buffers hold the last 16 positions) equals
+    priming the same state token by token."""
+    _, _, tcfg, tparams = _models(RG)
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 24)))
+    logits_pf, cache = tlm.prefill(tparams, tcfg, {"tokens": toks})
+    state = tlm.init_decode_state(tcfg, 2, 30, device="cpu")
+    for pos in range(24):
+        logits, state = tlm.decode_step(tparams, tcfg, state, toks[:, pos],
+                                        pos)
+    np.testing.assert_allclose(_np(logits_pf[:, -1]), _np(logits), **TOL)
+    from_pf = tlm.decode_state_from_prefill(tcfg, cache, 30)
+    nxt = torch.tensor([3, 7])
+    for pos in range(24, 28):
+        a, from_pf = tlm.decode_step(tparams, tcfg, from_pf, nxt, pos)
+        b, state = tlm.decode_step(tparams, tcfg, state, nxt, pos)
+        np.testing.assert_allclose(_np(a), _np(b), **TOL)
+        nxt = torch.argmax(b, -1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_recurrentgemma_generate_tokens_match_jax(seed):
+    """Greedy generate() over 32 steps from 20-token prompts (past the
+    reduced window of 16), token for token."""
+    jcfg, jparams, tcfg, tparams = _models(RG, seed=seed)
+    prompts = np.random.default_rng(seed + 20).integers(
+        0, jcfg.vocab_size, (2, 20)).astype(np.int32)
+    want = np.asarray(jgenerate(jparams, jcfg, jnp.asarray(prompts), 32))
+    got = _np(tgenerate(tparams, tcfg, prompts, 32, device="cpu"))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_recurrentgemma_paged_paths_raise():
+    """The engine (paged) path for rec blocks waits for its slice."""
+    _, _, tcfg, tparams = _models(RG)
+    with pytest.raises(NotImplementedError, match="hybrid engine"):
+        tkv.init_paged_state(tcfg, 2, 8, 4, device="cpu")
+    z = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="hybrid engine"):
+        tlm.decode_step_paged(tparams, tcfg, {}, z[0], z[0], z)
