@@ -4,22 +4,30 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. build   the five CUDA kernels from src/repro_torch/kernels/csrc/
+  1. build   the six CUDA kernels from src/repro_torch/kernels/csrc/
              (one nvcc per source, all started together);
   2. kernels each kernel against its plain PyTorch twin at the shapes its
              main path gives it (error vs a stated tolerance, the
              bytes-or-flops bound): the attention kernels at smollm-135m
-             serving shapes and at recurrentgemma-2b's (10 heads over 1 KV
+             serving shapes, at recurrentgemma-2b's (10 heads over 1 KV
              head, hd 256: flash at 2304 tokens with window 2048 and
-             without, paged decode over one 2048-slot block per row),
-             svrg_update at 2^20, an odd tail and an unaligned view,
-             rglru_scan at 2 x 512, 1 x 2304 and 4 x 1 by 2560 channels
-             (float32 bit-equal), float32 and bf16;
-  3. small   a reduced float32 smollm on the card against the same model
-             on the CPU (forward logits, engine tokens vs generate());
+             without, paged decode over one 2048-slot block per row) and at
+             the other head dims the configs have (16, 80; paged_prefill
+             also 256), svrg_update at 2^20, an odd tail and an unaligned
+             view, rglru_scan at 2 x 512, 1 x 2304 and 4 x 1 by 2560
+             channels (float32 bit-equal), rwkv6_scan at 4 x 40 x 1 x 64 (a
+             decode step), 2 x 40 x 512 x 64, 1 x 40 x 2048 x 64 and 2 x 4 x
+             40 x 16 with and without a carried state (its state bit-equal),
+             float32 and bf16;
+  3. small   the reduced float32 smollm (head_dim 16) on the card against
+             the same model on the CPU (forward logits, engine tokens vs
+             generate());
      small_hybrid  the same for a reduced float32 recurrentgemma-2b with
              the full model's attention shapes (forward on 2 x 40 tokens
              past its window of 16, generate() token for token);
+     small_rwkv  the same for the reduced float32 rwkv6-3b (4 heads of 16);
+     serve_cli_default  `python -m repro_torch.launch.serve` with its
+             defaults (the engine on the reduced smollm) exits 0 on the card;
   4. forward full-width smollm-135m lm.forward on 2 x 256 tokens: finite
              logits, the flash kernel launched;
   5. engine  full-width smollm-135m (30 layers, d_model 576, seeded random
@@ -43,13 +51,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and x 8 paged_attention launches), the margin rule in float32
              (prefill + decode from its cache vs generate()), then the
              naive serve CLI once;
-  8. timings kernel / twin / library device time (torch.profiler) and
+  8. rwkv6   full-width rwkv6-3b (32 layers, 3.07 B seeded random params,
+             bf16; the other models' weights freed first): lm.forward on 1 x
+             2048 tokens (32 rwkv6_scan launches), generate() on 4 x 64 + 32
+             (96 steps x 32 launches), the margin rule in float32, and a
+             record of the bf16 gaps at 32 layers beside JAX's;
+     rwkv6_4_layers  the bf16 gate at 4 layers on three seeds: bf16 prefill
+             vs stepwise decode <= 0.125 and bf16 vs float32 <= 0.86 on the
+             first token's logits, as the port runs (the bounds are twice
+             the JAX package's own gaps, measured by
+             benchmarks/torch_rwkv6_bf16_reference.py);
+     serve_cli_rwkv6  the naive serve CLI for rwkv6-3b at full width;
+  9. timings kernel / twin / library device time (torch.profiler) and
              wall time on phase 2's inputs, then one profiled window of
              engine decode steps, one profiled MP-DSVRG outer step at
-             d = 2^20 and profiled recurrentgemma decode steps (device busy
-             vs wall, top kernels).
-Launch counters are zeroed just before phases 4, 5 (per stream), 6 and 7
-(its forward and its generate() run) and read just after, so the launches
+             d = 2^20 and profiled rwkv6-3b and recurrentgemma decode steps
+             (device busy vs wall, top kernels).
+Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7 and 8
+(their forwards and generate() runs) and read just after, so the launches
 reported are the main paths' own. The last lines are the card's name and
 power limit, the kernels JSON line and {"ok": true, "device": {...}}.
 `--record PATH` also writes the full record (per-stream telemetry, every
@@ -61,6 +80,8 @@ import dataclasses
 import itertools
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +134,35 @@ CORE_ATOL = 1e-5
 # w = 0; the run reports the three values without a bound between them.
 PROX_GAP_RATIO = 1e-2
 EXACT_PATH_DIST = 0.1
+# rwkv6_scan against its twin in float32: within 1e-5 (1 + |twin|), the
+# tolerance tests/test_torch_recurrent.py holds the twin to JAX's oracle at
+RWKV_TOL_F32 = 1e-5
+# The JAX package's own bf16 gaps on rwkv6-3b at full width, first-token
+# logits of 2 x 64-token prompts (numpy.random.default_rng(seed)) with
+# weights repro.models.lm.init_params(PRNGKey(seed)): the output of
+# benchmarks/torch_rwkv6_bf16_reference.py (JAX 0.9.0 on the CPU; PERF.md).
+# At 4 layers, per seed:
+JAX_BF16_4_LAYERS = {
+    0: {"bf16_prefill_vs_stepwise": 0.0,
+        "bf16_vs_float32_prefill": 0.293362,
+        "bf16_vs_float32_stepwise": 0.293356},
+    1: {"bf16_prefill_vs_stepwise": 0.0625,
+        "bf16_vs_float32_prefill": 0.351309,
+        "bf16_vs_float32_stepwise": 0.335692},
+    2: {"bf16_prefill_vs_stepwise": 0.0,
+        "bf16_vs_float32_prefill": 0.447123,
+        "bf16_vs_float32_stepwise": 0.447128}}
+# The port's 4-layer gate, on each of the same seeds. Prefill vs stepwise:
+# twice JAX's largest, 2 x 0.0625. bf16 vs float32: 0.86, twice JAX's
+# largest (0.428) as first measured; the script's seeds reach 0.447, so
+# the bound is a little under twice that.
+RWKV_BF16_GAP_BOUND = 0.125
+RWKV_BF16_DRIFT_BOUND = 0.86
+# At 32 layers, seed 0 (a record beside the port's, no bound):
+JAX_BF16_32_LAYERS = {"bf16_prefill_vs_stepwise": 0.783203,
+                      "bf16_vs_float32_prefill": 3.26453,
+                      "bf16_vs_float32_stepwise": 3.26653,
+                      "float32_max_abs_logit": 5.20014}
 
 
 def _time_ms(fn, reps=50, warmup=5):
@@ -129,22 +179,47 @@ def _time_ms(fn, reps=50, warmup=5):
     return a.elapsed_time(b) / reps
 
 
-def _device_ms(fn, reps=20):
+def _device_ms(fn, reps=20, tries=3):
     """Device time per call: the summed duration of every GPU kernel the
     calls ran, from torch.profiler (CUPTI), so host launch overhead is
-    excluded. None when the profiler reports no device time."""
+    excluded. A window in which the profiler reports no device time at all
+    (it happens now and then on the H100 machine, for short and long
+    kernels alike) is profiled again, up to `tries` windows; None when none
+    of them reports any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def _profiled(window, tries=3):
+    """Run `window()`, which returns its wall ms, under torch.profiler until
+    a window shows device time, up to `tries` windows (see _device_ms).
+    Returns (the profiled CUDA kernels, by name, and the window's wall
+    ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = window()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if sum(e.self_device_time_total for e in kern) > 0:
+            return kern, wall
+    raise AssertionError(f"torch.profiler reported no device time in "
+                         f"{tries} windows")
 
 
 def _times(fn, reps=20):
@@ -170,17 +245,29 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"[build] {len(paths)} kernels from "
           f"{build.CSRC.relative_to(ROOT)} in {secs:.1f} s")
+    spilled = {}
     for name, path in paths.items():
-        log = path.with_suffix(".log")
-        regs = [ln.split("info    :")[1].strip()
-                for ln in log.read_text().splitlines() if "Used" in ln]
-        spills = [ln.strip() for ln in log.read_text().splitlines()
-                  if "spill" in ln and not ln.strip().startswith("0 bytes")]
+        lines = path.with_suffix(".log").read_text().splitlines()
+        regs = [ln.split("info    :")[1].strip() for ln in lines
+                if "Used" in ln]
+        # ptxas: "Function properties for <mangled name>", then "N bytes
+        # stack frame, S bytes spill stores, L bytes spill loads"; the
+        # template's int arguments (the head dim) are mangled as Li<n>E
+        fn, spills = "", []
+        for ln in lines:
+            if "Function properties for" in ln:
+                fn = ln.split("for", 1)[1].strip()
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m and int(m.group(1)) > 0:
+                spills.append((re.findall(r"Li(\d+)E", fn), ln.strip()))
+        spilled[name] = [f"{'/'.join(d)}: {ln}" for d, ln in spills]
         print(f"[build] {name}: {len(regs)} instantiations; "
-              f"e.g. {regs[0] if regs else '?'}; "
-              f"{len(spills)} with spills")
-    return {"seconds": secs, "libraries": {n: str(p.relative_to(ROOT))
-                                           for n, p in paths.items()}}
+              f"e.g. {regs[0] if regs else '?'}; {len(spills)} spill"
+              + "".join(f"; template ints {'/'.join(d)}: {ln}"
+                        for d, ln in spills[:3]))
+    return {"seconds": secs, "spills": spilled,
+            "libraries": {n: str(p.relative_to(ROOT))
+                          for n, p in paths.items()}}
 
 
 def _check(name, got, want, tol_ulps=TOL_ULPS, f32_tol=None):
@@ -212,7 +299,7 @@ def phase_kernels(dev):
     import torch.nn.functional as F
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      paged_prefill_attention, ref,
-                                     rglru_scan, svrg_update)
+                                     rglru_scan, rwkv6_scan, svrg_update)
     g = torch.Generator(device=dev).manual_seed(0)
     H, KV, hd, bs, M = 9, 3, 64, 16, 32
     bf = torch.bfloat16
@@ -472,6 +559,132 @@ def phase_kernels(dev):
                      bound_ms=fwb[0], bound_by=fwb[1], _reps=3)],
         **worst(arms, f"float32 bit-equal; bf16 {TOL_ULPS} bf16 ulps; "
                       f"h_T bit-equal")))
+
+    # -- the attention kernels at the other head dims the configs have: 16
+    # (every .reduced(): the serve CLI's defaults), 80 (stablelm-3b) and,
+    # for paged_prefill, 256 (recurrentgemma-2b's); bf16, small shapes
+    by_name = {r["name"]: r for r in out}
+    for hd, (h_, kv_) in ((16, (4, 2)), (80, (32, 32)), (256, (10, 1))):
+        tag = f"hd{hd} {h_}/{kv_} heads"
+        fa = (rn(2, h_, 200, hd), rn(2, kv_, 200, hd), rn(2, kv_, 200, hd))
+        pa = (rn(4, h_, hd), rn(33, bs, kv_, hd), rn(33, bs, kv_, hd),
+              tables_for(4, 8), i32([0, 1, 13, 64]))
+        pp = (rn(3, 16, h_, hd), rn(3, 16, kv_, hd), rn(3, 16, kv_, hd),
+              pa[1], pa[2], pa[3][:3], i32([0, 8, 0]), i32([16, 24, 9]))
+        new = {"flash_attention": [], "paged_attention": [],
+               "paged_prefill": []}
+        if hd != 256:        # flash / paged decode at 256: the arms above
+            for causal, w in ((True, 0), (False, 0), (True, 48)):
+                arm(new["flash_attention"], f"flash_attention {tag} 2x200 "
+                    f"causal={causal} window={w}",
+                    flash_attention(*fa, causal=causal, window=w),
+                    ref.flash_attention_ref(*fa, causal=causal, window=w))
+            arm(new["paged_attention"], f"paged_attention {tag} B=4, ctx "
+                f"0/1/13/64", paged_attention(*pa),
+                ref.paged_attention_ref(*pa))
+        for w in (0, 6):
+            arm(new["paged_prefill"], f"paged_prefill {tag} 3 x 16, cached "
+                f"0/8/0 window={w}", paged_prefill_attention(*pp, window=w),
+                ref.paged_prefill_ref(*pp, window=w))
+        for name, arms_ in new.items():
+            r = by_name[name]
+            r["arms"] += arms_
+            r["max_abs_err"] = max(a_["max_abs_err"] for a_ in r["arms"])
+            r["max_ulps"] = max(a_["max_ulps"] for a_ in r["arms"])
+        if hd != 256:
+            pairs = 2 * 200 * 201 // 2          # causal, 2 rows of 200
+            fb = _bound_ms(2 * _nbytes(fa[0]) + _nbytes(fa[1], fa[2]),
+                           4 * h_ * hd * pairs)
+            by_name["flash_attention"]["_extra"].append(dict(
+                label=f"{tag} 2 x 200, causal, bf16",
+                _fns=(lambda a=fa: flash_attention(*a),
+                      lambda a=fa: ref.flash_attention_ref(*a),
+                      lambda a=fa: F.scaled_dot_product_attention(
+                          *a, is_causal=True, enable_gqa=True)),
+                bound_ms=fb[0], bound_by=fb[1]))
+            n_tok = 1 + 13 + 64
+            pb = _bound_ms(2 * _nbytes(pa[0]) + _nbytes(pa[3], pa[4])
+                           + 2 * n_tok * kv_ * hd * 2, 4 * h_ * hd * n_tok)
+            by_name["paged_attention"]["_extra"].append(dict(
+                label=f"{tag} B=4, ctx 0/1/13/64, bf16",
+                _fns=(lambda a=pa: paged_attention(*a),
+                      lambda a=pa: ref.paged_attention_ref(*a), None),
+                bound_ms=pb[0], bound_by=pb[1]))
+        # each query sees the 8 cached pool keys of row 1 and its causal
+        # suffix keys
+        suf = [16, 16, 9]
+        pairs = sum(s_ * (s_ + 1) // 2 for s_ in suf) + 8 * 16
+        ppb = _bound_ms(2 * _nbytes(pp[0]) + _nbytes(*pp[1:3], *pp[5:])
+                        + 2 * 8 * kv_ * hd * 2, 4 * h_ * hd * pairs)
+        by_name["paged_prefill"].setdefault("_extra", []).append(dict(
+            label=f"{tag} 3 x 16, cached 0/8/0, bf16",
+            _fns=(lambda a=pp: paged_prefill_attention(*a),
+                  lambda a=pp: ref.paged_prefill_ref(*a), None),
+            bound_ms=ppb[0], bound_by=ppb[1]))
+
+    # -- rwkv6_scan at rwkv6-3b's width (40 heads of 64): a decode step of
+    # 4 lanes (T = 1 from the carried state), a prefill of 2 x 512 and
+    # lm.forward's 1 x 2048; and the reduced model's 2 x 4 x 40 x 16; r / k /
+    # v float32 and bf16, w and u float32, with and without s0. y within
+    # float32 RWKV_TOL_F32 (1 + |twin|) or TOL_ULPS bf16 ulps (only the
+    # order of the sum over the key channel differs); S_T bit-equal
+    arms = []
+
+    def rwkv_inputs(shape, dt, with_s0):
+        B_, H_, _, N_ = shape
+        r_, k_, v_ = (rn(*shape, dt=torch.float32).mul(0.5).to(dt)
+                      for _ in range(3))
+        w_ = torch.exp(-torch.exp(rn(*shape, dt=torch.float32) - 1))
+        u_ = rn(H_, N_, dt=torch.float32) * 0.1
+        s0_ = rn(B_, H_, N_, N_, dt=torch.float32) if with_s0 else None
+        return r_, k_, v_, w_, u_, s0_
+
+    for shape in ((4, 40, 1, 64), (2, 40, 512, 64), (1, 40, 2048, 64),
+                  (2, 4, 40, 16)):
+        for dt in (torch.float32, bf):
+            for with_s0 in (False, True):
+                a_ = rwkv_inputs(shape, dt, with_s0)
+                got, got_s = rwkv6_scan(*a_)
+                want, want_s = ref.rwkv6_scan_ref(*a_)
+                name = (f"rwkv6_scan {'x'.join(map(str, shape))} {dt} "
+                        f"s0={'yes' if with_s0 else 'no'}")
+                tol = (dict(f32_tol=RWKV_TOL_F32) if dt == torch.float32
+                       else dict(tol_ulps=TOL_ULPS))
+                arm(arms, name, got, want, **tol)
+                arm(arms, name + " S_T", got_s, want_s, f32_tol=0.0)
+
+    def rwkv_bound(a_):
+        r_, k_, v_, w_, u_, s0_ = a_
+        B_, H_, T_, N_ = r_.shape
+        # r, k, v, w, u and s0 read once, y and S_T written once; 7 float32
+        # operations per state element per step
+        return _bound_ms(_nbytes(r_, k_, v_, w_, u_, s0_, r_, s0_),
+                         7 * B_ * H_ * T_ * N_ * N_, "f32")
+
+    step = rwkv_inputs((4, 40, 1, 64), bf, True)
+    extra = []
+    for shape, what in (((1, 40, 2048, 64), " (lm.forward)"),
+                        ((2, 40, 512, 64), "")):
+        a_ = rwkv_inputs(shape, bf, True)
+        b_ = rwkv_bound(a_)
+        # the twin is a host loop of T steps: 3 timed calls, not 20
+        extra.append(dict(label=f"{' x '.join(map(str, shape))} bf16, w "
+                                f"float32{what}",
+                          _fns=(lambda a=a_: rwkv6_scan(*a),
+                                lambda a=a_: ref.rwkv6_scan_ref(*a), None),
+                          bound_ms=b_[0], bound_by=b_[1], _reps=3))
+    bound, by = rwkv_bound(step)
+    out.append(dict(
+        name="rwkv6_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:55",
+        _fns=(lambda: rwkv6_scan(*step), lambda: ref.rwkv6_scan_ref(*step),
+              None),
+        bound_ms=bound, bound_by=by,
+        shape=dict(B=4, H=40, T=1, N=64, dtype="bfloat16", s0=True),
+        _extra=extra,
+        **worst(arms, f"float32 {RWKV_TOL_F32} (1 + |twin|); bf16 "
+                      f"{TOL_ULPS} bf16 ulps; S_T bit-equal")))
     return out
 
 
@@ -489,13 +702,17 @@ def phase_timings(kern):
                 continue
             dev_ms, r[wall_key] = _times(fn, reps)
             if dev_ms is None:
-                raise AssertionError("torch.profiler reported no device "
-                                     "time")
+                # the profiler saw no kernel in any window: CUDA-event time
+                # of back-to-back calls stands in, and the record says so
+                r.setdefault("event_timed", []).append(key)
+                dev_ms = r[wall_key]
             r[key] = dev_ms
         return (f"device {r['ms']:.4f} ms per call (wall {r['wall_ms']:.4f}"
                 f"); twin {r['plain_ms']:.4f} (wall {r['plain_wall_ms']:.4f})"
                 f"; library {r['library_ms']}; bound {r['bound_ms']:.5f} by "
-                f"{r['bound_by']}")
+                f"{r['bound_by']}"
+                + (f"; CUDA-event time for {r['event_timed']} (the profiler "
+                   f"saw no kernel)" if r.get("event_timed") else ""))
 
     for r in kern:
         print(f"[timings] {r['name']}: {timed(r)}")
@@ -542,13 +759,13 @@ def check_against_generate(params, cfg, reqs, done, dev, bound):
 
 
 def phase_small(dev):
-    """A reduced float32 smollm (head_dim 64, which the kernels take) on
+    """The reduced float32 smollm (head_dim 16, as .reduced() has it) on
     the card against the same model on the CPU (the kernels' twins)."""
     from repro_torch.configs import get_config
     from repro_torch.device import to_device
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServingEngine, synthetic_requests
-    cfg = get_config("smollm-135m").reduced(head_dim=64)
+    cfg = get_config("smollm-135m").reduced()
     params = lm.init_params(0, cfg, device="cpu")
     cuda_params = to_device(params, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 40),
@@ -574,18 +791,13 @@ def phase_small(dev):
     return {"forward_max_abs_err": err, "engine_vs_generate": rec}
 
 
-def phase_small_hybrid(dev):
-    """A reduced float32 recurrentgemma-2b at the full model's attention
-    shapes (10 query heads over 1 KV head, head_dim 256; window 16, 2 + 2 x
-    (rec, rec, attn_local) layers) on the card against the same model on
-    the CPU (the kernels' twins): forward logits on 2 x 40 tokens, so the
-    window bites, within 1e-4; greedy generate() token for token."""
-    from repro_torch.configs import get_config
+def phase_small_recurrent(dev, cfg, tag):
+    """A reduced float32 recurrent model on the card against the same
+    model on the CPU (the kernels' twins): forward logits on 2 x 40 tokens
+    within 1e-4; greedy generate() token for token."""
     from repro_torch.device import to_device
     from repro_torch.launch.serve import generate
     from repro_torch.models import lm
-    cfg = get_config("recurrentgemma-2b").reduced(head_dim=256, n_heads=10,
-                                                  n_kv_heads=1)
     params = lm.init_params(0, cfg, device="cpu")
     cuda_params = to_device(params, dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 40),
@@ -593,22 +805,47 @@ def phase_small_hybrid(dev):
     want, _ = lm.forward(params, cfg, {"tokens": toks})
     got, _ = lm.forward(cuda_params, cfg, {"tokens": toks.to(dev)})
     err = (got.cpu() - want).abs().max().item()
-    print(f"[small_hybrid] forward logits cuda vs cpu (window "
-          f"{cfg.window}, 40 tokens): max_abs_err {err:.3g} (tolerance "
-          f"1e-4)")
+    print(f"[{tag}] forward logits cuda vs cpu (2 x 40 tokens, head_dim "
+          f"{cfg.head_dim}, window {cfg.window}): max_abs_err {err:.3g} "
+          f"(tolerance 1e-4)")
     if err > 1e-4:
-        raise AssertionError(f"small hybrid forward differs: {err}")
+        raise AssertionError(f"{tag}: forward differs: {err}")
     prompts = torch.randint(0, cfg.vocab_size, (2, 24),
                             generator=torch.Generator().manual_seed(2))
     want_t = generate(params, cfg, prompts, 32, device="cpu")
     got_t = generate(cuda_params, cfg, prompts, 32, device=dev)
     same = bool(torch.equal(got_t.cpu(), want_t))
-    print(f"[small_hybrid] generate() 2 x 24 + 32 tokens cuda vs cpu: "
+    print(f"[{tag}] generate() 2 x 24 + 32 tokens cuda vs cpu: "
           f"{'equal' if same else 'DIFFER'}")
     if not same:
-        raise AssertionError("small hybrid generate() differs between the "
-                             "card and the CPU")
+        raise AssertionError(f"{tag}: generate() differs between the card "
+                             f"and the CPU")
     return {"forward_max_abs_err": err, "generate_equal": same}
+
+
+def phase_serve_cli_default():
+    """`python -m repro_torch.launch.serve` with its defaults (the engine
+    on the reduced smollm, head_dim 16) in a process of its own, on the
+    card: it must exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                          cwd=ROOT, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    stats = {}
+    if proc.returncode == 0:
+        text = proc.stdout[proc.stdout.index("{"):proc.stdout.rindex("}") + 1]
+        stats = json.loads(text)
+    print(f"[serve_cli_default] python -m repro_torch.launch.serve: exit "
+          f"{proc.returncode} in {secs:.1f} s (process start included); "
+          f"{stats.get('requests')} requests, "
+          f"{stats.get('generated_tokens')} tokens, "
+          f"{stats.get('tokens_per_s')} tokens/s on {stats.get('device')}")
+    if proc.returncode != 0 or stats.get("device") != "cuda":
+        raise AssertionError(f"the default serve CLI failed (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    return {"seconds": secs, "stats": stats}
 
 
 def _greedy_from_prefill(params, cfg, prompts, gen_len):
@@ -627,24 +864,19 @@ def _greedy_from_prefill(params, cfg, prompts, gen_len):
     return torch.stack(out, dim=1)
 
 
-def phase_recurrentgemma(dev):
-    """Full-width recurrentgemma-2b (26 layers: 18 RG-LRU, 8 attn_local
-    with window 2048; d_model 2560, 10 heads over 1 KV head, head_dim 256,
-    vocab 256000; seeded random weights, float32 master and the bf16 cast
-    on the card). lm.forward on 1 x 2304 tokens (past the window);
-    generate() on 4 x 64-token prompts with 32 new tokens; the margin rule
-    on two rows in float32 (prefill + decode from its cache against
-    generate()). Launch counters are zeroed before, and read after, the
-    forward and the generate() run: each must launch exactly its derived
-    counts. Returns (record, the bf16 params, for the decode profile)."""
+def _full_width(cfg, dev, S, per_call, per_step, tag):
+    """A full-width model on the card (seeded random weights, the float32
+    master and its bf16 cast): lm.forward on 1 x S tokens, generate() on 4
+    x 64-token prompts with 32 new tokens, and the margin rule in float32
+    (prefill + decode from its cache against generate()) on two of them.
+    Launch counters are zeroed before, and read after, the forward and the
+    generate() run: the forward must launch exactly `per_call` and each
+    decode step `per_step` ({kernel: launches}). Returns (record, the
+    float32 master, the bf16 params)."""
     import numpy as np
     from repro_torch import convert, kernels
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import lm
-    cfg = get_config("recurrentgemma-2b")
-    kinds = lm.layer_kinds(cfg)
-    n_rec, n_attn = kinds.count("rec"), kinds.count("attn_local")
     t0 = time.perf_counter()
     master = lm.init_params(0, cfg, device=dev)
     params = lm.cast_params(master, cfg)
@@ -652,14 +884,15 @@ def phase_recurrentgemma(dev):
     init_s = time.perf_counter() - t0
     n_params = convert.param_count(master)
     gib = torch.cuda.memory_allocated() / 2**30
-    print(f"[recurrentgemma] {cfg.n_layers} layers ({n_rec} rec, {n_attn} "
-          f"attn_local), {n_params} params, init + bf16 cast {init_s:.2f} s, "
+    kinds = lm.layer_kinds(cfg)
+    print(f"[{tag}] {cfg.n_layers} layers "
+          f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}"
+          f"), {n_params} params, init + bf16 cast {init_s:.2f} s, "
           f"{gib:.1f} GiB allocated")
     rec = {"params": n_params, "init_s": init_s, "allocated_gib": gib}
     zero = {k: 0 for k in kernels.launch_counts()}
 
     g = torch.Generator(device=dev).manual_seed(3)
-    S = 2304
     toks = torch.randint(0, cfg.vocab_size, (1, S), device=dev, generator=g)
     with torch.inference_mode():
         lm.forward(params, cfg, {"tokens": toks[:, :64]})     # warm-up
@@ -673,14 +906,15 @@ def phase_recurrentgemma(dev):
     finite = bool(torch.isfinite(logits).all())
     shape = tuple(logits.shape)
     del logits
-    want = dict(zero, rglru_scan=n_rec, flash_attention=n_attn)
-    print(f"[recurrentgemma] forward 1 x {S}: logits {shape} finite={finite}"
-          f" in {fwd_s * 1e3:.1f} ms; launches {counts}")
+    want = dict(zero, **per_call)
+    print(f"[{tag}] forward 1 x {S}: logits {shape} finite={finite} in "
+          f"{fwd_s * 1e3:.1f} ms; launches {counts}")
     if not finite or shape != (1, S, cfg.vocab_size):
-        raise AssertionError("full-width forward logits are not finite or "
-                             "misshapen")
+        raise AssertionError(f"{tag}: full-width forward logits are not "
+                             f"finite or misshapen")
     if counts != want:
-        raise AssertionError(f"forward launches {counts}, expected {want}")
+        raise AssertionError(f"{tag}: forward launches {counts}, expected "
+                             f"{want}")
     rec["forward"] = {"tokens": S, "ms": fwd_s * 1e3, "launches": counts}
 
     B, P, N = 4, 64, 32
@@ -696,22 +930,21 @@ def phase_recurrentgemma(dev):
     gen_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     steps = P + N
-    want = dict(zero, rglru_scan=steps * n_rec,
-                paged_attention=steps * n_attn)
+    want = dict(zero, **{k: steps * v for k, v in per_step.items()})
     gen = {"batch": B, "prompt": P, "new": N, "decode_steps": steps,
            "seconds": gen_s, "tokens_per_s": B * N / gen_s,
            "ms_per_step": gen_s * 1e3 / steps, "launches": counts,
-           "margin_median": float(margins.median())}
-    print(f"[recurrentgemma] generate() {B} x {P} + {N}: {gen_s:.2f} s, "
+           "margin_median": float(margins.float().median())}
+    print(f"[{tag}] generate() {B} x {P} + {N}: {gen_s:.2f} s, "
           f"{gen['tokens_per_s']:.1f} tokens/s, {gen['ms_per_step']:.2f} ms "
           f"per decode step ({steps} steps); launches {counts}")
     if counts != want:
-        raise AssertionError(f"generate() launches {counts}, expected "
-                             f"{want} ({steps} steps x {n_rec} rec / "
-                             f"{n_attn} attn_local layers)")
+        raise AssertionError(f"{tag}: generate() launches {counts}, expected "
+                             f"{want} ({steps} steps x {per_step})")
     if tokens.shape != (B, N) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        raise AssertionError("generate() tokens misshapen or out of range")
+        raise AssertionError(f"{tag}: generate() tokens misshapen or out of "
+                             f"range")
     rec["generate"] = gen
 
     # the margin rule in float32: prefill + decode from its cache against
@@ -730,55 +963,184 @@ def phase_recurrentgemma(dev):
         rows.append({"row": r, "first_divergence": i, "margin": gap})
         if i is not None and gap > MARGIN_BOUND_F32:
             raise AssertionError(
-                f"row {r}: prefill + decode and generate() diverge at token "
-                f"{i} where generate()'s top-1/top-2 margin is {gap:.5f} > "
-                f"{MARGIN_BOUND_F32}")
+                f"{tag} row {r}: prefill + decode and generate() diverge at "
+                f"token {i} where generate()'s top-1/top-2 margin is "
+                f"{gap:.5f} > {MARGIN_BOUND_F32}")
     m32 = ref_m.float().cpu().numpy().ravel()
     rec["margin_rule_f32"] = {"rows": rows, "bound": MARGIN_BOUND_F32,
                               "generate_margin_median": float(np.median(m32)),
                               "generate_margin_min": float(m32.min())}
-    print(f"[recurrentgemma] float32 prefill + decode vs generate() (2 x "
-          f"{P} + {N}): first divergences {[x['first_divergence'] for x in rows]}"
-          f" (margin bound {MARGIN_BOUND_F32}); generate() gaps median "
+    print(f"[{tag}] float32 prefill + decode vs generate() (2 x {P} + {N}): "
+          f"first divergences {[x['first_divergence'] for x in rows]} "
+          f"(margin bound {MARGIN_BOUND_F32}); generate() gaps median "
           f"{np.median(m32):.4f}, min {m32.min():.2e}")
+    return rec, master, params
+
+
+def phase_recurrentgemma(dev):
+    """Full-width recurrentgemma-2b (26 layers: 18 RG-LRU, 8 attn_local
+    with window 2048; d_model 2560, 10 heads over 1 KV head, head_dim 256,
+    vocab 256000) through _full_width: lm.forward on 1 x 2304 tokens (past
+    the window), generate() and the margin rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("recurrentgemma-2b")
+    kinds = lm.layer_kinds(cfg)
+    n_rec, n_attn = kinds.count("rec"), kinds.count("attn_local")
+    rec, master, params = _full_width(
+        cfg, dev, 2304, {"rglru_scan": n_rec, "flash_attention": n_attn},
+        {"rglru_scan": n_rec, "paged_attention": n_attn}, "recurrentgemma")
+    del master, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _first_token_logits(params, cfg, prompts):
+    """The first token's logits (the last prompt position's) after
+    lm.prefill and after priming lm.decode_step token by token, float32
+    (B, V) each."""
+    from repro_torch.models import lm
+    B, P = prompts.shape
+    with torch.inference_mode():
+        logits, _ = lm.prefill(params, cfg, {"tokens": prompts})
+        pf = logits[:, -1].float()
+        state = lm.init_decode_state(cfg, B, P + 1, device=prompts.device)
+        for pos in range(P):
+            st, state = lm.decode_step(params, cfg, state, prompts[:, pos],
+                                       pos)
+    return pf, st.float()
+
+
+def _bf16_gaps(master, cfg, prompts):
+    """bf16 against float32 and bf16 prefill against bf16 stepwise decode
+    on the first token's logits, as the port runs (the float32 master in
+    float32, its bf16 cast in bf16)."""
+    f_pf, f_st = _first_token_logits(
+        master, dataclasses.replace(cfg, dtype="float32"), prompts)
+    from repro_torch.models import lm
+    b_pf, b_st = _first_token_logits(lm.cast_params(master, cfg), cfg,
+                                     prompts)
+    return {"bf16_prefill_vs_stepwise": (b_pf - b_st).abs().max().item(),
+            "bf16_vs_float32_prefill": (b_pf - f_pf).abs().max().item(),
+            "bf16_vs_float32_stepwise": (b_st - f_st).abs().max().item(),
+            "float32_prefill_vs_stepwise": (f_pf - f_st).abs().max().item(),
+            "float32_max_abs_logit": f_pf.abs().max().item(),
+            "bf16_argmax_equals_float32":
+            (b_pf.argmax(-1) == f_pf.argmax(-1)).tolist()}
+
+
+def _np_prompts(seed, vocab, dev, shape=(2, 64)):
+    """Prompts drawn as benchmarks/torch_rwkv6_bf16_reference.py draws the
+    JAX package's: numpy.random.default_rng(seed)."""
+    import numpy as np
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, vocab, shape), device=dev)
+
+
+def phase_rwkv6(dev):
+    """Full-width rwkv6-3b (32 RWKV6 layers: d_model 2560, 40 heads of 64,
+    d_ff 8960, vocab 65536; 3.07 B params) through _full_width: lm.forward
+    on 1 x 2048 tokens, generate() and the margin rule; then, as a record
+    with no bound, the bf16 gaps of the first token's logits at 32 layers
+    beside JAX's. Returns (record, the bf16 params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("rwkv6-3b")
+    n = lm.layer_kinds(cfg).count("rwkv")
+    rec, master, params = _full_width(cfg, dev, 2048, {"rwkv6_scan": n},
+                                      {"rwkv6_scan": n}, "rwkv6")
+    # bf16 at 32 layers: a record, not a check (the reference's own gap is
+    # a large share of its logits at this depth)
+    b32 = _bf16_gaps(master, cfg, _np_prompts(0, cfg.vocab_size, dev))
     del master
     torch.cuda.empty_cache()
+    b32["jax"] = JAX_BF16_32_LAYERS
+    rec["bf16_record_32_layers"] = b32
+    print(f"[rwkv6] record, not a check: at 32 layers (seed 0, 2 x 64) the "
+          f"first-token logits move in bf16 by "
+          f"{b32['bf16_vs_float32_prefill']:.3f} after prefill and "
+          f"{b32['bf16_vs_float32_stepwise']:.3f} after stepwise decode "
+          f"against float32 (JAX: "
+          f"{JAX_BF16_32_LAYERS['bf16_vs_float32_prefill']:.3f} and "
+          f"{JAX_BF16_32_LAYERS['bf16_vs_float32_stepwise']:.3f}), bf16 "
+          f"prefill vs stepwise {b32['bf16_prefill_vs_stepwise']:.4f} (JAX: "
+          f"{JAX_BF16_32_LAYERS['bf16_prefill_vs_stepwise']:.4f}), float32 "
+          f"prefill vs stepwise {b32['float32_prefill_vs_stepwise']:.2e}; "
+          f"float32 max |logit| {b32['float32_max_abs_logit']:.3f} (JAX: "
+          f"{JAX_BF16_32_LAYERS['float32_max_abs_logit']:.3f})")
     return rec, params
 
 
-def profile_rg_decode(params, cfg, dev, n_steps=4):
-    """Where one full-width recurrentgemma decode step's time goes: 4 lanes
-    at position 100 (8 warm-up steps first), n_steps lm.decode_step calls
-    under torch.profiler. Wall and device-busy ms per step, the idle share,
-    kernel launches per step and the top kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def phase_rwkv6_4_layers(dev):
+    """The bf16 gate, fixed before the port's numbers were seen: rwkv6-3b at
+    full width cut to 4 layers, seeds 0, 1, 2 (weights lm.init_params(seed),
+    prompts 2 x 64 from numpy.random.default_rng(seed)), the first token's
+    logits as the port runs. For every seed, bf16 prefill vs bf16 stepwise
+    decode <= RWKV_BF16_GAP_BOUND and bf16 vs float32 (after prefill and
+    after stepwise decode) <= RWKV_BF16_DRIFT_BOUND."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=4)
+    rec = {"bounds": {"bf16_prefill_vs_stepwise": RWKV_BF16_GAP_BOUND,
+                      "bf16_vs_float32": RWKV_BF16_DRIFT_BOUND},
+           "jax": JAX_BF16_4_LAYERS, "seeds": {}}
+    for seed in (0, 1, 2):
+        master = lm.init_params(seed, cfg, device=dev)
+        r = _bf16_gaps(master, cfg, _np_prompts(seed, cfg.vocab_size, dev))
+        del master
+        torch.cuda.empty_cache()
+        rec["seeds"][seed] = r
+        j = JAX_BF16_4_LAYERS[seed]
+        drift = max(r["bf16_vs_float32_prefill"],
+                    r["bf16_vs_float32_stepwise"])
+        ok = (r["bf16_prefill_vs_stepwise"] <= RWKV_BF16_GAP_BOUND
+              and drift <= RWKV_BF16_DRIFT_BOUND)
+        print(f"[rwkv6_4_layers] seed {seed}, first-token logits (2 x 64): "
+              f"bf16 prefill vs stepwise {r['bf16_prefill_vs_stepwise']:.4f} "
+              f"(bound {RWKV_BF16_GAP_BOUND}; JAX "
+              f"{j['bf16_prefill_vs_stepwise']}); bf16 vs float32 "
+              f"{r['bf16_vs_float32_prefill']:.4f} after prefill, "
+              f"{r['bf16_vs_float32_stepwise']:.4f} after stepwise decode "
+              f"(bound {RWKV_BF16_DRIFT_BOUND}; JAX "
+              f"{j['bf16_vs_float32_prefill']:.4f} / "
+              f"{j['bf16_vs_float32_stepwise']:.4f}); float32 prefill vs "
+              f"stepwise {r['float32_prefill_vs_stepwise']:.2e}; bf16 greedy "
+              f"token equals float32's on rows "
+              f"{r['bf16_argmax_equals_float32']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"seed {seed}: bf16 gaps {r} past the "
+                                 f"bounds {rec['bounds']}")
+    return rec
+
+
+def profile_lm_decode(params, cfg, dev, n_steps=4):
+    """Where one full-width decode step's time goes (recurrentgemma-2b,
+    rwkv6-3b): 4 lanes at position 100 (8 warm-up steps first), n_steps
+    lm.decode_step calls under torch.profiler. Wall and device-busy ms per
+    step, the idle share, kernel launches per step and the top kernels by
+    device time."""
     from repro_torch.models import lm
     B, start = 4, 100
-    state = lm.init_decode_state(cfg, B, start + 8 + n_steps + 1, device=dev)
+    # room for three profiled windows (_profiled)
+    state = lm.init_decode_state(cfg, B, start + 8 + 3 * n_steps + 1,
+                                 device=dev)
     tok = torch.zeros(B, dtype=torch.int32, device=dev)
     pos = start
-    with torch.inference_mode():
-        for _ in range(8):
+
+    def steps(n):
+        nonlocal state, tok, pos
+        t0 = time.perf_counter()
+        for _ in range(n):
             logits, state = lm.decode_step(params, cfg, state, tok, pos)
             tok = torch.argmax(logits, -1).to(torch.int32)
             pos += 1
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                logits, state = lm.decode_step(params, cfg, state, tok, pos)
-                tok = torch.argmax(logits, -1).to(torch.int32)
-                pos += 1
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / n_steps
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+        return (time.perf_counter() - t0) * 1e3 / max(n, 1)
+
+    with torch.inference_mode():
+        steps(8)
+        kern, wall = _profiled(lambda: steps(n_steps))
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n_steps
-    if busy <= 0:
-        raise AssertionError("torch.profiler reported no device time for "
-                             "the recurrentgemma decode step")
     launches = sum(e.count for e in kern) / n_steps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     out = {"batch": B, "position": start + 8, "wall_ms_per_step": wall,
@@ -788,7 +1150,7 @@ def profile_rg_decode(params, cfg, dev, n_steps=4):
                             e.self_device_time_total / 1e3 / n_steps,
                             "calls_per_step": e.count / n_steps}
                            for e in top]}
-    print(f"[profile] recurrentgemma decode step (4 lanes): wall {wall:.2f} "
+    print(f"[profile] {cfg.name} decode step (4 lanes): wall {wall:.2f} "
           f"ms, device busy {busy:.3f} ms (idle {out['idle_share']:.1%}), "
           f"{launches:.0f} kernel launches per step")
     for t in out["top_kernels"]:
@@ -797,17 +1159,16 @@ def profile_rg_decode(params, cfg, dev, n_steps=4):
     return out
 
 
-def phase_serve_cli(dev):
+def phase_serve_cli(dev, arch):
     """The naive serve CLI once at full width (its own seeded params)."""
     from repro_torch.launch import serve
     t0 = time.perf_counter()
-    serve.main(["--arch", "recurrentgemma-2b", "--full-width", "--mode",
-                "naive", "--batch", "2", "--prompt-len", "16", "--max-new",
-                "8", "8", "--device", str(dev)])
+    serve.main(["--arch", arch, "--full-width", "--mode", "naive", "--batch",
+                "2", "--prompt-len", "16", "--max-new", "8", "8", "--device",
+                str(dev)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    print(f"[serve_cli] recurrentgemma-2b --full-width --mode naive: "
-          f"{secs:.1f} s")
+    print(f"[serve_cli] {arch} --full-width --mode naive: {secs:.1f} s")
     return {"seconds": secs}
 
 
@@ -885,7 +1246,8 @@ def phase_engine(params, cfg, dev):
         prefills = stats["prefill"]["dispatches"]
         want = {"paged_prefill": cfg.n_layers * (prefills + verifies),
                 "paged_attention": cfg.n_layers * (eng.steps - verifies),
-                "flash_attention": 0, "svrg_update": 0, "rglru_scan": 0}
+                "flash_attention": 0, "svrg_update": 0, "rglru_scan": 0,
+                "rwkv6_scan": 0}
         results.append((name, reqs, done, stats))
         print(f"[engine] {name}: {stats['requests']} requests, "
               f"{stats['generated_tokens']} tokens, "
@@ -1144,8 +1506,6 @@ def phase_core(dev):
         """One MP-DSVRG outer step at d = 2^20 (K inner iterations on the
         last step's data) under torch.profiler: wall, device busy, the
         idle share and svrg_update's device time per call."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         Xm, ym = last
         eta = 0.3 / (spec_big.beta + plan.gamma)
         w = res.w_last
@@ -1153,11 +1513,8 @@ def phase_core(dev):
                                     plan.gamma, eta, plan.p, plan.K, 0.0)
         step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = _timed(step)
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        kern, wall_ms = _profiled(lambda: _timed(step)[1] * 1e3)
+        wall = wall_ms / 1e3
         busy = sum(e.self_device_time_total for e in kern) / 1e3
         svrg = [e for e in kern if "svrg_update" in e.key]
         if busy <= 0 or not svrg:
@@ -1194,11 +1551,11 @@ def profile_decode(eng, vocab, n_steps=10):
     128, all admitted first), n_steps engine steps under torch.profiler.
     Returns wall ms per step, device-busy ms per step (summed kernel
     time), the idle share and the top kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import synthetic_requests
+    # room for three profiled windows (_profiled)
+    new = 3 * n_steps + 8
     for r in synthetic_requests(8, vocab_size=vocab, prompt_len=128,
-                                max_new=(n_steps + 8, n_steps + 8), seed=5):
+                                max_new=(new, new), seed=5):
         eng.submit(r)
     eng.begin_run()
     while eng.stats().queue_depth:     # admit all 8
@@ -1206,15 +1563,15 @@ def profile_decode(eng, vocab, n_steps=10):
     for _ in range(2):                 # then a couple of plain decodes
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
         t0 = time.perf_counter()
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n_steps
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+        return (time.perf_counter() - t0) * 1e3 / n_steps
+
+    kern, wall = _profiled(window)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n_steps
     launches = sum(e.count for e in kern) / n_steps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
@@ -1271,25 +1628,53 @@ def main(argv=None):
     record["build"] = phase("build", phase_build)
     kern = phase("kernels", phase_kernels, dev)
     record["small"] = phase("small", phase_small, dev)
-    record["small_hybrid"] = phase("small_hybrid", phase_small_hybrid, dev)
+    # recurrentgemma-2b reduced at the full model's attention shapes (10
+    # heads over 1 KV head, hd 256) with its window of 16 passed in the 40
+    # tokens; rwkv6-3b reduced (4 heads of 16)
+    record["small_hybrid"] = phase(
+        "small_hybrid", phase_small_recurrent, dev,
+        get_config("recurrentgemma-2b").reduced(head_dim=256, n_heads=10,
+                                                n_kv_heads=1),
+        "small_hybrid")
+    record["small_rwkv"] = phase("small_rwkv", phase_small_recurrent, dev,
+                                 get_config("rwkv6-3b").reduced(),
+                                 "small_rwkv")
+    record["serve_cli_default"] = phase("serve_cli_default",
+                                        phase_serve_cli_default)
     cfg = get_config("smollm-135m")
     params = lm.cast_params(lm.init_params(0, cfg, device=dev), cfg)
     record["forward"] = phase("forward", phase_forward, params, cfg, dev)
     record["engine"], engine = phase("engine", phase_engine, params, cfg,
                                      dev)
     record["core"], profile_outer_step = phase("core", phase_core, dev)
-    record["recurrentgemma"], rg_params = phase(
-        "recurrentgemma", phase_recurrentgemma, dev)
-    record["serve_cli"] = phase("serve_cli", phase_serve_cli, dev)
+    record["recurrentgemma"] = phase("recurrentgemma", phase_recurrentgemma,
+                                     dev)
+    record["serve_cli"] = phase("serve_cli", phase_serve_cli, dev,
+                                "recurrentgemma-2b")
+    # the other models' weights leave the card before rwkv6-3b's 17 GiB
+    del params
+    torch.cuda.empty_cache()
+    record["rwkv6"], rwkv_params = phase("rwkv6", phase_rwkv6, dev)
+    record["rwkv6_4_layers"] = phase("rwkv6_4_layers", phase_rwkv6_4_layers,
+                                     dev)
+    record["serve_cli_rwkv6"] = phase("serve_cli_rwkv6", phase_serve_cli,
+                                      dev, "rwkv6-3b")
     # profiled last: torch.profiler's hooks stay behind in the process
     phase("timings", phase_timings, kern)
     record["decode_profile"] = phase("decode_profile", profile_decode,
                                      engine, cfg.vocab_size)
     record["core_profile"] = phase("core_profile", profile_outer_step)
+    record["rwkv6_decode_profile"] = phase(
+        "rwkv6_decode_profile", profile_lm_decode, rwkv_params,
+        get_config("rwkv6-3b"), dev)
+    del rwkv_params
+    torch.cuda.empty_cache()
+    rg_cfg = get_config("recurrentgemma-2b")
     record["recurrentgemma_decode_profile"] = phase(
-        "recurrentgemma_decode_profile", profile_rg_decode, rg_params,
-        get_config("recurrentgemma-2b"), dev)
-    rg = record["recurrentgemma"]
+        "recurrentgemma_decode_profile", profile_lm_decode,
+        lm.cast_params(lm.init_params(0, rg_cfg, device=dev), rg_cfg),
+        rg_cfg, dev)
+    rg, rw = record["recurrentgemma"], record["rwkv6"]
     launches = {"flash_attention":
                 record["forward"]["launches"]["flash_attention"]
                 + rg["forward"]["launches"]["flash_attention"],
@@ -1299,7 +1684,9 @@ def main(argv=None):
                 "paged_prefill": record["engine"]["launches"]["paged_prefill"],
                 "svrg_update": record["core"]["svrg_update_launches"],
                 "rglru_scan": rg["forward"]["launches"]["rglru_scan"]
-                + rg["generate"]["launches"]["rglru_scan"]}
+                + rg["generate"]["launches"]["rglru_scan"],
+                "rwkv6_scan": rw["forward"]["launches"]["rwkv6_scan"]
+                + rw["generate"]["launches"]["rwkv6_scan"]}
     for k in kern:
         k["launches"] = launches[k["name"]]
     record["kernels"] = kern

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 KERNELS = ("paged_attention", "paged_prefill", "flash_attention",
-           "svrg_update", "rglru_scan")
+           "svrg_update", "rglru_scan", "rwkv6_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -40,13 +40,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3, torch.float8_e4m3fn: 4}
 # what the kernels are instantiated for: query / activation dtypes, the
-# quantized pool dtypes (which come with float32 scale tables), and each
-# attention kernel's head dims
+# quantized pool dtypes (which come with float32 scale tables), and the
+# attention kernels' head dims: every head dim a config or its .reduced()
+# has (16 reduced, 64 smollm / rwkv6, 80 stablelm, 128, 256 recurrentgemma)
 FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
-HEAD_DIMS = {"paged_attention": (64, 128, 256),
-             "paged_prefill": (64, 128),
-             "flash_attention": (64, 128, 256)}
+HEAD_DIMS = (16, 64, 80, 128, 256)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -58,6 +57,7 @@ SIGNATURES = {
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
     "rglru_scan": [_P] * 5 + [_I] * 4 + [_P],
+    "rwkv6_scan": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

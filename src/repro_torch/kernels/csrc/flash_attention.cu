@@ -19,12 +19,14 @@
 // a later change.
 //
 // Design: one block per (b, h, q-tile of BQ rows). Each query row belongs
-// to SPLIT = hd / 64 neighbouring threads of one warp, each holding 64 of
-// its dims (q and acc in float32 registers, interleaved in float4 steps so
-// the group's shared-memory reads are conflict-free); a key's score is the
-// group's partial dots summed with warp shuffles. K/V tiles of TK keys are
-// staged in shared memory as float32 and read by every row of the tile: TK
-// = 32 up to hd 128 and 16 at hd 256, so the two tiles stay at 32 KiB,
+// to SPLIT neighbouring threads of one warp, each holding DPT = hd / SPLIT
+// of its dims (q and acc in float32 registers, interleaved in float4 steps
+// so the group's shared-memory reads are conflict-free): SPLIT = 1 up to
+// hd 64, 2 at hd 80 (40 dims a thread) and hd 128, 4 at hd 256. A key's
+// score is the group's partial dots summed with warp shuffles. K/V tiles
+// of TK keys are staged in shared memory as float32 and read by every row
+// of the tile: TK = 32 up to hd 128 and 16 at hd 256, so the two tiles stay
+// at 32 KiB,
 // inside the 48 KiB of static shared memory. A loop over key tiles replaces
 // the TPU kernel's sequential key axis; under `causal` tiles strictly above
 // the q-tile's diagonal are skipped, and under a window so are tiles wholly
@@ -36,16 +38,23 @@ namespace {
 
 // Query rows per block.
 constexpr int BQ = 64;
-// Head dims each thread holds.
-constexpr int DPT = 64;
+
+// Threads per query row: each holds HD / split<HD>() dims, a multiple of 4
+// and at most 64.
+template <int HD>
+__host__ __device__ constexpr int split() {
+  return HD <= 64 ? 1 : HD <= 128 ? 2 : HD / 64;
+}
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(BQ * (HD / DPT))
+__global__ void __launch_bounds__(BQ * split<HD>())
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int H, int KV, int Sq, int Sk, int causal,
                            int window, float scale) {
-  constexpr int SPLIT = HD / DPT;         // threads per query row
+  constexpr int SPLIT = split<HD>();      // threads per query row
+  constexpr int DPT = HD / SPLIT;         // head dims each thread holds
+  static_assert(DPT % 4 == 0 && DPT <= 64 && DPT * SPLIT == HD, "head dim");
   constexpr int NT = BQ * SPLIT;          // threads per block
   constexpr int TK = HD >= 256 ? 16 : rt::TK;
   constexpr int C4 = DPT / 4;             // float4 steps per thread
@@ -143,7 +152,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int KV, int Sq, int Sk, int causal,
                    int window, float scale, cudaStream_t stream) {
   dim3 grid(B, H, (Sq + BQ - 1) / BQ);
-  flash_attention_kernel<T, HD><<<grid, BQ * (HD / DPT), 0, stream>>>(
+  flash_attention_kernel<T, HD><<<grid, BQ * split<HD>(), 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Sk, causal,
       window, scale);
@@ -154,8 +163,14 @@ template <typename T>
 cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
                   void* out, int B, int H, int KV, int Sq, int Sk, int causal,
                   int window, float scale, cudaStream_t stream) {
+  if (hd == 16)
+    return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
+                         scale, stream);
   if (hd == 64)
     return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
+                         scale, stream);
+  if (hd == 80)
+    return launch<T, 80>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
                          scale, stream);
   if (hd == 128)
     return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,

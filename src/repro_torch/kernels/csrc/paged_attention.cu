@@ -18,7 +18,9 @@
 // TPU kernel's (group, hd) tile). The block reads its own block-table
 // entries (the TPU kernel's scalar prefetch) and sweeps only ceil(ctx/bs)
 // blocks' worth of tokens. Four warps split the tokens; within a warp each
-// lane owns hd/32 dims, dots are warp-shuffle reductions, and m / l / acc
+// lane owns dims lane + 32 i (ceil(hd / 32) of them; at hd 16 and 80 the
+// last step covers only the first hd % 32 lanes), dots are warp-shuffle
+// reductions, and m / l / acc
 // stay in float32 registers, and so does q up to hd 128 (a group of up to
 // 8). At hd 256 (a group of up to 16: recurrentgemma-2b has 10 query heads
 // over one KV head) q sits in dynamic shared memory instead, which keeps
@@ -41,6 +43,12 @@ constexpr int NW = 4;  // warps per block
 template <int HD>
 __host__ __device__ constexpr int max_group() { return HD >= 256 ? 16 : 8; }
 
+// Whether a lane owns dim lane + 32 i (every lane does when 32 divides HD).
+template <int HD>
+__device__ __forceinline__ bool owns(int lane, int i) {
+  return HD % 32 == 0 || lane + 32 * i < HD;
+}
+
 template <typename TQ, typename TKV, int HD, bool QUANT>
 __global__ void __launch_bounds__(NW * 32)
     paged_attention_kernel(const TQ* __restrict__ q,
@@ -52,7 +60,7 @@ __global__ void __launch_bounds__(NW * 32)
                            const int32_t* __restrict__ ctx_lens,
                            TQ* __restrict__ out, int H, int KV, int bs, int M,
                            float scale) {
-  constexpr int PER = HD / 32;  // dims per lane
+  constexpr int PER = (HD + 31) / 32;  // dims per lane
   constexpr int MAXG = max_group<HD>();
   // q in registers up to hd 128 (MAXG * PER <= 32 floats a lane); at hd
   // 256 a group of 16 would need 128 more, so q waits in shared memory
@@ -78,7 +86,9 @@ __global__ void __launch_bounds__(NW * 32)
     for (int g = 0; g < MAXG; ++g)
 #pragma unroll
       for (int i = 0; i < PER; ++i)
-        qv[g][i] = g < group ? rt::to_f(qg[g * HD + lane + 32 * i]) : 0.f;
+        qv[g][i] = g < group && owns<HD>(lane, i)
+                       ? rt::to_f(qg[g * HD + lane + 32 * i])
+                       : 0.f;
   }
 
   float acc[MAXG][PER], m[MAXG], l[MAXG];
@@ -99,8 +109,9 @@ __global__ void __launch_bounds__(NW * 32)
     const float vs = QUANT ? v_scale[row * KV + kvh] : 1.f;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      kf[i] = rt::to_f(k_pool[base + lane + 32 * i]) * ks;
-      vf[i] = rt::to_f(v_pool[base + lane + 32 * i]) * vs;
+      const bool own = owns<HD>(lane, i);
+      kf[i] = own ? rt::to_f(k_pool[base + lane + 32 * i]) * ks : 0.f;
+      vf[i] = own ? rt::to_f(v_pool[base + lane + 32 * i]) * vs : 0.f;
     }
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
@@ -108,8 +119,9 @@ __global__ void __launch_bounds__(NW * 32)
         float part = 0.f;
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
-          const float qi = Q_SMEM ? smem[g * HD + lane + 32 * i]
-                                  : qv[Q_SMEM ? 0 : g][i];
+          const float qi = !owns<HD>(lane, i) ? 0.f
+                           : Q_SMEM ? smem[g * HD + lane + 32 * i]
+                                    : qv[Q_SMEM ? 0 : g][i];
           part += qi * kf[i];
         }
 #pragma unroll
@@ -139,7 +151,8 @@ __global__ void __launch_bounds__(NW * 32)
       }
 #pragma unroll
       for (int i = 0; i < PER; ++i)
-        sm_acc[((size_t)warp * group + g) * HD + lane + 32 * i] = acc[g][i];
+        if (owns<HD>(lane, i))
+          sm_acc[((size_t)warp * group + g) * HD + lane + 32 * i] = acc[g][i];
     }
   }
   __syncthreads();
@@ -205,8 +218,14 @@ cudaError_t by_hd(int hd, int kv_dtype, int q_dtype, const void* q,
                   const float* vs, const int32_t* tables, const int32_t* ctx,
                   void* out, int B, int H, int KV, int bs, int M, float scale,
                   cudaStream_t stream) {
+  if (hd == 16)
+    return by_pool<TQ, 16>(kv_dtype, q_dtype, q, kp, vp, ks, vs, tables, ctx,
+                           out, B, H, KV, bs, M, scale, stream);
   if (hd == 64)
     return by_pool<TQ, 64>(kv_dtype, q_dtype, q, kp, vp, ks, vs, tables, ctx,
+                           out, B, H, KV, bs, M, scale, stream);
+  if (hd == 80)
+    return by_pool<TQ, 80>(kv_dtype, q_dtype, q, kp, vp, ks, vs, tables, ctx,
                            out, B, H, KV, bs, M, scale, stream);
   if (hd == 128)
     return by_pool<TQ, 128>(kv_dtype, q_dtype, q, kp, vp, ks, vs, tables,

@@ -25,7 +25,11 @@
 // "arbitrary" key axis of M + Ls/bs steps: first the pool tokens below
 // starts (each token's block id read from the table), then the suffix
 // tiles, skipping tiles above the causal diagonal. Shared memory holds two
-// TK x hd float tiles, so peak memory does not grow with the prompt.
+// TK x hd float tiles (TK = 32 keys up to hd 128, 16 at hd 256: 32 KiB), so
+// peak memory does not grow with the prompt. At hd 256 a thread's q and acc
+// (512 floats) no longer fit in registers and spill to local memory; a
+// split of the row over threads, as flash_attention.cu does, is a later
+// change.
 // Masked keys are selected out (never multiplied by zero), so stale or
 // non-finite pool contents cannot leak into the result.
 
@@ -33,8 +37,11 @@
 
 namespace {
 
-// Query positions per block (group * BQ threads).
-constexpr int BQ = 32;
+// Query positions per block (group * bq<HD>() threads): 16 at hd 256,
+// where a thread holds 255 registers and 32 positions of a group of 10
+// would ask for more than an SM's 65,536.
+template <int HD>
+__host__ __device__ constexpr int bq() { return HD >= 256 ? 16 : 32; }
 
 template <typename TQ, typename TKV, int HD, bool QUANT>
 __global__ void paged_prefill_kernel(
@@ -45,7 +52,8 @@ __global__ void paged_prefill_kernel(
     const int32_t* __restrict__ starts, const int32_t* __restrict__ lengths,
     TQ* __restrict__ out, int Ls, int H, int KV, int bs, int M, int window,
     float scale) {
-  using rt::TK;
+  constexpr int TK = HD >= 256 ? 16 : rt::TK;
+  constexpr int BQ = bq<HD>();
   __shared__ __align__(16) float Ks[TK * HD];
   __shared__ __align__(16) float Vs[TK * HD];
   const int n = blockIdx.x, kvh = blockIdx.y, qt = blockIdx.z;
@@ -147,6 +155,7 @@ struct Args {
 
 template <typename TQ, typename TKV, int HD, bool QUANT>
 cudaError_t launch(const Args& a) {
+  constexpr int BQ = bq<HD>();
   dim3 grid(a.N, a.KV, (a.Ls + BQ - 1) / BQ);
   const int threads = (a.H / a.KV) * BQ;
   paged_prefill_kernel<TQ, TKV, HD, QUANT><<<grid, threads, 0, a.stream>>>(
@@ -168,8 +177,11 @@ cudaError_t by_pool(int q_dtype, int kv_dtype, const Args& a) {
 
 template <typename TQ>
 cudaError_t by_hd(int hd, int q_dtype, int kv_dtype, const Args& a) {
+  if (hd == 16) return by_pool<TQ, 16>(q_dtype, kv_dtype, a);
   if (hd == 64) return by_pool<TQ, 64>(q_dtype, kv_dtype, a);
+  if (hd == 80) return by_pool<TQ, 80>(q_dtype, kv_dtype, a);
   if (hd == 128) return by_pool<TQ, 128>(q_dtype, kv_dtype, a);
+  if (hd == 256) return by_pool<TQ, 256>(q_dtype, kv_dtype, a);
   return cudaErrorInvalidValue;
 }
 

@@ -10,9 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.build import FLOAT_DTYPES
-
-HEAD_DIMS = build.HEAD_DIMS["flash_attention"]
+from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

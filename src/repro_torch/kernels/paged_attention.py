@@ -10,11 +10,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.build import FLOAT_DTYPES, QUANT_DTYPES
+from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS, QUANT_DTYPES
 
-HEAD_DIMS = build.HEAD_DIMS["paged_attention"]
 # largest H / KV the CUDA kernel takes, by head dim (csrc max_group)
-MAX_GROUP = {64: 8, 128: 8, 256: 16}
+MAX_GROUP = {hd: 16 if hd >= 256 else 8 for hd in HEAD_DIMS}
 
 
 def _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale):

@@ -10,9 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.build import FLOAT_DTYPES, QUANT_DTYPES
-
-HEAD_DIMS = build.HEAD_DIMS["paged_prefill"]
+from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS, QUANT_DTYPES
 
 
 def _check(q, k_suf, v_suf, k_pool, v_pool, block_tables, starts, lengths,

@@ -139,3 +139,28 @@ def rglru_scan_ref(a, x, h0=None):
     h_seq = (torch.stack(hs, dim=1) if hs
              else torch.empty(B, 0, C, device=a.device))
     return h_seq.to(x.dtype), h
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0=None):
+    """RWKV6 recurrence with a float32 (N, N) state per (batch, head):
+
+        y_t = r_t (S_{t-1} + diag(u) k_t^T v_t),  S_t = diag(w_t) S_{t-1}
+                                                        + k_t^T v_t
+
+    r, k, v: (B, H, T, N) of one float dtype; w: (B, H, T, N) float32 decays;
+    u: (H, N) float32 bonus; s0: (B, H, N, N) float32 or None (zeros). In
+    float32, each step in this order, as the kernel computes it. Returns (y
+    (B, H, T, N) in r's dtype, S_T (B, H, N, N) float32)."""
+    B, H, T, N = r.shape
+    S = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(T):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], S + uf * kv))
+        S = wf[:, :, t, :, None] * S + kv
+    y = (torch.stack(ys, dim=2) if ys
+         else torch.empty(B, H, 0, N, device=r.device))
+    return y.to(r.dtype), S

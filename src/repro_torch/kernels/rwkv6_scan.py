@@ -1,0 +1,71 @@
+"""RWKV6 recurrence: CUDA kernel wrapper.
+
+The port of `repro/kernels/rwkv6_scan.py` (a Pallas TPU kernel), the time
+mix of every RWKV6 layer (`models/recurrent.py:rwkv_seq`). The kernel is
+`csrc/rwkv6_scan.cu`; `ref.rwkv6_scan_ref` is its plain twin. A CPU tensor
+takes the twin; a CUDA tensor launches the kernel or raises.
+`rwkv6_scan.launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import FLOAT_DTYPES
+
+MAX_HEAD_DIM = 64
+
+
+def rwkv6_scan(r, k, v, w, u, s0=None):
+    """y_t = r_t (S_{t-1} + diag(u) k_t^T v_t), S_t = diag(w_t) S_{t-1} +
+    k_t^T v_t per (batch, head), float32 state.
+
+    r, k, v: (B, H, T, N), one float dtype; w: (B, H, T, N) float32; u:
+    (H, N) float32; s0: (B, H, N, N) float32 or None (zeros); all
+    contiguous, N <= 64. Returns (y (B, H, T, N) in r's dtype, S_T
+    (B, H, N, N) float32)."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError(f"rwkv6_scan: r {tuple(r.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w "
+                         f"{tuple(w.shape)}; all must be (B, H, T, N)")
+    B, H, T, N = r.shape
+    if not 0 < N <= MAX_HEAD_DIM:
+        raise ValueError(f"rwkv6_scan: head dim {N} (the kernel takes 1 to "
+                         f"{MAX_HEAD_DIM})")
+    if r.dtype not in FLOAT_DTYPES or k.dtype != r.dtype \
+            or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6_scan: r/k/v dtypes {r.dtype}, {k.dtype}, "
+                        f"{v.dtype}; one of {FLOAT_DTYPES}")
+    want = {"w": (w, (B, H, T, N)), "u": (u, (H, N))}
+    if s0 is not None:
+        want["s0"] = (s0, (B, H, N, N))
+    for name, (t, shape) in want.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"rwkv6_scan: {name} must be float32 {shape}; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    tensors = (r, k, v, w, u) + (() if s0 is None else (s0,))
+    for t in tensors:
+        if t.device != r.device:
+            raise ValueError(f"rwkv6_scan: a tensor on {t.device}, r on "
+                             f"{r.device}")
+        if not t.is_contiguous():
+            raise ValueError("rwkv6_scan: inputs must be contiguous")
+    y = torch.empty_like(r)
+    s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)
+    if B * H == 0:
+        return y, s_out
+    fn = build.load("rwkv6_scan")
+    with torch.cuda.device(r.device):
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u.data_ptr(), build.ptr(s0), y.data_ptr(), s_out.data_ptr(),
+                 build.DTYPE_CODES[r.dtype], B, H, T, N, build.stream())
+    build.check_launch("rwkv6_scan", err)
+    rwkv6_scan.launches += 1
+    return y, s_out
+
+
+rwkv6_scan.launches = 0

@@ -13,18 +13,20 @@
     # on a machine without a GPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-    # the hybrid recurrentgemma-2b (RG-LRU + local attention) through the
-    # fixed-batch generate() path:
+    # the recurrent archs, recurrentgemma-2b (RG-LRU + local attention) and
+    # rwkv6-3b (RWKV6), through the fixed-batch generate() path:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-2b --mode naive --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-3b --full-width --mode naive
 
 The CLI serves the `.reduced()` config (like the JAX CLI) through the
 single-replica engine; `--full-width` serves the published config. The
-engine takes attention-only archs: for recurrentgemma-2b `--mode engine`
-raises NotImplementedError (the hybrid engine slice) and `--mode naive`
-runs it. The router, autoscaler and SLO flags, sampled decoding and the
-quantized / host-tier KV options belong to later slices and stop the CLI
-with an error naming them.
+engine takes attention-only archs: for recurrentgemma-2b and rwkv6-3b
+`--mode engine` raises NotImplementedError (the hybrid engine slice) and
+`--mode naive` runs them. The router, autoscaler and SLO flags, sampled
+decoding and the quantized / host-tier KV options belong to later slices
+and stop the CLI with an error naming them.
 
 `generate()` is the reference path: it primes a dense KV cache one token
 at a time and decodes a fixed batch in lockstep; the engine's greedy

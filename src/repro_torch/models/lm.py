@@ -14,12 +14,13 @@ and the decode / paged states follow the same tree. The JAX package's
 Entry points match the JAX module: init_params, cast_params, forward,
 prefill, init_decode_state, decode_step, prefill_paged, decode_step_paged,
 decode_verify_paged and commit_decode_state. Attention layers ("attn",
-"attn_local") and RG-LRU layers ("rec", recurrentgemma) are ported; the
-paged entry points (the serving engine) take attention-only patterns, and
-"rec" there raises until the hybrid engine slice. "moe" and "rwkv" blocks
-and the vision / audio frontends raise NotImplementedError until their
-slice. Decode state (dense caches, paged pools, recurrent state) is updated
-in place, and every function that takes a state returns the same object.
+"attn_local"), RG-LRU layers ("rec", recurrentgemma) and RWKV6 layers
+("rwkv", rwkv6) are ported; the paged entry points (the serving engine)
+take attention-only patterns, and "rec" / "rwkv" there raise until the
+hybrid engine slice. "moe" blocks and the vision / audio frontends raise
+NotImplementedError until their slice. Decode state (dense caches, paged
+pools, recurrent state) is updated in place, and every function that takes
+a state returns the same object.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.models import attention, recurrent
 from repro_torch.models.layers import init_embed, init_mlp, mlp, rms_norm
 
 ATTN_KINDS = ("attn", "attn_local")
+RECURRENT_KINDS = ("rec", "rwkv")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -45,11 +47,7 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: MoE blocks are not ported yet (the "
                 f"MoE-and-frontends slice)")
-        if kind == "rwkv":
-            raise NotImplementedError(
-                f"{cfg.name}: RWKV6 blocks are not ported yet (the "
-                f"rwkv6_scan slice)")
-        if kind not in ATTN_KINDS + ("rec",):
+        if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(kind)
 
 
@@ -58,11 +56,13 @@ def _check_paged(cfg: ModelConfig) -> None:
     state in the runner and the verify snapshots come with the hybrid
     engine slice."""
     _check_supported(cfg)
-    if "rec" in cfg.prefix_pattern + cfg.block_pattern:
+    rec = set(RECURRENT_KINDS) & set(cfg.prefix_pattern + cfg.block_pattern)
+    if rec:
         raise NotImplementedError(
             f"{cfg.name}: the paged serving path (engine) for recurrent "
-            f"'rec' blocks is not ported yet (the hybrid engine slice: "
-            f"recurrent slot state in the runner, return_states snapshots); "
+            f"{sorted(rec)} blocks is not ported yet (the hybrid engine "
+            f"slice: recurrent slot state in the runner, return_states "
+            f"snapshots); "
             f"use lm.decode_step / generate()")
 
 
@@ -98,6 +98,12 @@ def _init_block(gen, cfg: ModelConfig, kind: str):
                 "rec": recurrent.init_rglru_block(gen, D, cfg.rnn_width,
                                                   cfg.conv_width, dt),
                 "mlp": init_mlp(gen, D, cfg.d_ff, dt, cfg.mlp_kind)}
+    if kind == "rwkv":
+        return {**norms,
+                "tmix": recurrent.init_rwkv(gen, D, cfg.n_heads,
+                                            cfg.head_dim, dt),
+                "cmix": recurrent.init_rwkv_channel_mix(gen, D, cfg.d_ff,
+                                                        dt)}
     return {**norms,
             "attn": attention.init_attention(gen, D, cfg.n_heads,
                                              cfg.n_kv_heads, cfg.head_dim,
@@ -156,6 +162,20 @@ def _mlp_residual(p, x, cfg: ModelConfig):
                    cfg.mlp_kind)
 
 
+def _rwkv_layer(p, h, cfg: ModelConfig, state=None, lengths=None):
+    """One RWKV6 layer (time mix, then channel mix, each residual). state:
+    {"tmix": {"shift", "S"}, "cmix": shift} or None (zeros). Returns (h,
+    new state)."""
+    o, st_t = recurrent.rwkv_seq(
+        p["tmix"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
+        None if state is None else state["tmix"], lengths=lengths)
+    h = h + o
+    o, shift = recurrent.rwkv_channel_mix(
+        p["cmix"], rms_norm(h, p["norm2"], cfg.norm_eps),
+        None if state is None else state["cmix"], lengths=lengths)
+    return h + o, {"tmix": st_t, "cmix": shift}
+
+
 # ----------------------------------------------------------------------------
 # Sequence forward (train / prefill)
 # ----------------------------------------------------------------------------
@@ -164,11 +184,16 @@ def _run_blocks_seq(params, cfg: ModelConfig, h, positions,
                     collect_kv: bool = False, lengths=None):
     """All layers over a full sequence. Returns (h, per-layer states when
     collect_kv else None): {"k", "v"} for attention layers, {"rec": {"h",
-    "conv"}} for RG-LRU layers. `lengths` freezes recurrent layers past
-    each row's true length (attention needs no mask: trailing pads are
-    causally invisible)."""
+    "conv"}} for RG-LRU layers, {"tmix": {"shift", "S"}, "cmix"} for RWKV6
+    layers. `lengths` freezes recurrent layers past each row's true length
+    (attention needs no mask: trailing pads are causally invisible)."""
     kvs: List = []
     for kind, p in _layers(params, cfg):
+        if kind == "rwkv":
+            h, st = _rwkv_layer(p, h, cfg, lengths=lengths)
+            if collect_kv:
+                kvs.append(st)
+            continue
         if kind == "rec":
             o, st = recurrent.rglru_block_seq(
                 p["rec"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
@@ -218,10 +243,11 @@ def _to_tree(cfg: ModelConfig, per_layer: List):
 def prefill(params, cfg: ModelConfig, batch):
     """Single-shot prefill: (logits (B, S, V), cache) where cache mirrors
     init_decode_state's tree with each attention layer's rope'd
-    {"k", "v"} of shape (B, S, KV, hd) and each RG-LRU layer's final
-    {"rec": {"h", "conv"}}. A "lengths" entry in batch ((B,) true lengths
-    of right-padded rows) freezes the recurrent layers past each row's
-    length; attention needs no mask."""
+    {"k", "v"} of shape (B, S, KV, hd), each RG-LRU layer's final
+    {"rec": {"h", "conv"}} and each RWKV6 layer's final {"tmix": {"shift",
+    "S"}, "cmix"}. A "lengths" entry in batch ((B,) true lengths of
+    right-padded rows) freezes the recurrent layers past each row's length;
+    attention needs no mask."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
@@ -242,11 +268,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     """Dense per-layer KV caches (B, S, KV, hd) in the activation dtype;
     local-attention layers keep a rolling buffer of min(window, max_len).
     RG-LRU layers hold {"rec": {"h": (B, rnn_width) float32, "conv":
-    (B, conv_width - 1, rnn_width)}}."""
+    (B, conv_width - 1, rnn_width)}}, RWKV6 layers {"tmix": {"shift": (B, D),
+    "S": (B, H, hd, hd) float32}, "cmix": (B, D)}."""
     _check_supported(cfg)
     dev = torch.device(device)
 
     def one(kind):
+        if kind == "rwkv":
+            hd = cfg.head_dim
+            return {"tmix": {"shift": torch.zeros(batch, cfg.d_model,
+                                                  dtype=cfg.act_dtype,
+                                                  device=dev),
+                             "S": torch.zeros(batch, cfg.n_heads, hd, hd,
+                                              dtype=torch.float32,
+                                              device=dev)},
+                    "cmix": torch.zeros(batch, cfg.d_model,
+                                        dtype=cfg.act_dtype, device=dev)}
         if kind == "rec":
             return {"rec": {
                 "h": torch.zeros(batch, cfg.rnn_width, dtype=torch.float32,
@@ -260,18 +297,25 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     return _to_tree(cfg, [one(kind) for kind in layer_kinds(cfg)])
 
 
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def decode_state_from_prefill(cfg: ModelConfig, cache, max_len: int):
     """init_decode_state's tree holding a `prefill` cache of S tokens, so
     decode_step continues at pos = S: attention K/V at slots 0..S-1 (a
     local-attention layer's rolling buffer keeps the last min(window,
-    max_len) positions p at slot p % window), RG-LRU state as it is."""
-    first = next(c for _, c in _layers(cache, cfg))
-    ref_t = first["rec"]["h"] if "rec" in first else first["k"]
+    max_len) positions p at slot p % window), recurrent state as it is."""
+    ref_t = next(c for _, c in _layers(cache, cfg))
+    while isinstance(ref_t, dict):           # any tensor of the first layer
+        ref_t = next(iter(ref_t.values()))
     state = init_decode_state(cfg, ref_t.shape[0], max_len,
                               device=ref_t.device)
     for (kind, st), (_, c) in zip(_layers(state, cfg), _layers(cache, cfg)):
-        if kind == "rec":
-            st["rec"] = {k: t.clone() for k, t in c["rec"].items()}
+        if kind in RECURRENT_KINDS:
+            st.update(_clone(c))
             continue
         S, n = c["k"].shape[1], st["k"].shape[1]
         p = torch.arange(max(0, S - n), S, device=ref_t.device)
@@ -284,11 +328,15 @@ def decode_state_from_prefill(cfg: ModelConfig, cache, max_len: int):
 def decode_step(params, cfg: ModelConfig, state, tokens, pos: int):
     """tokens: (B,) int; pos: the position being fed (an int). Returns
     (logits (B, V), state) — the caches are updated in place, and each
-    RG-LRU layer's {"rec"} entry is replaced by its new state (the block
-    runs with S = 1)."""
+    recurrent layer's entries are replaced by its new state (the blocks run
+    with S = 1)."""
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
     for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
+        if kind == "rwkv":
+            h, new = _rwkv_layer(p, h, cfg, st)
+            st.update(new)
+            continue
         if kind == "rec":
             o, st["rec"] = recurrent.rglru_block_seq(
                 p["rec"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,

@@ -1,22 +1,28 @@
-"""Recurrent token mixers (PyTorch port of `repro.models.recurrent`),
-RG-LRU half.
+"""Recurrent token mixers (PyTorch port of `repro.models.recurrent`):
+RWKV6 ("Finch") and RG-LRU (RecurrentGemma).
 
-The Griffin / RecurrentGemma recurrent block in sequence form: lm.forward
-and lm.prefill run it over the prompt, and each decode step runs it with
-S = 1 from the carried state {"h": (B, rd) float32, "conv": (B, W-1, rd)}.
-Its scan goes through the `rglru_scan` kernel wrapper (the CUDA kernel on
+Both run in sequence form: lm.forward and lm.prefill run them over the
+prompt, and each decode step runs them with S = 1 from the carried state.
+The RWKV6 time mix's recurrence goes through the `rwkv6_scan` kernel
+wrapper and the RG-LRU block's through `rglru_scan` (each the CUDA kernel on
 CUDA tensors, its plain twin on CPU tensors).
 
-Not ported yet: the RWKV6 mixers (`rwkv_seq`, `rwkv_channel_mix`, with the
-rwkv6_scan kernel) and the per-step `return_states` snapshots that the
-engine's speculative verify rolls back to (the hybrid engine slice).
+The casts follow the JAX module one for one. RWKV6: r, k, v and g stay in
+the activation dtype, the decay adds in float32 and w = exp(-exp(d)) is
+float32, the (H, hd, hd) state is float32, the group norm runs in float32
+and is cast back. RWKV6 fidelity notes as in the JAX module: data-dependent
+decay through a LoRA on the token-shifted input and the per-head bonus u;
+one learned static token-shift mix per projection.
+
+Not ported yet: the per-step `return_states` snapshots that the engine's
+speculative verify rolls back to (the hybrid engine slice).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import rglru_scan
+from repro_torch.kernels import rglru_scan, rwkv6_scan
 from repro_torch.models.layers import init_dense
 
 _RG_C = 8.0
@@ -27,13 +33,152 @@ def _not_ported(what: str, slice_name: str):
                               f"{slice_name} slice)")
 
 
-def rwkv_seq(*args, **kwargs):
-    _not_ported("the RWKV6 time mix", "rwkv6_scan")
+# ----------------------------------------------------------------------------
+# RWKV6 time mix
+# ----------------------------------------------------------------------------
+
+def init_rwkv(gen, d_model, n_heads, head_dim, dtype, lora_rank: int = 32):
+    """The JAX time mix's params, drawn from `gen`."""
+    dh = n_heads * head_dim
+    dev = gen.device
+    return {
+        "w_r": init_dense(gen, d_model, dh, dtype),
+        "w_k": init_dense(gen, d_model, dh, dtype),
+        "w_v": init_dense(gen, d_model, dh, dtype),
+        "w_g": init_dense(gen, d_model, dh, dtype),
+        "w_o": init_dense(gen, dh, d_model, dtype),
+        # static token-shift mixes (one per projection r, k, v, g, w)
+        "mix": (torch.rand(5, d_model, generator=gen, device=dev)
+                * 0.5).to(dtype),
+        # data-dependent decay: w_t = exp(-exp(decay_base + lora))
+        "decay_base": torch.zeros(dh, dtype=dtype, device=dev),
+        "decay_A": init_dense(gen, d_model, lora_rank, dtype),
+        "decay_B": init_dense(gen, lora_rank, dh, dtype, scale=0.01),
+        "bonus_u": (torch.randn(n_heads, head_dim, generator=gen, device=dev)
+                    * 0.1).to(dtype),
+        "ln_scale": torch.ones(dh, dtype=dtype, device=dev),
+    }
 
 
-def rwkv_channel_mix(*args, **kwargs):
-    _not_ported("the RWKV6 channel mix", "rwkv6_scan")
+def _shift_mix(x, x_prev, mix):
+    return x + (x_prev - x) * mix
 
+
+def _rwkv_projections(params, x, x_prev, n_heads, head_dim):
+    """x, x_prev: (B, S, D), x_prev the token-shifted input. Returns r, k,
+    v (B, S, H, hd) and g (B, S, H * hd) in x's dtype, w (B, S, H, hd)
+    float32."""
+    mix = params["mix"].to(x.dtype)
+    B, S, _ = x.shape
+    shp = (B, S, n_heads, head_dim)
+    r = (_shift_mix(x, x_prev, mix[0]) @ params["w_r"]).reshape(shp)
+    k = (_shift_mix(x, x_prev, mix[1]) @ params["w_k"]).reshape(shp)
+    v = (_shift_mix(x, x_prev, mix[2]) @ params["w_v"]).reshape(shp)
+    g = F.silu(_shift_mix(x, x_prev, mix[3]) @ params["w_g"])
+    lora = torch.tanh(_shift_mix(x, x_prev, mix[4]) @ params["decay_A"]) \
+        @ params["decay_B"]
+    d = params["decay_base"].float() + lora.float()
+    w = torch.exp(-torch.exp(d)).reshape(shp)           # in (0, 1), fp32
+    return r, k, v, g, w
+
+
+def _rwkv_group_norm(y, scale, n_heads, head_dim, eps=1e-5):
+    B, S = y.shape[:2]
+    yf = y.reshape(B, S, n_heads, head_dim).float()
+    mean = yf.mean(-1, keepdim=True)
+    var = yf.var(-1, unbiased=False, keepdim=True)
+    yf = (yf - mean) * torch.rsqrt(var + eps)
+    return (yf.reshape(B, S, -1) * scale.float()).to(y.dtype)
+
+
+def _token_shift(x, shift):
+    """[shift, x_0, ..., x_{S-2}]: each token's predecessor, (B, S, D)."""
+    return torch.cat([shift[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _last_valid(x, lengths):
+    """x: (B, S, D) -> (B, D) rows gathered at lengths - 1 (clipped)."""
+    idx = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def _valid(lengths, S, device):
+    return torch.arange(S, device=device)[None, :] < lengths[:, None]
+
+
+def rwkv_seq(params, x, cfg, state=None, lengths=None,
+             return_states=False):
+    """RWKV6 time mix, sequence form. x: (B, S, D); state: {"shift": (B, D)
+    last token, "S": (B, H, hd, hd) float32} or None (zeros). Returns
+    (out (B, S, D), new state).
+
+    lengths: optional (B,) true lengths of right-padded rows: padded steps
+    leave the recurrence untouched (k zeroed, decay 1) and the shift state
+    is each row's true last token, so the final state equals an unpadded
+    per-row run's."""
+    if return_states:
+        _not_ported("rwkv_seq(return_states=True), the per-step snapshots "
+                    "of speculative verify,", "hybrid engine")
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    if state is None:
+        state = {"shift": torch.zeros(B, D, dtype=x.dtype, device=x.device),
+                 "S": torch.zeros(B, H, hd, hd, dtype=torch.float32,
+                                  device=x.device)}
+    r, k, v, g, w = _rwkv_projections(params, x, _token_shift(
+        x, state["shift"]), H, hd)
+    if lengths is not None:
+        valid = _valid(lengths, S, x.device)[..., None, None]
+        k = k * valid.to(k.dtype)
+        w = torch.where(valid, w, torch.ones_like(w))
+    y, S_fin = rwkv6_scan(*(t.transpose(1, 2).contiguous()
+                            for t in (r, k, v, w)),
+                          params["bonus_u"].float().contiguous(),
+                          state["S"].float().contiguous())
+    y = y.transpose(1, 2).reshape(B, S, H * hd)
+    y = _rwkv_group_norm(y, params["ln_scale"], H, hd) * g
+    out = y @ params["w_o"]
+    shift = x[:, -1] if lengths is None else _last_valid(x, lengths)
+    return out, {"shift": shift, "S": S_fin}
+
+
+def rwkv_step(params, x, cfg, state):
+    """Single-token decode. x: (B, 1, D)."""
+    return rwkv_seq(params, x, cfg, state=state)
+
+
+def init_rwkv_channel_mix(gen, d_model, d_ff, dtype):
+    """The JAX channel mix's params, drawn from `gen`."""
+    return {"w_k": init_dense(gen, d_model, d_ff, dtype),
+            "w_v": init_dense(gen, d_ff, d_model, dtype),
+            "w_r": init_dense(gen, d_model, d_model, dtype),
+            "mix": (torch.rand(2, d_model, generator=gen, device=gen.device)
+                    * 0.5).to(dtype)}
+
+
+def rwkv_channel_mix(params, x, shift_state=None, lengths=None,
+                     return_states=False):
+    """RWKV channel mix (relu^2). x: (B, S, D); shift_state: (B, D) or None
+    (zeros). Returns (y, last token); with `lengths` the shift state is
+    each row's true last token."""
+    if return_states:
+        _not_ported("rwkv_channel_mix(return_states=True), the per-step "
+                    "snapshots of speculative verify,", "hybrid engine")
+    B, S, D = x.shape
+    if shift_state is None:
+        shift_state = torch.zeros(B, D, dtype=x.dtype, device=x.device)
+    x_prev = _token_shift(x, shift_state)
+    mix = params["mix"].to(x.dtype)
+    k = torch.square(F.relu(_shift_mix(x, x_prev, mix[0]) @ params["w_k"]))
+    y = torch.sigmoid(_shift_mix(x, x_prev, mix[1]) @ params["w_r"]) \
+        * (k @ params["w_v"])
+    shift = x[:, -1] if lengths is None else _last_valid(x, lengths)
+    return y, shift
+
+
+# ----------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+# ----------------------------------------------------------------------------
 
 def init_rglru_block(gen, d_model, rnn_width, conv_width, dtype):
     """The JAX block's params, drawn from `gen` (log_lambda is float32 and
@@ -124,8 +269,7 @@ def rglru_block_seq(params, x, cfg, state=None, lengths=None,
                                         lengths=lengths)
     a, gx = _rglru_gates(params, branch)
     if lengths is not None:
-        valid = (torch.arange(S, device=x.device)[None, :]
-                 < lengths[:, None])[..., None]
+        valid = _valid(lengths, S, x.device)[..., None]
         a = torch.where(valid, a, torch.ones_like(a))
         gx = torch.where(valid, gx, torch.zeros_like(gx))
     hs, h_fin = rglru_scan(a.contiguous(), gx.contiguous(),

@@ -9,11 +9,13 @@ side of that loop. Three pieces:
 
   * `QuantileSketch` — a bounded-memory streaming quantile estimator:
     a fixed log-spaced-bucket histogram (the DDSketch bucket layout)
-    whose bucket midpoints pin every quantile estimate within a
+    whose bucket representatives pin every quantile estimate within a
     declared RELATIVE error bound of the exact order statistic. With
     gamma = (1 + rel_err) / (1 - rel_err), bucket i covers
-    (min_value * gamma^(i-1), min_value * gamma^i] and reports the
-    midpoint, so |estimate - exact| <= rel_err * exact for any value
+    (min_value * gamma^(i-1), min_value * gamma^i] and reports
+    min_value * gamma^i * 2 / (1 + gamma), whose relative error against
+    either edge is (gamma-1)/(gamma+1) = rel_err, so
+    |estimate - exact| <= rel_err * exact for any value
     in (min_value, max_value] — tested against numpy's exact
     nearest-rank quantile on adversarial distributions. Memory is
     FIXED at construction (the bucket array), never grows with the
@@ -118,11 +120,12 @@ class QuantileSketch:
     def _value(self, i: int) -> float:
         if i <= 0:
             return self.min_value
-        # midpoint of (min * gamma^(i-1), min * gamma^i]: relative
-        # error vs anything in the bucket is (gamma-1)/(gamma+1) ==
-        # rel_err — the pinned bound
-        return self.min_value * (self.gamma ** (i - 1)) \
-            * (1.0 + self.gamma) / 2.0
+        # the point of (L, U] = (min * gamma^(i-1), min * gamma^i] whose
+        # relative error against either edge is (gamma-1)/(gamma+1) ==
+        # rel_err (the pinned bound): U * 2 / (1 + gamma). The arithmetic
+        # midpoint (L + U) / 2 is off by (gamma-1)/2 > rel_err against a
+        # value just above L.
+        return self.min_value * (self.gamma ** i) * 2.0 / (1.0 + self.gamma)
 
     def observe(self, v: float) -> None:
         self.counts[self._index(v)] += 1
@@ -131,8 +134,9 @@ class QuantileSketch:
 
     def quantile(self, q: float) -> Optional[float]:
         """Nearest-rank quantile estimate (None on an empty sketch):
-        the midpoint of the bucket holding the ceil(q*n)-th ordered
-        observation — within rel_err of the exact order statistic."""
+        the representative point of the bucket holding the ceil(q*n)-th
+        ordered observation — within rel_err of the exact order
+        statistic."""
         if not 0.0 <= q <= 1.0:
             raise ValueError(f"q must be in [0, 1], got {q}")
         if self.count == 0:

@@ -104,14 +104,25 @@ def test_full_width_smollm_count_and_dtypes():
                                   "musicgen-medium"])
 def test_unported_archs_raise(arch):
     """Each arch's unported path raises: the whole model, or for
-    recurrentgemma-2b (whose lm and generate() paths are ported) the paged
-    engine state."""
+    recurrentgemma-2b and rwkv6-3b (whose lm and generate() paths are
+    ported) the paged engine state."""
     cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
-        if arch == "recurrentgemma-2b":
+        if arch in ("recurrentgemma-2b", "rwkv6-3b"):
             tkv.init_paged_state(cfg, 2, 8, 4, device="cpu")
         else:
             tlm.init_params(0, cfg, device="cpu")
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tuple(tree.shape), tree.dtype
 
 
 def test_recurrentgemma_tree_converts_leaf_for_leaf():
@@ -124,18 +135,7 @@ def test_recurrentgemma_tree_converts_leaf_for_leaf():
         jconfigs.get_config("recurrentgemma-2b").reduced()))
     got = convert.from_jax(jparams, cfg)
     want = tlm.init_params(0, cfg, device="cpu")
-
-    def leaves(tree, path=()):
-        if isinstance(tree, dict):
-            for k in sorted(tree):
-                yield from leaves(tree[k], path + (k,))
-        elif isinstance(tree, list):
-            for i, v in enumerate(tree):
-                yield from leaves(v, path + (i,))
-        else:
-            yield path, tuple(tree.shape), tree.dtype
-
-    assert list(leaves(got)) == list(leaves(want))
+    assert list(_leaves(got)) == list(_leaves(want))
     rec = got["prefix"][0]["rec"]
     assert rec["log_lambda"].dtype == torch.float32
     np.testing.assert_array_equal(rec["log_lambda"].numpy(),
@@ -143,6 +143,26 @@ def test_recurrentgemma_tree_converts_leaf_for_leaf():
     np.testing.assert_array_equal(
         got["blocks"]["p1"][1]["rec"]["conv_w"].numpy(),
         jparams["blocks"]["p1"]["rec"]["conv_w"][1])
+
+
+def test_rwkv_tree_converts_leaf_for_leaf():
+    """The JAX rwkv6 tree (each layer's tmix / cmix) converts to exactly
+    the port's own init tree: the same keys, shapes and dtypes, every
+    layer unstacked, values equal."""
+    cfg = tconfigs.get_config("rwkv6-3b").reduced()
+    jparams = jax.device_get(jlm.init_params(
+        jax.random.PRNGKey(0), jconfigs.get_config("rwkv6-3b").reduced()))
+    got = convert.from_jax(jparams, cfg)
+    want = tlm.init_params(0, cfg, device="cpu")
+    assert list(_leaves(got)) == list(_leaves(want))
+    assert {k for k in got["blocks"]["p0"][0]} == {"norm1", "norm2", "tmix",
+                                                    "cmix"}
+    np.testing.assert_array_equal(
+        got["blocks"]["p0"][1]["tmix"]["bonus_u"].numpy(),
+        jparams["blocks"]["p0"]["tmix"]["bonus_u"][1])
+    np.testing.assert_array_equal(
+        got["blocks"]["p0"][0]["cmix"]["w_v"].numpy(),
+        jparams["blocks"]["p0"]["cmix"]["w_v"][0])
 
 
 def test_init_params_needs_a_device_without_gpu():

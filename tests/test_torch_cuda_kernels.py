@@ -3,11 +3,14 @@
 Imports torch only (the GPU machine has no JAX), so it runs there with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 and skips, test by test, where no CUDA device is present. Shapes are
-smollm-135m's serving shapes (9 heads over 3 KV heads, head_dim 64);
-float32 at 2e-5, bf16 at 2e-2 (one bf16 rounding of outputs <= ~4).
-svrg_update is held at float32 1e-6 (the JAX kernel test's own) and, in
-bf16 / f16, to within one rounding of its twin (both compute in float32
-and round once)."""
+smollm-135m's serving shapes (9 heads over 3 KV heads, head_dim 64), the
+other head dims the configs have (16 reduced, 80 stablelm-3b, 256
+recurrentgemma-2b), and rwkv6-3b's (40 heads of 64); float32 at 2e-5, bf16
+at 2e-2 (one bf16 rounding of outputs <= ~4). svrg_update is held at
+float32 1e-6 (the JAX kernel test's own) and, in bf16 / f16, to within one
+rounding of its twin (both compute in float32 and round once); rwkv6_scan
+at float32 1e-5 (1 + |twin|), bf16 2 ulps, and its float32 state bit for
+bit."""
 import numpy as np
 import pytest
 
@@ -16,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
                                  paged_prefill_attention, ref, svrg_update)
 from repro_torch.kernels import rglru_scan  # noqa: E402
+from repro_torch.kernels import rwkv6_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -277,3 +281,108 @@ def test_rglru_scan_raises_on_bad_inputs(cuda):
     with pytest.raises(TypeError):                      # float64
         rglru_scan(a.double(), a.double())
     assert rglru_scan.launches == before
+
+
+# ----------------------------------------------------------------------------
+# the head dims the configs have besides 64: 16 (every .reduced()), 80
+# (stablelm-3b), and 256 in paged_prefill (recurrentgemma-2b's)
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd,heads", [(16, (4, 2)), (80, (32, 32)),
+                                      (256, (10, 1))])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_attention_kernels_at_every_head_dim(cuda, hd, heads, dtype, tol):
+    """flash (causal, windowed, full), paged decode over ragged contexts
+    and paged prefill over a cached prefix, each against its twin."""
+    h, kv = heads
+    rng = np.random.default_rng(hd)
+    q = _rand(rng, 2, h, 200, hd, dtype=dtype, dev=cuda)
+    k, v = (_rand(rng, 2, kv, 200, hd, dtype=dtype, dev=cuda)
+            for _ in range(2))
+    for causal, window in ((True, 0), (False, 0), (True, 48)):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    B, m = 4, 8
+    P = B * m + 1
+    qd = _rand(rng, B, h, hd, dtype=dtype, dev=cuda)
+    kp, vp = (_rand(rng, P, BS, kv, hd, dtype=dtype, dev=cuda)
+              for _ in range(2))
+    bt = torch.from_numpy((1 + rng.permutation(B * m)).reshape(B, m)
+                          .astype(np.int32)).to(cuda)
+    ctx = torch.tensor([0, 1, 13, 64], dtype=torch.int32, device=cuda)
+    got = paged_attention(qd, kp, vp, bt, ctx)
+    want = ref.paged_attention_ref(qd, kp, vp, bt, ctx)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    N, Ls = 3, 16
+    qp = _rand(rng, N, Ls, h, hd, dtype=dtype, dev=cuda)
+    ks, vs = (_rand(rng, N, Ls, kv, hd, dtype=dtype, dev=cuda)
+              for _ in range(2))
+    st = torch.tensor([0, 8, 0], dtype=torch.int32, device=cuda)
+    ln = torch.tensor([16, 24, 9], dtype=torch.int32, device=cuda)
+    for window in (0, 6):
+        args = (qp, ks, vs, kp, vp, bt[:N], st, ln)
+        got = paged_prefill_attention(*args, window=window)
+        want = ref.paged_prefill_ref(*args, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    torch.cuda.synchronize()
+
+
+# ----------------------------------------------------------------------------
+# rwkv6-3b's time mix: 40 heads of 64, float32 state; and the reduced 16
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 40, 1, 64), (2, 40, 300, 64),
+                                   (2, 4, 40, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_scan_matches_twin(cuda, shape, dtype, with_s0):
+    """y within float32 1e-5 (1 + |twin|) or 2 bf16 ulps (only the order
+    of the sum over the key channel differs); S_T bit for bit (each state
+    element's multiply and add are rounded on their own in both)."""
+    B, H, T, N = shape
+    rng = np.random.default_rng(T * N + with_s0)
+    r, k, v = (_rand(rng, *shape, dev=cuda).mul(0.5).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(_rand(rng, *shape, dev=cuda) - 1))
+    u = _rand(rng, H, N, dev=cuda) * 0.1
+    s0 = _rand(rng, B, H, N, N, dev=cuda) if with_s0 else None
+    before = rwkv6_scan.launches
+    got, got_s = rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    assert got.dtype == dtype and got_s.dtype == torch.float32
+    want, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert bool((diff <= 1e-5 * (1 + want.abs())).all())
+    else:
+        _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -8))
+        assert bool((diff <= 2 * torch.ldexp(torch.ones_like(diff),
+                                             e - 8)).all())
+    torch.testing.assert_close(got_s, want_s, atol=0, rtol=0)
+
+
+def test_rwkv6_scan_raises_on_bad_inputs(cuda):
+    r = torch.zeros(1, 2, 3, 16, device=cuda)
+    w, u = torch.zeros_like(r), torch.zeros(2, 16, device=cuda)
+    before = rwkv6_scan.launches
+    with pytest.raises(ValueError):                     # shapes differ
+        rwkv6_scan(r, r[:, :, :2].contiguous(), r, w, u)
+    with pytest.raises(TypeError):                      # k dtype differs
+        rwkv6_scan(r, r.bfloat16(), r, w, u)
+    with pytest.raises(ValueError):                     # w not float32
+        rwkv6_scan(r.bfloat16(), r.bfloat16(), r.bfloat16(), w.bfloat16(), u)
+    with pytest.raises(ValueError):                     # s0 misshapen
+        rwkv6_scan(r, r, r, w, u, torch.zeros(1, 2, 16, 8, device=cuda))
+    with pytest.raises(ValueError):                     # strided
+        rwkv6_scan(r[:, :, ::2], r[:, :, ::2], r[:, :, ::2], w[:, :, ::2], u)
+    with pytest.raises(ValueError):                     # head dim 128
+        big = torch.zeros(1, 1, 2, 128, device=cuda)
+        rwkv6_scan(big, big, big, big, torch.zeros(1, 128, device=cuda))
+    with pytest.raises(ValueError):                     # u on the CPU
+        rwkv6_scan(r, r, r, w, u.cpu())
+    assert rwkv6_scan.launches == before

@@ -1,7 +1,9 @@
 """repro_torch.models.lm held to repro.models.lm on the reduced (float32)
 configs with converted params: forward logits to 1e-4, the paged prefill /
 decode / verify paths (logits and pools on identical block tables), and
-greedy generate() tokens over 32 steps."""
+greedy generate() tokens over 32 steps; for the recurrent archs
+(recurrentgemma-2b, rwkv6-3b) prefill with `lengths`, its states, decoding
+on from them, and generate()."""
 import numpy as np
 import pytest
 
@@ -38,7 +40,7 @@ def _np(x):
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "codeqwen1.5-7b",
                                   "minitron-4b", "stablelm-3b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "rwkv6-3b"])
 def test_forward_logits_match_jax(arch):
     jcfg, jparams, tcfg, tparams = _models(arch)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 24))
@@ -268,6 +270,82 @@ def test_recurrentgemma_generate_tokens_match_jax(seed):
 def test_recurrentgemma_paged_paths_raise():
     """The engine (paged) path for rec blocks waits for its slice."""
     _, _, tcfg, tparams = _models(RG)
+    with pytest.raises(NotImplementedError, match="hybrid engine"):
+        tkv.init_paged_state(tcfg, 2, 8, 4, device="cpu")
+    z = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="hybrid engine"):
+        tlm.decode_step_paged(tparams, tcfg, {}, z[0], z[0], z)
+
+
+# ----------------------------------------------------------------------------
+# rwkv6-3b: RWKV6 layers (time mix + channel mix), reduced to 2 layers of
+# d_model 64, 4 heads x 16
+# ----------------------------------------------------------------------------
+
+RW = "rwkv6-3b"
+
+
+def test_rwkv_prefill_logits_and_states_match_jax():
+    """Right-padded rows (lengths 24 and 17): logits at 1e-4, and every
+    layer's final time-mix state (shift, float32 S) and channel-mix shift
+    at 1e-5, gathered at each row's true length."""
+    jcfg, jparams, tcfg, tparams = _models(RW)
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, 24))
+    lengths = np.asarray([24, 17], np.int32)
+    want, jcache = jlm.prefill(jparams, jcfg, {
+        "tokens": jnp.asarray(toks), "lengths": jnp.asarray(lengths)})
+    got, tcache = tlm.prefill(tparams, tcfg, {
+        "tokens": torch.from_numpy(toks),
+        "lengths": torch.from_numpy(lengths)})
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    jcache = convert.from_jax(jax.device_get(jcache), tcfg)
+    layers = list(zip(tlm._layers(tcache, tcfg), tlm._layers(jcache, tcfg)))
+    assert [k for (k, _), _ in layers] == ["rwkv"] * tcfg.n_layers
+    for i, ((_, t), (_, j)) in enumerate(layers):
+        assert t["tmix"]["S"].dtype == torch.float32
+        for got_t, want_t in ((t["tmix"]["shift"], j["tmix"]["shift"]),
+                              (t["tmix"]["S"], j["tmix"]["S"]),
+                              (t["cmix"], j["cmix"])):
+            np.testing.assert_allclose(_np(got_t), _np(want_t), atol=1e-5,
+                                       rtol=1e-5, err_msg=str(i))
+
+
+def test_rwkv_prefill_then_decode_matches_stepwise():
+    """decode_state_from_prefill: decoding on from a 16-token prefill
+    equals priming the same state token by token."""
+    _, _, tcfg, tparams = _models(RW)
+    toks = torch.from_numpy(
+        np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, 16)))
+    logits_pf, cache = tlm.prefill(tparams, tcfg, {"tokens": toks})
+    state = tlm.init_decode_state(tcfg, 2, 24, device="cpu")
+    for pos in range(16):
+        logits, state = tlm.decode_step(tparams, tcfg, state, toks[:, pos],
+                                        pos)
+    np.testing.assert_allclose(_np(logits_pf[:, -1]), _np(logits), **TOL)
+    from_pf = tlm.decode_state_from_prefill(tcfg, cache, 24)
+    nxt = torch.tensor([3, 7])
+    for pos in range(16, 20):
+        a, from_pf = tlm.decode_step(tparams, tcfg, from_pf, nxt, pos)
+        b, state = tlm.decode_step(tparams, tcfg, state, nxt, pos)
+        np.testing.assert_allclose(_np(a), _np(b), **TOL)
+        nxt = torch.argmax(b, -1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rwkv_generate_tokens_match_jax(seed):
+    """Greedy generate() over 32 steps from 12-token prompts, token for
+    token."""
+    jcfg, jparams, tcfg, tparams = _models(RW, seed=seed)
+    prompts = np.random.default_rng(seed + 30).integers(
+        0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    want = np.asarray(jgenerate(jparams, jcfg, jnp.asarray(prompts), 32))
+    got = _np(tgenerate(tparams, tcfg, prompts, 32, device="cpu"))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rwkv_paged_paths_raise():
+    """The engine (paged) path for rwkv blocks waits for its slice."""
+    _, _, tcfg, tparams = _models(RW)
     with pytest.raises(NotImplementedError, match="hybrid engine"):
         tkv.init_paged_state(tcfg, 2, 8, 4, device="cpu")
     z = torch.zeros(1, 1, dtype=torch.int32)
