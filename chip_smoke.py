@@ -5,7 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. build   the six CUDA kernels from src/repro_torch/kernels/csrc/
-             (one nvcc per source, all started together);
+             (one nvcc per source, all started together); cuobjdump -sass
+             must find HGMMA (wgmma) in every bf16 / f16 instantiation of
+             the flash kernel;
   2. kernels each kernel against its plain PyTorch twin at the shapes its
              main path gives it (error vs a stated tolerance, the
              bytes-or-flops bound): the attention kernels at smollm-135m
@@ -13,7 +15,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              head, hd 256: flash at 2304 tokens with window 2048 and
              without, paged decode over one 2048-slot block per row) and at
              the other head dims the configs have (16, 80; paged_prefill
-             also 256), svrg_update at 2^20, an odd tail and an unaligned
+             also 256; flash also 128), paged decode's batch invariance
+             (each row alone bit-equal to its batch row), svrg_update at 2^20, an odd tail and an unaligned
              view, rglru_scan at 2 x 512, 1 x 2304 and 4 x 1 by 2560
              channels (float32 bit-equal), rwkv6_scan at 4 x 40 x 1 x 64 (a
              decode step), 2 x 40 x 512 x 64, 1 x 40 x 2048 x 64 and 2 x 4 x
@@ -266,8 +269,42 @@ def phase_build():
               + "".join(f"; template ints {'/'.join(d)}: {ln}"
                         for d, ln in spills[:3]))
     return {"seconds": secs, "spills": spilled,
+            "flash_hgmma": _flash_hgmma(build, paths["flash_attention"]),
             "libraries": {n: str(p.relative_to(ROOT))
                           for n, p in paths.items()}}
+
+
+def _flash_hgmma(build, lib):
+    """HGMMA (wgmma) instructions in each bf16 / f16 instantiation of the
+    flash library's tensor-core kernel, from cuobjdump -sass (beside
+    nvcc); fails if cuobjdump is missing or an instantiation has none."""
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        raise AssertionError(f"cuobjdump not found beside nvcc ({cuobjdump})")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    names = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+    counts, key = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            key = None
+            if "flash_wgmma_kernel" in fn:
+                dt = next((v for k, v in names.items() if k in fn), "?")
+                hd = re.findall(r"Li(\d+)E", fn)[0]
+                key = f"{dt}/hd{hd}"
+                counts[key] = 0
+        elif key is not None and "HGMMA" in ln:
+            counts[key] += 1
+    want = {f"{dt}/hd{hd}" for dt in names.values()
+            for hd in build.HEAD_DIMS}
+    print("[build] flash_attention SASS, HGMMA per instantiation: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
+    if set(counts) != want or not all(counts.values()):
+        raise AssertionError(f"flash_attention: a bf16 / f16 instantiation "
+                             f"is missing or has no HGMMA: {counts}")
+    return counts
 
 
 def _check(name, got, want, tol_ulps=TOL_ULPS, f32_tol=None):
@@ -376,6 +413,18 @@ def phase_kernels(dev):
     nbytes = (2 * _nbytes(q) + _nbytes(tables, ctx)
               + 2 * n_tok * KV * hd * kp.element_size())
     bound, by = _bound_ms(nbytes, 4 * H * hd * n_tok)
+    # batch invariance, which the engine's greedy identity with generate()
+    # rests on: every row alone equals its row of the batch bit for bit
+    for name, a in (("engine B=8", args), ("hd256 group10 B=4", rg)):
+        full = paged_attention(*a)
+        for b_ in range(a[0].shape[0]):
+            alone = paged_attention(a[0][b_:b_ + 1], a[1], a[2],
+                                    a[3][b_:b_ + 1], a[4][b_:b_ + 1])
+            if not torch.equal(alone[0], full[b_]):
+                raise AssertionError(f"paged_attention {name}: row {b_} "
+                                     f"alone differs from its batch row")
+        print(f"[kernels] paged_attention {name}: each row alone equals its "
+              f"batch row bit for bit ok")
     out.append(dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -470,6 +519,18 @@ def phase_kernels(dev):
                         lambda: F.scaled_dot_product_attention(
                             qr, kr, vr, attn_mask=mask, enable_gqa=True)),
                   bound_ms=fb[0], bound_by=fb[1])
+    # hd 128 (no config of the main path has it; timed beside SDPA)
+    f128 = (rn(2, 16, 1024, 128), rn(2, 4, 1024, 128), rn(2, 4, 1024, 128))
+    arm(arms, "flash_attention 2x16x1024 hd128 causal=True",
+        flash_attention(*f128), ref.flash_attention_ref(*f128))
+    fb128 = _bound_ms(2 * _nbytes(f128[0]) + _nbytes(*f128[1:]),
+                      4 * 2 * 16 * 128 * 1024 * 1025 // 2)
+    f128_arm = dict(label="hd128 16/4 heads 2 x 1024, causal, bf16",
+                    _fns=(lambda: flash_attention(*f128),
+                          lambda: ref.flash_attention_ref(*f128),
+                          lambda: F.scaled_dot_product_attention(
+                              *f128, is_causal=True, enable_gqa=True)),
+                    bound_ms=fb128[0], bound_by=fb128[1])
     out.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -479,7 +540,7 @@ def phase_kernels(dev):
               lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=bound, bound_by=by,
-        shape=dict(B=2, H=H, KV=KV, S=S, hd=hd), _extra=[fl_arm],
+        shape=dict(B=2, H=H, KV=KV, S=S, hd=hd), _extra=[fl_arm, f128_arm],
         **worst(arms)))
 
     # -- svrg_update: n = 64 (the core phase's paper-lsq width), n = 2^20

@@ -46,15 +46,21 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 HEAD_DIMS = (16, 64, 80, 128, 256)
+# csrc/paged_attention.cu: CHUNK, the tokens of a row each block of the
+# split takes (a constant, so a row's bits never depend on the batch);
+# csrc/flash_attention.cu: BN, the keys per tensor-core tile
+PAGED_CHUNK = 128
+FLASH_KEY_TILE = 64
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures of the extern "C" entry points (pointers and the stream as
 # c_void_p so ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "paged_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "paged_attention": [_P] * 10 + [_I] * 8 + [_F, _P],
     "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
+    "flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [_F, _P],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
     "rglru_scan": [_P] * 5 + [_I] * 4 + [_P],
     "rwkv6_scan": [_P] * 8 + [_I] * 5 + [_P],
@@ -118,12 +124,13 @@ def build_all(names: List[str] = KERNELS) -> Dict[str, Path]:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str):
-    """The kernel's C entry point (building its library first if needed),
-    with its argument types declared."""
+def load(name: str, symbol: str | None = None):
+    """The C entry point `symbol` (default: `name`) of kernel `name`'s
+    library, building the library first if needed, with its argument
+    types declared."""
     path = build_all([name])[name]
-    fn = getattr(ctypes.CDLL(str(path)), name)
-    fn.argtypes = SIGNATURES[name]
+    fn = getattr(ctypes.CDLL(str(path)), symbol or name)
+    fn.argtypes = SIGNATURES[symbol or name]
     fn.restype = ctypes.c_int
     return fn
 

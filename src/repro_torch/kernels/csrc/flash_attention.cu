@@ -13,31 +13,377 @@
 // What bounds it on the H100: operations. Attention over S tokens does
 // ~4 * S^2 * hd flops (halved by the causal skip; S * window under a
 // window) on 2 * S * hd * (1 + 2 / group) elements, so for S in the
-// hundreds it sits at or above the bf16 ridge. This first version does its
-// dot products on the CUDA cores in float32 (67 TFLOP/s), well below the
-// 989 TFLOP/s tensor-core peak the bound is stated against; wgmma tiles are
-// a later change.
+// hundreds it sits at or above the bf16 ridge, and only wgmma reaches the
+// tensor cores' 989 TFLOP/s.
 //
-// Design: one block per (b, h, q-tile of BQ rows). Each query row belongs
-// to SPLIT neighbouring threads of one warp, each holding DPT = hd / SPLIT
-// of its dims (q and acc in float32 registers, interleaved in float4 steps
-// so the group's shared-memory reads are conflict-free): SPLIT = 1 up to
-// hd 64, 2 at hd 80 (40 dims a thread) and hd 128, 4 at hd 256. A key's
-// score is the group's partial dots summed with warp shuffles. K/V tiles
-// of TK keys are staged in shared memory as float32 and read by every row
-// of the tile: TK = 32 up to hd 128 and 16 at hd 256, so the two tiles stay
-// at 32 KiB,
-// inside the 48 KiB of static shared memory. A loop over key tiles replaces
-// the TPU kernel's sequential key axis; under `causal` tiles strictly above
-// the q-tile's diagonal are skipped, and under a window so are tiles wholly
-// left of the q-tile's first window.
+// Two kernels, chosen by dtype in kernels/flash_attention.py:
+//
+// flash_wgmma_kernel (bf16, f16): a block of two warpgroups per (b, h,
+// 128-row q tile), each warpgroup owning 64 rows (wgmma's M); both read
+// the block's K/V tiles of 64 keys. Thread 0 brings the tiles in with TMA
+// copies from tensor maps, one box per tile (Q once; K and V in a
+// two-stage ring: tile j + 1 loads while tile j is computed, into the
+// stage both warpgroups have released on its "empty" mbarrier; nothing
+// else holds the warpgroups to each other). Copies made by every thread
+// (cp.async) took each SM longer than a tile's products, and one box per
+// panel kept thread 0, and with it the block, waiting (PERF.md §6). A
+// tile lands as hd / 16 panels of 16 columns, 32-byte swizzled,
+// which takes every head dim (hd 80 too) and is what wgmma's
+// 32-byte-swizzle descriptors read. S = Q K^T is a wgmma m64n64k16 chain
+// over hd / 16 steps with float32 accumulators; the causal / window mask is
+// applied only on tiles that cross the diagonal, the window's edge or Sk,
+// and a warpgroup skips tiles none of its rows can see. The online softmax
+// (2^x of log2e-scaled scores, row max over the quad of threads that share
+// a row, O rescaled only when a max moved) runs on the accumulator
+// fragment in registers, which then becomes P.V's A operand without a trip
+// through shared memory. P is rounded to the input type for the tensor
+// cores as two halves, hi = rn(P) and lo = rn(P - hi), and O += P_hi V +
+// P_lo V: one rounding of P would be tens of bf16 ulps off the float32
+// twin where outputs cancel near 0 (chip_smoke.py's gate is 2;
+// tests/test_torch_kernels.py::test_flash_single_bf16_p_breaks_the_bf16_gate),
+// the pair keeps ~16 bits. V is wgmma's B operand straight from its [key]
+// [hd] tile, MN-major with the transpose bit (16-bit types only).
+//
+// flash_attention_kernel (float32): the CUDA-core kernel of the first
+// port. TF32 tensor cores keep ~10 bits of the inputs, which would break
+// the float32 2e-5 that the card-vs-CPU phases hold the model to. Each
+// query row belongs to SPLIT neighbouring threads of one warp, each
+// holding DPT = hd / SPLIT of its dims (q and acc in float32 registers,
+// interleaved in float4 steps so the group's shared-memory reads are
+// conflict-free): SPLIT = 1 up to hd 64, 2 at hd 80 and hd 128, 4 at hd
+// 256. A key's score is the group's partial dots summed with warp
+// shuffles. K/V tiles of TK keys (32; 16 at hd 256) are staged in shared
+// memory and read by every row of the tile.
 
+#include <type_traits>
+
+#include "async_copy.cuh"
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-// Query rows per block.
+// Query rows per block (both kernels).
 constexpr int BQ = 64;
+
+// ---------------------------------------------------------------------------
+// 16-bit inputs: wgmma
+// ---------------------------------------------------------------------------
+
+// The wgmma kernel's shape: WGS warpgroups of 128 threads per block, each
+// owning 64 query rows (wgmma's M) and all sharing the block's K/V tiles;
+// BN keys per tile (kernels/build.py:FLASH_KEY_TILE), in two stages.
+constexpr int WGS = 2;
+constexpr int BQW = BQ * WGS;  // query rows per block
+constexpr int BN = 64;
+
+// Shared memory: Q (BQW rows), then two stages of K and of V (BN rows
+// each), every tile as hd / 16 panels of 16 columns (32 bytes a row,
+// 32-byte swizzle) one after another, then the barriers.
+template <typename T, int HD>
+__host__ __device__ constexpr size_t wgmma_smem_bytes() {
+  return (size_t)(BQW + 4 * BN) * HD * sizeof(T) + 5 * 8;
+}
+
+// Two floats rounded to a packed pair of T (the first in the low half),
+// and such a pair back in float.
+__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16*) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, __half*) {
+  const __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack2(uint32_t x, __nv_bfloat16*) {
+  return make_float2(__uint_as_float(x << 16),
+                     __uint_as_float(x & 0xffff0000u));
+}
+__device__ __forceinline__ float2 unpack2(uint32_t x, __half*) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&x));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(WGS * 128, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       T* __restrict__ out, int H, int KV, int Sq, int Sk,
+                       int causal, int window, float scale_log2) {
+  constexpr int NS = HD / 16;         // k-steps of Q.K^T, panels of a tile
+  constexpr int NP = BN / 16;         // k-steps of P.V
+  constexpr uint32_t SW32 = 3;        // descriptor mode: 32-byte swizzle
+  constexpr uint32_t QPANEL = BQW * 32, PANEL = BN * 32;  // bytes
+  constexpr uint32_t TILE = NS * PANEL;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sq = smem_raw;
+  unsigned char* sk = sq + NS * QPANEL;       // two stages
+  unsigned char* sv = sk + 2 * TILE;          // two stages
+  // barriers: Q landed; tile in stage 0 / 1 landed (full); both
+  // warpgroups done with stage 0 / 1 (empty)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sv + 2 * TILE);
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 3;
+  T* const tp = nullptr;              // selects pack2 / unpack2 for T
+  const int wgi = threadIdx.x / 128;  // this thread's warpgroup
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int tq_ = lane & 3;
+  // heaviest causal tiles first
+  const int qb = (gridDim.x - 1 - blockIdx.x) * BQW;  // the block's rows
+  const int q0 = qb + BQ * wgi;                         // the warpgroup's
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvz = b * KV + h / (H / KV);  // the K/V maps' plane coordinate
+  // keys the block visits, and those this warpgroup's rows can see
+  const int k_end = causal ? min(Sk, qb + BQW) : Sk;
+  const int k_lo = window > 0 ? max(0, qb - window + 1) : 0;
+  const int w_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int w_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int j0 = k_lo / BN, j1 = (k_end + BN - 1) / BN;
+
+  // tile j of K and V into stage st, one box each (rows past Sk come
+  // back as zeros)
+  auto fetch = [&](int j, int st) {
+    tma::expect_tx(full + st, 2 * TILE);
+    tma::load_4d(sk + st * TILE, &tk, 0, j * BN, 0, kvz, full + st);
+    tma::load_4d(sv + st * TILE, &tv, 0, j * BN, 0, kvz, full + st);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) tma::init(bar + i, 1);
+    for (int i = 3; i < 5; ++i) tma::init(bar + i, WGS);
+    tma::fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tma::expect_tx(bar, NS * QPANEL);
+    tma::load_4d(sq, &tq, 0, qb, 0, b * H + h, bar);
+    if (j0 < j1) fetch(j0, 0);
+  }
+
+  // Q, K: K-major, a k-step is one panel (8-row groups 256 bytes apart).
+  // V: MN-major for P.V, its hd runs across panels (PANEL apart) and its
+  // keys down a panel (a k-step is 16 rows, 512 bytes)
+  const uint64_t dq = wg::desc(sq + wgi * BQ * 32, 16, 256, SW32);
+  const uint64_t dk0 = wg::desc(sk, 16, 256, SW32);
+  const uint64_t dv0 = wg::desc(sv, PANEL, 256, SW32);
+
+  float o[HD / 2], s[BN / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+  float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};
+  const int row = q0 + 16 * warp + lane / 4;  // and row + 8
+  tma::wait(bar, 0);
+
+#pragma unroll 1
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
+    const uint64_t dk = dk0 + st * (TILE >> 4), dv = dv0 + st * (TILE >> 4);
+    tma::wait(full + st, ((j - j0) >> 1) & 1);
+    // tile j + 1 loads while tile j is computed, into the stage tile j - 1
+    // used once both warpgroups are done with it; the warpgroups are not
+    // held to each other otherwise, so one's softmax can run while the
+    // other's products do
+    if (threadIdx.x == 0 && j + 1 < j1) {
+      if (j > j0) tma::wait(empty + (st ^ 1), ((j - 1 - j0) >> 1) & 1);
+      fetch(j + 1, st ^ 1);
+    }
+
+    // a warpgroup skips tiles none of its rows can see
+    const int u0 = j * BN;
+    if (q0 < Sq && u0 < w_end && u0 + BN > w_lo) {
+      // S = Q K^T
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) s[e] = 0.f;
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk)
+        wg::mma_ss<T, BN>(s, dq + kk * (QPANEL >> 4),
+                          dk + kk * (PANEL >> 4), kk > 0);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(s);
+
+      // mask (edge tiles only), online softmax on the fragment
+      const bool edge = u0 + BN > w_end || (causal && u0 + BN - 1 > q0) ||
+                        (window > 0 && u0 <= q0 + BQ - 1 - window);
+      if (edge) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = row + 8 * r;
+#pragma unroll
+          for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int u = u0 + 8 * c + 2 * tq_ + e;
+              const bool ok = u < w_end && (!causal || u <= i) &&
+                              (window <= 0 || u > i - window);
+              if (!ok) s[4 * c + 2 * r + e] = -INFINITY;
+            }
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // row max of the raw scores (two chains), over the quad
+        float mx0 = s[2 * r], mx1 = s[2 * r + 1];
+#pragma unroll
+        for (int c = 1; c < BN / 8; ++c) {
+          mx0 = fmaxf(mx0, s[4 * c + 2 * r]);
+          mx1 = fmaxf(mx1, s[4 * c + 2 * r + 1]);
+        }
+        float mx = fmaxf(mx0, mx1);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx * scale_log2);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+          const float p0 = ex2(fmaf(s[4 * c + 2 * r], scale_log2, -m_new));
+          const float p1 =
+              ex2(fmaf(s[4 * c + 2 * r + 1], scale_log2, -m_new));
+          s[4 * c + 2 * r] = p0;
+          s[4 * c + 2 * r + 1] = p1;
+          sum0 += p0;
+          sum1 += p1;
+        }
+        l[r] = l[r] * alpha[r] + (sum0 + sum1);
+      }
+      // rescale O only when some row's max moved
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c) {
+          o[4 * c] *= alpha[0];
+          o[4 * c + 1] *= alpha[0];
+          o[4 * c + 2] *= alpha[1];
+          o[4 * c + 3] *= alpha[1];
+        }
+      }
+
+      // P as wgmma A fragments: k-step kk's register i is the pair
+      // s[8 kk + 2 i], s[8 kk + 2 i + 1]; hi and lo halves
+      uint32_t ph[NP * 4], pl[NP * 4];
+#pragma unroll
+      for (int n = 0; n < NP * 4; ++n) {
+        ph[n] = pack2(s[2 * n], s[2 * n + 1], tp);
+        const float2 hi = unpack2(ph[n], tp);
+        pl[n] = pack2(s[2 * n] - hi.x, s[2 * n + 1] - hi.y, tp);
+      }
+      // O += P_hi V + P_lo V
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk)
+        wg::mma_rs<T, HD>(o, ph + 4 * kk, dv + kk * (512 >> 4));
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk)
+        wg::mma_rs<T, HD>(o, pl + 4 * kk, dv + kk * (512 >> 4));
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(o);
+      wg::keep(ph);
+      wg::keep(pl);
+    }
+    if ((threadIdx.x & 127) == 0) tma::arrive(empty + st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float den = fmaxf(sum, 1e-30f);
+    const int i = row + 8 * r;
+    if (i < Sq) {
+      T* orow = out + (((size_t)b * H + h) * Sq + i) * HD + 2 * tq_;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c) =
+            pack2(o[4 * c + 2 * r] / den, o[4 * c + 2 * r + 1] / den, tp);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (the libraries link no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (planes, rows, HD) row-major 16-bit tensor as a 4-D map (16 columns,
+// rows, HD / 16 column panels, planes) whose box is `box_rows` rows of
+// every panel, landing panel after panel, each row 32 bytes and 32-byte
+// swizzled; rows past `rows` read as zeros.
+template <typename T, int HD>
+cudaError_t make_map(CUtensorMap* map, const void* base, int rows,
+                     int planes, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {16, (cuuint64_t)rows, HD / 16,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * sizeof(T),
+                                 16 * sizeof(T),
+                                 (cuuint64_t)HD * sizeof(T) * rows};
+  const cuuint32_t box[4] = {16, (cuuint32_t)box_rows, HD / 16, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int B, int H, int KV, int Sq, int Sk,
+                         int causal, int window, float scale,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = make_map<T, HD>(&tq, q, Sq, B * H, BQW);
+  if (e == cudaSuccess) e = make_map<T, HD>(&tk, k, Sk, B * KV, BN);
+  if (e == cudaSuccess) e = make_map<T, HD>(&tv, v, Sk, B * KV, BN);
+  if (e != cudaSuccess) return e;
+  constexpr size_t smem = wgmma_smem_bytes<T, HD>();
+  if (smem > 48 * 1024) {  // past the default dynamic limit: opt in
+    e = cudaFuncSetAttribute(flash_wgmma_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((Sq + BQW - 1) / BQW, H, B);
+  flash_wgmma_kernel<T, HD><<<grid, WGS * 128, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), H, KV, Sq, Sk, causal, window,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32 inputs: CUDA cores
+// ---------------------------------------------------------------------------
 
 // Threads per query row: each holds HD / split<HD>() dims, a multiple of 4
 // and at most 64.
@@ -148,9 +494,10 @@ __global__ void __launch_bounds__(BQ * split<HD>())
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KV, int Sq, int Sk, int causal,
-                   int window, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, int B, int H, int KV, int Sq, int Sk,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
   dim3 grid(B, H, (Sq + BQ - 1) / BQ);
   flash_attention_kernel<T, HD><<<grid, BQ * split<HD>(), 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -159,49 +506,67 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_hd(int hd, const void* q, const void* k, const void* v,
-                  void* out, int B, int H, int KV, int Sq, int Sk, int causal,
-                  int window, float scale, cudaStream_t stream) {
-  if (hd == 16)
-    return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
-                         scale, stream);
-  if (hd == 64)
-    return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
-                         scale, stream);
-  if (hd == 80)
-    return launch<T, 80>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
-                         scale, stream);
-  if (hd == 128)
-    return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
-                          scale, stream);
-  if (hd == 256)
-    return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Sk, causal, window,
-                          scale, stream);
-  return cudaErrorInvalidValue;
-}
+// LAUNCH##_by_hd: LAUNCH<T, hd> for each head dim of kernels/build.py:
+// HEAD_DIMS.
+#define FLASH_BY_HD(LAUNCH)                                                  \
+  template <typename T>                                                      \
+  cudaError_t LAUNCH##_by_hd(int hd, const void* q, const void* k,           \
+                             const void* v, void* out, int B, int H, int KV, \
+                             int Sq, int Sk, int causal, int window,         \
+                             float scale, cudaStream_t st) {                 \
+    switch (hd) {                                                            \
+      case 16:                                                               \
+        return LAUNCH<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, causal, window, \
+                             scale, st);                                     \
+      case 64:                                                               \
+        return LAUNCH<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, causal, window, \
+                             scale, st);                                     \
+      case 80:                                                               \
+        return LAUNCH<T, 80>(q, k, v, out, B, H, KV, Sq, Sk, causal, window, \
+                             scale, st);                                     \
+      case 128:                                                              \
+        return LAUNCH<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, causal,        \
+                              window, scale, st);                            \
+      case 256:                                                              \
+        return LAUNCH<T, 256>(q, k, v, out, B, H, KV, Sq, Sk, causal,        \
+                              window, scale, st);                            \
+    }                                                                        \
+    return cudaErrorInvalidValue;                                            \
+  }
+FLASH_BY_HD(launch_f32)
+FLASH_BY_HD(launch_wgmma)
+#undef FLASH_BY_HD
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success). Shapes: q/out
+// Both return the cudaError_t of the launch (0 = success). Shapes: q/out
 // (B, H, Sq, hd); k/v (B, KV, Sk, hd), all one dtype and contiguous,
 // checked by the Python wrapper. window <= 0: no window.
+
+// float32 q / k / v: the CUDA-core kernel.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int dtype, int B, int H, int KV,
                                int Sq, int Sk, int hd, int causal, int window,
                                float scale, void* stream) {
+  if (H % KV != 0 || dtype != rt::F32) return cudaErrorInvalidValue;
+  return launch_f32_by_hd<float>(hd, q, k, v, out, B, H, KV, Sq, Sk, causal,
+                                 window, scale,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// bf16 / f16 q / k / v: the wgmma kernel.
+extern "C" int flash_attention_wgmma(const void* q, const void* k,
+                                     const void* v, void* out, int dtype,
+                                     int B, int H, int KV, int Sq, int Sk,
+                                     int hd, int causal, int window,
+                                     float scale, void* stream) {
   if (H % KV != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case rt::F32:
-      return by_hd<float>(hd, q, k, v, out, B, H, KV, Sq, Sk, causal, window,
-                          scale, st);
-    case rt::BF16:
-      return by_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, KV, Sq, Sk, causal,
-                                  window, scale, st);
-    case rt::F16:
-      return by_hd<__half>(hd, q, k, v, out, B, H, KV, Sq, Sk, causal,
-                           window, scale, st);
-  }
+  if (dtype == rt::BF16)
+    return launch_wgmma_by_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, KV, Sq,
+                                             Sk, causal, window, scale, st);
+  if (dtype == rt::F16)
+    return launch_wgmma_by_hd<__half>(hd, q, k, v, out, B, H, KV, Sq, Sk,
+                                      causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

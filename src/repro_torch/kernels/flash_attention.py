@@ -1,9 +1,12 @@
 """Blocked GQA flash attention (forward): CUDA kernel wrapper.
 
 The port of `repro/kernels/flash_attention.py` (a Pallas TPU kernel). The
-kernel is `csrc/flash_attention.cu`; `ref.flash_attention_ref` is its
-plain twin. A CPU tensor takes the twin; a CUDA tensor launches the kernel
-or raises. `flash_attention.launches` counts kernel launches.
+kernels are in `csrc/flash_attention.cu`; `ref.flash_attention_ref` is
+their plain twin. A CPU tensor takes the twin; a CUDA tensor launches a
+kernel or raises. The dtype picks the kernel: bf16 / f16 run the
+tensor-core (wgmma) kernel, float32 the CUDA-core one, since TF32 tensor
+cores would keep too few bits for float32's 2e-5. Neither stands in for
+the other. `flash_attention.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -36,8 +39,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; "
                          f"the CUDA kernel takes head_dim in {HEAD_DIMS}")
+    if q.dtype != torch.float32 and any(t.data_ptr() % 16
+                                        for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 / f16 inputs must be 16-byte "
+                         "aligned (the kernel reads them with TMA)")
     out = torch.empty_like(q)
-    fn = build.load("flash_attention")
+    fn = (build.load("flash_attention") if q.dtype == torch.float32
+          else build.load("flash_attention", "flash_attention_wgmma"))
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd,

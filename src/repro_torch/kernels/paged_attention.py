@@ -4,13 +4,21 @@ The port of `repro/kernels/paged_attention.py` (a Pallas TPU kernel). The
 kernel is `csrc/paged_attention.cu`; `ref.paged_attention_ref` is its
 plain twin. A CPU tensor takes the twin; a CUDA tensor launches the kernel
 or raises. `paged_attention.launches` counts kernel launches.
+
+The kernel splits each row's tokens into chunks of `build.PAGED_CHUNK`
+and merges the chunks inside the same launch: the wrapper sizes its
+float32 scratch from the table's shape alone (reading ctx_lens on the
+host would sync every decode step) and keeps one zeroed int32 counter per
+(row, KV head) per device, which the kernel leaves zeroed. Calls on one
+device share the counters, so they must run on one stream.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS, QUANT_DTYPES
+from repro_torch.kernels.build import (FLOAT_DTYPES, HEAD_DIMS, PAGED_CHUNK,
+                                      QUANT_DTYPES)
 
 # largest H / KV the CUDA kernel takes, by head dim (csrc max_group)
 MAX_GROUP = {hd: 16 if hd >= 256 else 8 for hd in HEAD_DIMS}
@@ -31,6 +39,9 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale):
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError("paged_attention: inputs must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attention: pools must be 16-byte aligned "
+                         "(the kernel copies rows with TMA)")
     if q.dtype not in FLOAT_DTYPES:
         raise TypeError(f"paged_attention: q dtype {q.dtype}")
     quant = k_pool.dtype in QUANT_DTYPES
@@ -60,6 +71,17 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale):
                          "ctx_lens (B,) must be int32")
 
 
+_COUNTERS = {}   # device -> zeroed int32 counters, grown as needed
+
+
+def _counters(device, n):
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                            device=device)
+    return c
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
                     k_scale=None, v_scale=None):
     """q: (B, H, hd); k_pool/v_pool: (N, bs, KV, hd); block_tables: (B, M)
@@ -74,15 +96,24 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale)
     B, H, hd = q.shape
     _, bs, KV, _ = k_pool.shape
+    M = block_tables.shape[1]
     out = torch.empty_like(q)
+    # each split's partial: acc (group x hd), m and l per query head,
+    # padded to whole float4s
+    group, n_split = H // KV, -(-M * bs // PAGED_CHUNK)
+    scratch = torch.empty(B * KV * n_split
+                          * (group * hd + -(-2 * group // 4) * 4),
+                          dtype=torch.float32, device=q.device)
+    counters = _counters(q.device, B * KV)
     fn = build.load("paged_attention")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  build.ptr(k_scale), build.ptr(v_scale),
                  block_tables.data_ptr(), ctx_lens.data_ptr(),
-                 out.data_ptr(), build.DTYPE_CODES[q.dtype],
-                 build.DTYPE_CODES[k_pool.dtype], B, H, KV, hd, bs,
-                 block_tables.shape[1], hd ** -0.5, build.stream())
+                 out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+                 build.DTYPE_CODES[q.dtype],
+                 build.DTYPE_CODES[k_pool.dtype], B, H, KV, hd, bs, M,
+                 hd ** -0.5, build.stream())
     build.check_launch("paged_attention", err)
     paged_attention.launches += 1
     return out

@@ -110,6 +110,93 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
+# ----------------------------------------------------------------------------
+# Emulations of the attention kernels' orders of work, for the tests only:
+# they fix on the CPU what the kernels' designs do to the numbers (how the
+# token axis is split and merged, where P is rounded), not what the kernels
+# compute, which the twins above state.
+# ----------------------------------------------------------------------------
+
+def paged_attention_split_ref(q, k_pool, v_pool, block_tables, ctx_lens,
+                              k_scale=None, v_scale=None, *, chunk: int):
+    """paged_attention as csrc/paged_attention.cu splits it: each row's
+    first ctx tokens in chunks of `chunk`, each chunk's unnormalised
+    (m, l, acc) on its own, merged in split order; a row with one chunk
+    is acc / l. Rows are computed one by one on shapes fixed by their own
+    ctx, so a row's bits cannot depend on the rest of the batch. Float32
+    math; returns (B, H, hd) in q's dtype."""
+    B, H, hd = q.shape
+    KV = k_pool.shape[2]
+    k = _gather_pool(k_pool, k_scale, block_tables)      # (B, KV, S, hd)
+    v = _gather_pool(v_pool, v_scale, block_tables)
+    qf = q.float().reshape(B, KV, H // KV, hd)
+    out = torch.zeros(B, KV, H // KV, hd, device=q.device)
+    for b in range(B):
+        ctx = min(int(ctx_lens[b]), k.shape[2])
+        parts = []
+        for c0 in range(0, ctx, chunk):
+            kc, vc = k[b, :, c0:c0 + chunk], v[b, :, c0:c0 + chunk]
+            s = torch.einsum("kgh,ksh->kgs", qf[b], kc[:, :ctx - c0]) \
+                * hd ** -0.5
+            m = s.amax(-1, keepdim=True)
+            p = torch.exp(s - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgs,ksh->kgh", p, vc[:, :ctx - c0])))
+        if len(parts) == 1:
+            m, l, acc = parts[0]
+            out[b] = acc / l.clamp_min(1e-30)
+        elif parts:
+            mx = parts[0][0]
+            for m, _, _ in parts[1:]:
+                mx = torch.maximum(mx, m)
+            L, A = torch.zeros_like(mx), torch.zeros_like(out[b])
+            for m, l, acc in parts:
+                a = torch.exp(m - mx)
+                L = L + a * l
+                A = A + a * acc
+            out[b] = A / L.clamp_min(1e-30)
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
+                              window: int = 0, key_tile: int,
+                              p_split: bool):
+    """flash_attention as the 16-bit tensor-core kernel orders it: keys in
+    tiles of `key_tile`, an online softmax across tiles in float32, and P
+    rounded to q's dtype before P.V, either once (p_split=False) or as a
+    hi + lo pair of two roundings whose sum carries P to ~16 bits
+    (p_split=True, what the kernel does). Returns (B, H, Sq, hd) in q's
+    dtype."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dt = q.dtype
+    qf = q.float().reshape(B, KV, H // KV, Sq, hd)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, KV, H // KV, Sq, 1), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for u0 in range(0, Sk, key_tile):
+        kt = k[:, :, u0:u0 + key_tile].float()[:, :, None]
+        vt = v[:, :, u0:u0 + key_tile].float()[:, :, None]
+        kpos = torch.arange(u0, u0 + kt.shape[-2], device=q.device)[None, :]
+        valid = (kpos <= qpos) if causal else torch.ones(
+            Sq, kt.shape[-2], dtype=torch.bool, device=q.device)
+        if window > 0:
+            valid = valid & (kpos > qpos - window)
+        s = torch.einsum("...qh,...sh->...qs", qf, kt) * hd ** -0.5
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(dt).float()
+        pr = hi + (p - hi).to(dt).float() if p_split else hi
+        acc = acc * alpha + torch.einsum("...qs,...sh->...qh", pr, vt)
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.reshape(B, H, Sq, hd).to(dt)
+
+
 def svrg_update_ref(x, g_x, g_z, mu, w_anchor, eta: float, gamma: float):
     """One fused variance-reduced prox step (paper Alg. 1 step 2):
 

@@ -10,7 +10,10 @@ at 2e-2 (one bf16 rounding of outputs <= ~4). svrg_update is held at
 float32 1e-6 (the JAX kernel test's own) and, in bf16 / f16, to within one
 rounding of its twin (both compute in float32 and round once); rwkv6_scan
 at float32 1e-5 (1 + |twin|), bf16 2 ulps, and its float32 state bit for
-bit."""
+bit. The tensor-core flash kernel (bf16 / f16) is held at 2e-2 at every
+head dim; paged decode's split is held bit for bit where the output must
+not move (a row alone or in any batch, a non-finite pool past ctx, ctx =
+1 giving the token's V row)."""
 import numpy as np
 import pytest
 
@@ -386,3 +389,156 @@ def test_rwkv6_scan_raises_on_bad_inputs(cuda):
     with pytest.raises(ValueError):                     # u on the CPU
         rwkv6_scan(r, r, r, w, u.cpu())
     assert rwkv6_scan.launches == before
+
+
+# ----------------------------------------------------------------------------
+# flash_attention's tensor-core kernel (bf16 / f16) at every head dim, and
+# paged_attention's flash-decoding split
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("S", [1, 40, 300])
+def test_flash_wgmma_matches_twin(cuda, hd, dtype, S):
+    """Causal, non-causal and windowed, 4 query heads over 2 KV heads;
+    ragged q tiles (Sq = 1, 40, 300 against 64-row tiles) and key tiles
+    (300 keys against 64 or 32); at the bf16 tolerance, 2e-2."""
+    rng = np.random.default_rng(hd * 1000 + S)
+    q = _rand(rng, 2, 4, S, hd, dtype=dtype, dev=cuda)
+    k, v = (_rand(rng, 2, 2, S, hd, dtype=dtype, dev=cuda) for _ in range(2))
+    for causal, window in ((True, 0), (False, 0), (True, 48)):
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def _paged_batch(rng, dtype, dev, hd, heads, bs, ctx):
+    """B = len(ctx) rows; bs = 2048 is generate()'s one block per row,
+    otherwise an engine pool of 32 blocks a row, shuffled."""
+    h, kv = heads
+    B = len(ctx)
+    if bs == 2048:
+        N, bt = B, np.arange(B, dtype=np.int32)[:, None]
+    else:
+        N = B * M + 1
+        bt = (1 + rng.permutation(B * M)).reshape(B, M).astype(np.int32)
+    q = _rand(rng, B, h, hd, dtype=dtype, dev=dev)
+    kp, vp = (_rand(rng, N, bs, kv, hd, dtype=dtype, dev=dev)
+              for _ in range(2))
+    return (q, kp, vp, torch.from_numpy(bt).to(dev),
+            torch.tensor(ctx, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("hd,heads,bs,ctx", [
+    (64, (9, 3), BS, [0, 1, 17, 128, 129, 256, 333, 512]),
+    (256, (10, 1), 2048, [2048, 1, 700, 1500, 128, 0]),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_batch_invariant(cuda, hd, heads, bs, ctx, dtype):
+    """A row's output bits do not depend on the batch: alone, in the
+    batch, and in the batch with the other rows' contexts changed."""
+    rng = np.random.default_rng(hd + bs)
+    q, kp, vp, bt, cl = _paged_batch(rng, dtype, cuda, hd, heads, bs, ctx)
+    full = paged_attention(q, kp, vp, bt, cl)
+    for b in range(len(ctx)):
+        alone = paged_attention(q[b:b + 1], kp, vp, bt[b:b + 1], cl[b:b + 1])
+        torch.testing.assert_close(alone[0], full[b], atol=0, rtol=0)
+        moved = cl.roll(1)                # every other row's ctx changed
+        moved[b] = cl[b]
+        others = paged_attention(q, kp, vp, bt, moved)
+        torch.testing.assert_close(others[b], full[b], atol=0, rtol=0)
+    torch.testing.assert_close(full.float(), ref.paged_attention_ref(
+        q, kp, vp, bt, cl).float(), atol=2e-5 if dtype == torch.float32
+        else 2e-2, rtol=2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_attention_chunk_boundaries(cuda, dtype, tol):
+    """Contexts at, one short of and one past a multiple of the 128-token
+    split, inside generate()'s 2048-slot blocks, and past the table (ctx
+    is clamped to M * bs)."""
+    ctx = [127, 128, 129, 255, 256, 257, 2047, 2048, 4000]
+    rng = np.random.default_rng(7)
+    q, kp, vp, bt, cl = _paged_batch(rng, dtype, cuda, 64, (9, 3), 2048,
+                                     ctx)
+    before = paged_attention.launches
+    got = paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = ref.paged_attention_ref(q, kp, vp, bt, cl)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("hd,heads", [(64, (9, 3)), (256, (10, 1))])
+def test_paged_attention_ctx_0_and_1(cuda, hd, heads):
+    """ctx 0 gives zeros; ctx 1 gives the one token's V row exactly (its
+    softmax weight is 1)."""
+    rng = np.random.default_rng(hd)
+    q, kp, vp, bt, cl = _paged_batch(rng, torch.float32, cuda, hd, heads,
+                                     BS, [0, 1, 0, 1])
+    got = paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    h, kv = heads
+    assert torch.all(got[0] == 0) and torch.all(got[2] == 0)
+    for b in (1, 3):
+        v0 = vp[bt[b, 0].long(), 0]                      # (KV, hd)
+        torch.testing.assert_close(
+            got[b], v0.repeat_interleave(h // kv, dim=0), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("hd,heads,bs", [(64, (9, 3), BS),
+                                         (256, (10, 1), 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_ignores_nonfinite_masked_pool(cuda, hd, heads, bs,
+                                                       dtype):
+    """NaN / inf in every pool slot at or past a row's ctx (and in the
+    null block) leave the result bit for bit the same."""
+    ctx = [5, 130, 0, 300]
+    rng = np.random.default_rng(11)
+    q, kp, vp, bt, cl = _paged_batch(rng, dtype, cuda, hd, heads, bs, ctx)
+    clean = paged_attention(q, kp, vp, bt, cl)
+    kd, vd = kp.clone(), vp.clone()
+    used = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda)
+    for b, c in enumerate(ctx):
+        t = torch.arange(c, device=cuda)
+        used[bt[b, t // bs].long(), t % bs] = True
+    kd[~used] = float("nan")
+    vd[~used] = float("inf")
+    dirty = paged_attention(q, kd, vd, bt, cl)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+def test_paged_attention_quantized_group10_hd256(cuda, pool):
+    """1-byte pools with per-(slot, KV head) scales at recurrentgemma's
+    decode shape (q in shared memory), contexts over several splits;
+    float32 at 2e-5."""
+    rng = np.random.default_rng(12)
+    B, n = 3, 2048
+    q = _rand(rng, B, 10, 256, dev=cuda)
+    if pool == "int8":
+        kq, vq = (torch.from_numpy(rng.integers(-127, 128, (B, n, 1, 256))
+                                   .astype(np.int8)).to(cuda)
+                  for _ in range(2))
+    else:
+        kq, vq = (_rand(rng, B, n, 1, 256, dev=cuda).mul(64)
+                  .to(torch.float8_e4m3fn) for _ in range(2))
+    ks, vs = (torch.from_numpy((rng.random((B, n, 1)) / 64)
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    bt = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    ctx = torch.tensor([2048, 300, 1], dtype=torch.int32, device=cuda)
+    before = paged_attention.launches
+    got = paged_attention(q, kq, vq, bt, ctx, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = ref.paged_attention_ref(q, kq, vq, bt, ctx, ks, vs)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)

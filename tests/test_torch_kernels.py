@@ -28,6 +28,7 @@ from repro.models.attention import \
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
                                  paged_prefill_attention, ref, svrg_update)
 from repro_torch.kernels import rglru_scan  # noqa: E402
+from repro_torch.kernels.build import FLASH_KEY_TILE, PAGED_CHUNK  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -115,6 +116,38 @@ def test_paged_attention_wrapper_takes_twin_on_cpu():
     assert paged_attention.launches == before    # no kernel on the CPU
 
 
+# The split the CUDA kernel runs (csrc/paged_attention.cu): each row's
+# tokens in chunks of PAGED_CHUNK, merged in split order. Float32 within
+# 1e-6 of the twin and 2e-5 of the JAX oracle, and a row's bits the same
+# alone as in a batch of 8 with other contexts (the engine's greedy
+# identity with generate() rests on that).
+@pytest.mark.parametrize("bs,M,ctx", [
+    # engine pools: ctx 0, 1, multiples of bs (16, 48), of CHUNK (128,
+    # 256), the whole table (384) and past it (clamped)
+    (16, 24, (0, 1, 16, 48, 128, 256, 384, 200)),
+    # generate()'s dense decode: one 2048-slot block per row
+    (2048, 1, (1, 0, 127, 128, 129, 1024, 2048, 700)),
+])
+def test_paged_attention_split_emulation(bs, M, ctx):
+    B, H, KV, hd = len(ctx), 9, 3, 64
+    q, kp, vp, bt, cl = _decode_case(bs + M, B, H, KV, hd, bs, M, ctx)
+    if bs == 2048:          # generate(): pool row b is row b's block
+        kp, vp, bt = kp[:B], vp[:B], np.arange(B, dtype=np.int32)[:, None]
+    args = (_t(q), _t(kp), _t(vp), _t(bt), _t(cl))
+    got = ref.paged_attention_split_ref(*args, chunk=PAGED_CHUNK)
+    torch.testing.assert_close(got, ref.paged_attention_ref(*args),
+                               atol=1e-6, rtol=1e-6)
+    inside = cl <= M * bs
+    oracle = np.asarray(jref.paged_attention_ref(q, kp, vp, bt, cl))
+    np.testing.assert_allclose(got.numpy()[inside], oracle[inside], **TOL)
+    assert np.all(got.numpy()[cl == 0] == 0.0)
+    for b in range(B):
+        alone = ref.paged_attention_split_ref(
+            args[0][b:b + 1], args[1], args[2], args[3][b:b + 1],
+            args[4][b:b + 1], chunk=PAGED_CHUNK)
+        torch.testing.assert_close(alone[0], got[b], atol=0, rtol=0)
+
+
 # ----------------------------------------------------------------------------
 # paged suffix prefill
 # ----------------------------------------------------------------------------
@@ -199,6 +232,63 @@ def test_flash_twin_matches_jax(causal, B, H, KV, S, hd):
                                interpret=True))
     np.testing.assert_allclose(got, oracle, **TOL)
     np.testing.assert_allclose(got, pallas, **TOL)
+
+
+# The 16-bit flash kernel (csrc/flash_attention.cu) runs P.V on the tensor
+# cores, so P is rounded to the input type first. At chip_smoke.py's bf16
+# flash shapes, its emulation must stay within chip_smoke's gate against
+# the float32 twin: TOL_ULPS = 2 bf16 ulps of max(|twin|, ULP_FLOOR = 2^-8).
+# One bf16 rounding of P does not (tens of ulps where outputs cancel near
+# 0), so the kernel splits P into hi + lo bf16 halves and runs two P.V
+# products; with the split every shape is within 1 ulp.
+_TOL_ULPS, _ULP_FLOOR = 2, 2.0 ** -8
+
+
+def _bf16_ulps(got, want):
+    diff = (got.float() - want.float()).abs()
+    _, e = torch.frexp(want.float().abs().clamp_min(_ULP_FLOOR))
+    return (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
+
+
+def _flash_bf16_case(seed, B, H, KV, S, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(_t(_rand(rng, B, n, S, hd)).bfloat16() for n in (H, KV, KV))
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (2, 9, 3, 256, 64, True, 0),          # smollm lm.forward, 2 x 256
+    (2, 9, 3, 512, 64, True, 0),          # the timed smollm arm
+    (2, 9, 3, 512, 64, False, 0),
+    (1, 10, 1, 2304, 256, True, 2048),    # recurrentgemma, 2304 tokens
+    (1, 10, 1, 2304, 256, True, 0),
+    (2, 4, 2, 200, 16, True, 0),          # the reduced configs' head dim
+    (2, 4, 2, 200, 16, False, 0),
+    (2, 4, 2, 200, 16, True, 48),
+    (2, 32, 32, 200, 80, True, 0),        # stablelm-3b's head dim
+    (2, 32, 32, 200, 80, False, 0),
+    (2, 32, 32, 200, 80, True, 48),
+])
+def test_flash_hi_lo_p_stays_in_the_bf16_gate(B, H, KV, S, hd, causal,
+                                             window):
+    q, k, v = _flash_bf16_case(S + hd, B, H, KV, S, hd)
+    got = ref.flash_attention_tiled_ref(q, k, v, causal=causal,
+                                        window=window,
+                                        key_tile=FLASH_KEY_TILE,
+                                        p_split=True)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got, want) <= _TOL_ULPS
+
+
+def test_flash_single_bf16_p_breaks_the_bf16_gate():
+    q, k, v = _flash_bf16_case(7, 2, 9, 3, 512, 64)
+    want = ref.flash_attention_ref(q, k, v)
+    once = ref.flash_attention_tiled_ref(q, k, v, key_tile=FLASH_KEY_TILE,
+                                        p_split=False)
+    split = ref.flash_attention_tiled_ref(q, k, v, key_tile=FLASH_KEY_TILE,
+                                         p_split=True)
+    assert _bf16_ulps(once, want) > 4 * _TOL_ULPS
+    assert _bf16_ulps(split, want) <= _TOL_ULPS
 
 
 def test_flash_wrapper_takes_twin_on_cpu():
