@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. build   the six CUDA kernels from src/repro_torch/kernels/csrc/
              (one nvcc per source, all started together); cuobjdump -sass
              must find HGMMA (wgmma) in every bf16 / f16 instantiation of
-             the flash kernel;
+             the tensor-core flash and paged_prefill kernels;
   2. kernels each kernel against its plain PyTorch twin at the shapes its
              main path gives it (error vs a stated tolerance, the
              bytes-or-flops bound): the attention kernels at smollm-135m
@@ -16,12 +16,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
              without, paged decode over one 2048-slot block per row) and at
              the other head dims the configs have (16, 80; paged_prefill
              also 256; flash also 128), paged decode's batch invariance
-             (each row alone bit-equal to its batch row), svrg_update at 2^20, an odd tail and an unaligned
-             view, rglru_scan at 2 x 512, 1 x 2304 and 4 x 1 by 2560
-             channels (float32 bit-equal), rwkv6_scan at 4 x 40 x 1 x 64 (a
-             decode step), 2 x 40 x 512 x 64, 1 x 40 x 2048 x 64 and 2 x 4 x
-             40 x 16 with and without a carried state (its state bit-equal),
-             float32 and bf16;
+             (each row alone bit-equal to its batch row), paged_prefill in
+             bf16 and f16 (the tensor-core kernel; block sizes 16, 4 and
+             2048; NaN / inf in the masked pool slots) and in float32 and
+             with int8 / fp8 pools (the CUDA-core kernel), svrg_update at
+             2^20, an odd tail and an unaligned view, rglru_scan at 2 x
+             512, 1 x 2304 and 4 x 1 by 2560 channels (float32 bit-equal),
+             rwkv6_scan at 4 x 40 x 1 x 64 (a decode step), 2 x 40 x 512 x
+             64, 1 x 40 x 2048 x 64 and 2 x 4 x 40 x 16 with and without a
+             carried state (its state bit-equal to the twin, its y to the
+             split emulation of its order), float32 and bf16;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
@@ -182,13 +186,15 @@ def _time_ms(fn, reps=50, warmup=5):
     return a.elapsed_time(b) / reps
 
 
-def _device_ms(fn, reps=20, tries=3):
+def _device_ms(fn, reps=20, tries=5):
     """Device time per call: the summed duration of every GPU kernel the
     calls ran, from torch.profiler (CUPTI), so host launch overhead is
-    excluded. A window in which the profiler reports no device time at all
-    (it happens now and then on the H100 machine, for short and long
-    kernels alike) is profiled again, up to `tries` windows; None when none
-    of them reports any."""
+    excluded. Every call launches the same kernels, so a whole window sees
+    each kernel a multiple of `reps` times. The profiler now and then drops
+    some or all of a window's kernels on the H100 machine, which would read
+    too fast; such a window (no device time, or a kernel seen a number of
+    times that is not a multiple of `reps`) is profiled again, up to
+    `tries` windows. None when no window was whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -199,16 +205,18 @@ def _device_ms(fn, reps=20, tries=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kern)
+        if us > 0 and all(e.count % reps == 0 for e in kern):
             return us / reps / 1e3
     return None
 
 
 def _profiled(window, tries=3):
     """Run `window()`, which returns its wall ms, under torch.profiler until
-    a window shows device time, up to `tries` windows (see _device_ms).
+    a window shows device time, up to `tries` windows (the profiler drops
+    kernels now and then; see _device_ms).
     Returns (the profiled CUDA kernels, by name, and the window's wall
     ms)."""
     from torch.autograd import DeviceType
@@ -269,15 +277,19 @@ def phase_build():
               + "".join(f"; template ints {'/'.join(d)}: {ln}"
                         for d, ln in spills[:3]))
     return {"seconds": secs, "spills": spilled,
-            "flash_hgmma": _flash_hgmma(build, paths["flash_attention"]),
+            "flash_hgmma": _hgmma(build, paths["flash_attention"],
+                                  "flash_wgmma_kernel"),
+            "paged_prefill_hgmma": _hgmma(build, paths["paged_prefill"],
+                                          "paged_prefill_wgmma_kernel"),
             "libraries": {n: str(p.relative_to(ROOT))
                           for n, p in paths.items()}}
 
 
-def _flash_hgmma(build, lib):
+def _hgmma(build, lib, kernel):
     """HGMMA (wgmma) instructions in each bf16 / f16 instantiation of the
-    flash library's tensor-core kernel, from cuobjdump -sass (beside
-    nvcc); fails if cuobjdump is missing or an instantiation has none."""
+    tensor-core kernel `kernel` in library `lib`, from cuobjdump -sass
+    (beside nvcc); fails if cuobjdump is missing or an instantiation at
+    some head dim of build.HEAD_DIMS is missing or has none."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
         raise AssertionError(f"cuobjdump not found beside nvcc ({cuobjdump})")
@@ -290,7 +302,7 @@ def _flash_hgmma(build, lib):
         if m:
             fn = m.group(1)
             key = None
-            if "flash_wgmma_kernel" in fn:
+            if kernel in fn:
                 dt = next((v for k, v in names.items() if k in fn), "?")
                 hd = re.findall(r"Li(\d+)E", fn)[0]
                 key = f"{dt}/hd{hd}"
@@ -299,11 +311,11 @@ def _flash_hgmma(build, lib):
             counts[key] += 1
     want = {f"{dt}/hd{hd}" for dt in names.values()
             for hd in build.HEAD_DIMS}
-    print("[build] flash_attention SASS, HGMMA per instantiation: "
+    print(f"[build] {kernel} SASS, HGMMA per instantiation: "
           + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
     if set(counts) != want or not all(counts.values()):
-        raise AssertionError(f"flash_attention: a bf16 / f16 instantiation "
-                             f"is missing or has no HGMMA: {counts}")
+        raise AssertionError(f"{kernel}: a bf16 / f16 instantiation is "
+                             f"missing or has no HGMMA: {counts}")
     return counts
 
 
@@ -441,49 +453,123 @@ def phase_kernels(dev):
     # (Ls = 16, a partial query tile), and speculate=4's verify chains
     # (N = 8 slots, Ls = chain buckets 2, 4, 5; starts = positions up to
     # 500, lengths = starts + counts, counts 0 for idle and sitting-out
-    # lanes)
-    def prefill_case(starts, counts, Ls):
+    # lanes); bf16 and f16 (the tensor-core kernel), at the engine's block
+    # size 16 and at 4 and 2048 (one block a row), and with NaN / inf in
+    # every pool slot a row may not see; float32 and int8 / fp8 pools (the
+    # CUDA-core kernel) at the admission
+    def prefill_case(starts, counts, Ls, dt=bf, bs_=bs, m=M):
         n = len(starts)
         st = i32(starts)
-        return (rn(n, Ls, H, hd), rn(n, Ls, KV, hd), rn(n, Ls, KV, hd),
-                rn(n * M + 1, bs, KV, hd), rn(n * M + 1, bs, KV, hd),
-                tables_for(n), st, st + i32(counts))
+        return (rn(n, Ls, H, hd, dt=dt), rn(n, Ls, KV, hd, dt=dt),
+                rn(n, Ls, KV, hd, dt=dt), rn(n * m + 1, bs_, KV, hd, dt=dt),
+                rn(n * m + 1, bs_, KV, hd, dt=dt), tables_for(n, m), st,
+                st + i32(counts))
 
-    arms = []
-    args = prefill_case([0, 48, 200, 0], [128, 128, 100, 0], 128)
-    for w in (0, 64):
-        arm(arms, f"paged_prefill 4x128 window={w}",
-            paged_prefill_attention(*args, window=w),
-            ref.paged_prefill_ref(*args, window=w))
-    cases = [("4x16 bucket", prefill_case([160, 0, 33, 0], [10, 16, 12, 0],
-                                          16))]
-    for T in (2, 4, 5):
-        cases.append((f"verify 8x{T}", prefill_case(
-            [0, 3, 17, 100, 250, 400, 500, 311],
-            [0, 1, 2, T, T, min(3, T), T, 0], T)))
-    for name, c in cases:
-        arm(arms, f"paged_prefill {name}", paged_prefill_attention(*c),
-            ref.paged_prefill_ref(*c))
+    def prefill_bound(c):
+        """Bytes: q in and out, the suffix K/V, the index tensors and each
+        cached token's K and V once; pairs: each real query sees starts
+        pool keys plus i + 1 suffix keys (window 0)."""
+        q_, ks_, vs_, kp_, _, tb_, st_, ln_ = c
+        h_, hd_ = q_.shape[2:]
+        suf = (ln_ - st_).clamp_min(0).tolist()
+        pairs = sum(s_ * t_ + s_ * (s_ + 1) // 2
+                    for s_, t_ in zip(suf, st_.tolist()))
+        nbytes = (2 * _nbytes(q_) + _nbytes(ks_, vs_, tb_, st_, ln_)
+                  + 2 * int(st_.sum()) * ks_.shape[2] * hd_
+                  * kp_.element_size())
+        return _bound_ms(nbytes, 4 * h_ * hd_ * pairs)
+
+    def prefill_blocks(c):
+        """Blocks the launch takes: the tensor-core kernel's (N, KV, Ls /
+        (64 // group)) or the CUDA-core kernel's (N, KV, Ls / 32)."""
+        q_, ks_, _, kp_ = c[:4]
+        n_, ls_, h_, hd_ = q_.shape
+        kv_ = ks_.shape[2]
+        rows = (64 // (h_ // kv_) if q_.dtype != torch.float32
+                and kp_.dtype == q_.dtype else 16 if hd_ >= 256 else 32)
+        return n_ * kv_ * -(-ls_ // rows)
+
+    def prefill_timed(label, c, **kw):
+        b_ = prefill_bound(c)
+        return dict(label=label, blocks=prefill_blocks(c),
+                    _fns=(lambda a=c: paged_prefill_attention(*a, **kw),
+                          lambda a=c: ref.paged_prefill_ref(*a, **kw), None),
+                    bound_ms=b_[0], bound_by=b_[1])
+
+    arms, pp_extra = [], []
+    adm = ([0, 48, 200, 0], [128, 128, 100, 0], 128)
+    verify = [0, 3, 17, 100, 250, 400, 500, 311]
+    args = prefill_case(*adm)
+    for dt_name, dt in (("bf16", bf), ("f16", torch.float16)):
+        cases = [("4x128", args if dt is bf else prefill_case(*adm, dt=dt)),
+                 ("4x16 bucket", prefill_case([160, 0, 33, 0],
+                                              [10, 16, 12, 0], 16, dt=dt))]
+        for T in (2, 4, 5):
+            cases.append((f"verify 8x{T}", prefill_case(
+                verify, [0, 1, 2, T, T, min(3, T), T, 0], T, dt=dt)))
+        for name, c in cases:
+            for w in ((0, 64) if name == "4x128" else (0,)):
+                arm(arms, f"paged_prefill {name} window={w} {dt_name}",
+                    paged_prefill_attention(*c, window=w),
+                    ref.paged_prefill_ref(*c, window=w))
+        if dt is not bf:
+            pp_extra.append(prefill_timed(
+                "4 x 128, cached 0/48/200, f16", cases[0][1]))
+        else:
+            pp_extra.append(prefill_timed(
+                "verify 8 x 5 over contexts <= 500, bf16", cases[-1][1]))
+    for bs_, m in ((4, 128), (2048, 1)):
+        c = prefill_case(*adm, bs_=bs_, m=m)
+        arm(arms, f"paged_prefill 4x128 block_size={bs_} bf16",
+            paged_prefill_attention(*c), ref.paged_prefill_ref(*c))
+        pp_extra.append(prefill_timed(
+            f"4 x 128, cached 0/48/200, block size {bs_}, bf16", c))
     q, ksuf, vsuf, kp, vp, tables, starts, lengths = args
-    # pairs the data needs: each real query sees starts pool keys plus
-    # i + 1 suffix keys (window 0)
-    suf = (lengths - starts).clamp_min(0).tolist()
-    pairs = sum(s * st + s * (s + 1) // 2
-                for s, st in zip(suf, starts.tolist()))
-    pool_tok = int(starts.sum())
-    nbytes = (2 * _nbytes(q) + _nbytes(ksuf, vsuf, tables, starts, lengths)
-              + 2 * pool_tok * KV * hd * kp.element_size())
-    bound, by = _bound_ms(nbytes, 4 * H * hd * pairs)
+    used = torch.zeros(kp.shape[:2], dtype=torch.bool, device=dev)
+    for n_, s_ in enumerate(starts.tolist()):
+        t_ = torch.arange(s_, device=dev)
+        used[tables[n_, t_ // bs].long(), t_ % bs] = True
+    kd, vd = kp.clone(), vp.clone()
+    kd[~used] = float("nan")
+    vd[~used] = float("inf")
+    dirty = (q, ksuf, vsuf, kd, vd, tables, starts, lengths)
+    got = paged_prefill_attention(*dirty)
+    arm(arms, "paged_prefill 4x128 NaN / inf in the masked pool slots bf16",
+        got, ref.paged_prefill_ref(*dirty))
+    if not torch.equal(got, paged_prefill_attention(*args)):
+        raise AssertionError("paged_prefill: NaN / inf in masked pool slots "
+                             "moved the result")
+    print("[kernels] paged_prefill: NaN / inf in the masked pool slots leave "
+          "the result bit for bit the same ok")
+    c32 = prefill_case(*adm, dt=torch.float32)
+    arm(arms, "paged_prefill 4x128 float32 (CUDA cores)",
+        paged_prefill_attention(*c32), ref.paged_prefill_ref(*c32),
+        f32_tol=2e-5)
+    pp_extra.append(prefill_timed(
+        "4 x 128, cached 0/48/200, float32 (the CUDA-core kernel)", c32))
+    sc = [torch.rand(kp.shape[:3], generator=g, device=dev) / 64
+          for _ in range(2)]
+    for name, pools in (
+            ("int8", [torch.randint(-127, 128, kp.shape, generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(2)]),
+            ("fp8", [rn(*kp.shape, dt=torch.float32).mul(64)
+                     .to(torch.float8_e4m3fn) for _ in range(2)])):
+        c = (q, ksuf, vsuf, *pools, tables, starts, lengths)
+        arm(arms, f"paged_prefill 4x128 {name} pool (CUDA cores)",
+            paged_prefill_attention(*c, k_scale=sc[0], v_scale=sc[1]),
+            ref.paged_prefill_ref(*c, *sc))
+    bound, by = prefill_bound(args)
     out.append(dict(
         name="paged_prefill", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_prefill.cu",
         replaces="src/repro/kernels/paged_prefill.py:99",
         _fns=(lambda a=args: paged_prefill_attention(*a),
               lambda a=args: ref.paged_prefill_ref(*a), None),
-        bound_ms=bound, bound_by=by,
+        bound_ms=bound, bound_by=by, blocks=prefill_blocks(args),
         shape=dict(N=4, Ls=128, H=H, KV=KV, hd=hd, bs=bs, M=M,
                    starts=starts.tolist(), lengths=lengths.tolist()),
-        **worst(arms)))
+        _extra=pp_extra, **worst(arms)))
 
     # -- flash_attention: 2 x 512 causal and not, and lm.forward's 2 x 256;
     # SDPA as the yardstick
@@ -671,24 +757,17 @@ def phase_kernels(dev):
                 _fns=(lambda a=pa: paged_attention(*a),
                       lambda a=pa: ref.paged_attention_ref(*a), None),
                 bound_ms=pb[0], bound_by=pb[1]))
-        # each query sees the 8 cached pool keys of row 1 and its causal
-        # suffix keys
-        suf = [16, 16, 9]
-        pairs = sum(s_ * (s_ + 1) // 2 for s_ in suf) + 8 * 16
-        ppb = _bound_ms(2 * _nbytes(pp[0]) + _nbytes(*pp[1:3], *pp[5:])
-                        + 2 * 8 * kv_ * hd * 2, 4 * h_ * hd * pairs)
-        by_name["paged_prefill"].setdefault("_extra", []).append(dict(
-            label=f"{tag} 3 x 16, cached 0/8/0, bf16",
-            _fns=(lambda a=pp: paged_prefill_attention(*a),
-                  lambda a=pp: ref.paged_prefill_ref(*a), None),
-            bound_ms=ppb[0], bound_by=ppb[1]))
+        by_name["paged_prefill"]["_extra"].append(prefill_timed(
+            f"{tag} 3 x 16, cached 0/8/0, bf16", pp))
 
     # -- rwkv6_scan at rwkv6-3b's width (40 heads of 64): a decode step of
     # 4 lanes (T = 1 from the carried state), a prefill of 2 x 512 and
     # lm.forward's 1 x 2048; and the reduced model's 2 x 4 x 40 x 16; r / k /
     # v float32 and bf16, w and u float32, with and without s0. y within
     # float32 RWKV_TOL_F32 (1 + |twin|) or TOL_ULPS bf16 ulps (only the
-    # order of the sum over the key channel differs); S_T bit-equal
+    # order of the sum over the key channel differs) and bit-equal to
+    # ref.rwkv6_scan_split_ref, which sums in the kernel's order;
+    # S_T bit-equal
     arms = []
 
     def rwkv_inputs(shape, dt, with_s0):
@@ -713,6 +792,9 @@ def phase_kernels(dev):
                        else dict(tol_ulps=TOL_ULPS))
                 arm(arms, name, got, want, **tol)
                 arm(arms, name + " S_T", got_s, want_s, f32_tol=0.0)
+                split, _ = ref.rwkv6_scan_split_ref(*a_)
+                arm(arms, name + " y vs the split emulation", got, split,
+                    f32_tol=0.0)
 
     def rwkv_bound(a_):
         r_, k_, v_, w_, u_, s0_ = a_
@@ -721,6 +803,11 @@ def phase_kernels(dev):
         # operations per state element per step
         return _bound_ms(_nbytes(r_, k_, v_, w_, u_, s0_, r_, s0_),
                          7 * B_ * H_ * T_ * N_ * N_, "f32")
+
+    def rwkv_blocks(a_):
+        """Blocks the launch takes: 16 value columns of one head each."""
+        B_, H_, _, N_ = a_[0].shape
+        return B_ * H_ * -(-N_ // 16)
 
     step = rwkv_inputs((4, 40, 1, 64), bf, True)
     extra = []
@@ -731,6 +818,7 @@ def phase_kernels(dev):
         # the twin is a host loop of T steps: 3 timed calls, not 20
         extra.append(dict(label=f"{' x '.join(map(str, shape))} bf16, w "
                                 f"float32{what}",
+                          blocks=rwkv_blocks(a_),
                           _fns=(lambda a=a_: rwkv6_scan(*a),
                                 lambda a=a_: ref.rwkv6_scan_ref(*a), None),
                           bound_ms=b_[0], bound_by=b_[1], _reps=3))
@@ -741,11 +829,12 @@ def phase_kernels(dev):
         replaces="src/repro/kernels/rwkv6_scan.py:55",
         _fns=(lambda: rwkv6_scan(*step), lambda: ref.rwkv6_scan_ref(*step),
               None),
-        bound_ms=bound, bound_by=by,
+        bound_ms=bound, bound_by=by, blocks=rwkv_blocks(step),
         shape=dict(B=4, H=40, T=1, N=64, dtype="bfloat16", s0=True),
         _extra=extra,
         **worst(arms, f"float32 {RWKV_TOL_F32} (1 + |twin|); bf16 "
-                      f"{TOL_ULPS} bf16 ulps; S_T bit-equal")))
+                      f"{TOL_ULPS} bf16 ulps; S_T bit-equal to the twin, y "
+                      f"to the split emulation")))
     return out
 
 
@@ -763,8 +852,8 @@ def phase_timings(kern):
                 continue
             dev_ms, r[wall_key] = _times(fn, reps)
             if dev_ms is None:
-                # the profiler saw no kernel in any window: CUDA-event time
-                # of back-to-back calls stands in, and the record says so
+                # no profiler window held every call's kernels: CUDA-event
+                # time of back-to-back calls stands in, and the record says so
                 r.setdefault("event_timed", []).append(key)
                 dev_ms = r[wall_key]
             r[key] = dev_ms
@@ -772,8 +861,10 @@ def phase_timings(kern):
                 f"); twin {r['plain_ms']:.4f} (wall {r['plain_wall_ms']:.4f})"
                 f"; library {r['library_ms']}; bound {r['bound_ms']:.5f} by "
                 f"{r['bound_by']}"
-                + (f"; CUDA-event time for {r['event_timed']} (the profiler "
-                   f"saw no kernel)" if r.get("event_timed") else ""))
+                + (f"; {r['blocks']} blocks" if "blocks" in r else "")
+                + (f"; CUDA-event time for {r['event_timed']} (no profiler "
+                   f"window held every call's kernels)"
+                   if r.get("event_timed") else ""))
 
     for r in kern:
         print(f"[timings] {r['name']}: {timed(r)}")

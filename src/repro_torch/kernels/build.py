@@ -48,7 +48,8 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 HEAD_DIMS = (16, 64, 80, 128, 256)
 # csrc/paged_attention.cu: CHUNK, the tokens of a row each block of the
 # split takes (a constant, so a row's bits never depend on the batch);
-# csrc/flash_attention.cu: BN, the keys per tensor-core tile
+# csrc/flash_attention.cu: BN, the keys per tensor-core tile (also
+# csrc/paged_prefill.cu's tensor-core kernel's)
 PAGED_CHUNK = 128
 FLASH_KEY_TILE = 64
 
@@ -59,6 +60,7 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "paged_attention": [_P] * 10 + [_I] * 8 + [_F, _P],
     "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
+    "paged_prefill_wgmma": [_P] * 9 + [_I] * 10 + [_F, _P],
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
     "flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [_F, _P],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],

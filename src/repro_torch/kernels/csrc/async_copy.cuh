@@ -7,7 +7,7 @@
 // copies name it, and every reader waits on the use's parity (0, 1, 0,
 // ...). TMA writes shared memory through the async proxy; a thread that
 // waited on the barrier may read them with plain loads or hand them to
-// wgmma.
+// wgmma. Tensor maps are encoded on the host (map_sw32).
 #pragma once
 
 #include <cuda.h>
@@ -71,6 +71,19 @@ __device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box of a 5-D tensor map at coordinates (x, y, z, w, v) into dst.
+__device__ __forceinline__ void load_5d(void* dst, const CUtensorMap* map,
+                                        int x, int y, int z, int w, int v,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(w),
+      "r"(v), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned).
 __device__ __forceinline__ void load_1d(void* dst, const void* src,
                                         uint32_t bytes, uint64_t* bar) {
@@ -79,6 +92,49 @@ __device__ __forceinline__ void load_1d(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (the libraries link no libcuda); null if the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a 16-bit tensor (f16 if `f16`, else bf16) of `rank`
+// dims: dims[0] is 16 columns, `strides` the bytes between steps of dims
+// 1 .. rank - 1, `box` a tile with box[0] = 16. A tile lands 32-byte
+// swizzled (what wgmma's 32-byte-swizzle descriptors read); elements past
+// a dim's end read as zeros.
+inline cudaError_t map_sw32(CUtensorMap* map, bool f16, const void* base,
+                            int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      rank, const_cast<void*>(base), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace tma

@@ -85,29 +85,9 @@ __host__ __device__ constexpr size_t wgmma_smem_bytes() {
   return (size_t)(BQW + 4 * BN) * HD * sizeof(T) + 5 * 8;
 }
 
-// Two floats rounded to a packed pair of T (the first in the low half),
-// and such a pair back in float.
-__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16*) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-__device__ __forceinline__ uint32_t pack2(float a, float b, __half*) {
-  const __half2 h = __floats2half2_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-__device__ __forceinline__ float2 unpack2(uint32_t x, __nv_bfloat16*) {
-  return make_float2(__uint_as_float(x << 16),
-                     __uint_as_float(x & 0xffff0000u));
-}
-__device__ __forceinline__ float2 unpack2(uint32_t x, __half*) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&x));
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using wg::ex2;
+using wg::pack2;
+using wg::unpack2;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(WGS * 128, 1)
@@ -309,28 +289,6 @@ __global__ void __launch_bounds__(WGS * 128, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (the libraries link no libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A (planes, rows, HD) row-major 16-bit tensor as a 4-D map (16 columns,
 // rows, HD / 16 column panels, planes) whose box is `box_rows` rows of
 // every panel, landing panel after panel, each row 32 bytes and 32-byte
@@ -338,23 +296,14 @@ EncodeTiled encode_tiled() {
 template <typename T, int HD>
 cudaError_t make_map(CUtensorMap* map, const void* base, int rows,
                      int planes, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {16, (cuuint64_t)rows, HD / 16,
                               (cuuint64_t)planes};
   const cuuint64_t strides[3] = {(cuuint64_t)HD * sizeof(T),
                                  16 * sizeof(T),
                                  (cuuint64_t)HD * sizeof(T) * rows};
   const cuuint32_t box[4] = {16, (cuuint32_t)box_rows, HD / 16, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map,
-      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(base), dims, strides, box, estr,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tma::map_sw32(map, std::is_same<T, __half>::value, base, 4, dims,
+                       strides, box);
 }
 
 template <typename T, int HD>

@@ -8,32 +8,66 @@
 // index < lengths[n] - starts[n]), optionally within a sliding `window`;
 // int8 / fp8-e4m3 pools are dequantized in-register (the suffix stays full
 // precision). Rows with no valid key (lengths == 0 batch padding) give
-// zeros rather than the TPU kernel's unspecified values.
+// zeros rather than the TPU kernel's unspecified values. It runs on every
+// engine admission, prefix-cache hit and speculative verify.
 //
 // What bounds it on the H100: at serving shapes (a few rows of <= 256
-// suffix tokens over <= 512 cached tokens) the attention is small; each
-// key row is read once per (row, KV head, q-tile) block, and the flop count
-// (4 * H * hd per query-key pair) sits near the bf16 ridge only for long
-// suffixes. This first version does its dot products on the CUDA cores in
-// float32, so it is bound by operations on those cores, far from either
-// tensor-core or memory roofline; wgmma tiles are a later change.
+// suffix tokens over <= 512 cached tokens) the work is small: ~4 H hd
+// flops per query-key pair on bytes read about once, so the bytes bound is
+// a fraction of a microsecond and what a kernel can reach is set by how
+// much of the card it fills and how short its chain of tiles is.
 //
-// Design: one block per (row, KV head, q-tile of BQ positions) holding all
-// group * BQ query rows of that tile (one thread per query row, q and acc
-// in registers), so every K/V tile staged in shared memory serves the whole
-// GQA group. Inside the block a loop replaces the TPU kernel's sequential
-// "arbitrary" key axis of M + Ls/bs steps: first the pool tokens below
-// starts (each token's block id read from the table), then the suffix
-// tiles, skipping tiles above the causal diagonal. Shared memory holds two
-// TK x hd float tiles (TK = 32 keys up to hd 128, 16 at hd 256: 32 KiB), so
-// peak memory does not grow with the prompt. At hd 256 a thread's q and acc
-// (512 floats) no longer fit in registers and spill to local memory; a
-// split of the row over threads, as flash_attention.cu does, is a later
-// change.
-// Masked keys are selected out (never multiplied by zero), so stale or
-// non-finite pool contents cannot leak into the result.
+// Two kernels, chosen by dtype in kernels/paged_prefill.py:
+//
+// paged_prefill_wgmma_kernel (bf16 / f16 q with a pool of the same dtype,
+// the serving path): one warpgroup per block. A block owns (row n, KV head,
+// a run of PB = 64 / group suffix positions), and its 64 wgmma rows are
+// (position, head-in-group) pairs, position-major, so one K/V tile serves
+// the whole GQA group and a short verify chain fills one tile (rows past
+// the last whole position hold zeros and are never written). Q lands once
+// by TMA, one 5-D box per 16-column panel over q (N, Ls, H, hd). The keys
+// come in 64-key tiles through a two-stage TMA ring (tile j + 1 loads while
+// tile j is computed): first the pool positions below starts[n], then the
+// suffix, causally, skipping tiles no query of the block can see. A pool
+// tile is gathered as 8-row runs of consecutive pool rows, one box per run
+// through tables[n, t / bs] (the lanes of warp 0 issue them together), into
+// a layout whose 8-row groups are wgmma's core-matrix groups, so one
+// descriptor stride covers runs from different blocks; this needs bs % 8
+// == 0 (16 in the engine, 2048 for one block a row), and other block sizes
+// (4 in the tests) are gathered by the block's threads into the same
+// layout. A suffix tile is one box over k/v_suf (N, Ls, KV, hd). S = Q K^T
+// and O += P V run on wgmma as in flash_attention.cu's tensor-core kernel:
+// float32 scores and online softmax on the accumulator fragment, P rounded
+// as hi + lo halves and multiplied twice (one rounding breaks chip_smoke.py's
+// 2-ulp gate; tests/test_torch_kernels.py::
+// test_paged_prefill_single_bf16_p_breaks_the_bf16_gate). Keys a row may
+// not see are selected out of S; K/V rows past starts (pool) or past
+// lengths - starts (suffix) are zeroed in shared memory before the
+// products, since P = 0 times a stale NaN in V is a NaN on the tensor
+// cores. It replaces, for 16-bit inputs, the CUDA-core kernel below, which
+// folded one key at a time per thread in float32 on ~48 blocks of 96
+// threads and spilled q and acc at hd 256.
+//
+// paged_prefill_kernel (float32 q, and int8 / fp8 pools): the CUDA-core
+// kernel of the first port, kept as it was: TF32 tensor cores would break
+// the float32 2e-5 that the card-vs-CPU phases hold, and a quantized pool
+// dequantized into bf16 would add a rounding. One block per (row, KV head,
+// q-tile of BQ positions) holding all group * BQ query rows of that tile
+// (one thread per query row, q and acc in registers), so every K/V tile
+// staged in shared memory serves the whole GQA group. Inside the block a
+// loop replaces the TPU kernel's sequential "arbitrary" key axis: first the
+// pool tokens below starts (each token's block id read from the table),
+// then the suffix tiles, skipping tiles above the causal diagonal. Shared
+// memory holds two TK x hd float tiles (TK = 32 keys up to hd 128, 16 at
+// hd 256). At hd 256 a thread's q and acc (512 floats) spill to local
+// memory. Masked keys are never read, so stale or non-finite pool contents
+// cannot leak into the result.
 
+#include <type_traits>
+
+#include "async_copy.cuh"
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -214,5 +248,417 @@ extern "C" int paged_prefill(const void* q, const void* k_suf,
     case rt::BF16: return by_hd<__nv_bfloat16>(hd, q_dtype, kv_dtype, a);
     case rt::F16: return by_hd<__half>(hd, q_dtype, kv_dtype, a);
   }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / f16 q with a pool of the same dtype: wgmma
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int WM = 64;  // a block's rows: (position, head-in-group) pairs
+constexpr int BN = 64;  // keys a tile (kernels/build.py:FLASH_KEY_TILE)
+// Shared memory beyond the tiles: three mbarriers (Q, and one a stage),
+// padded to 32 bytes, then the row's block ids.
+constexpr int BAR_BYTES = 32;
+
+template <typename T, int HD>
+__host__ __device__ constexpr size_t wg_tile_bytes() {  // Q + 2 x (K, V)
+  return (size_t)(WM + 4 * BN) * HD * sizeof(T);
+}
+
+using wg::ex2;
+using wg::pack2;
+using wg::unpack2;
+
+// Tile layouts in shared memory, 32-byte rows of 16 columns, 32-byte
+// swizzled (a row's two 16-byte halves swapped in rows 4-7 of each 8):
+//   panel-major (Q, suffix tiles): panel p of 64 rows at p * 2048 bytes;
+//   run-major (pool tiles): 8-row run g at g * RUN, its panel p at + p * 256
+//     (RUN = hd / 16 * 256), so a run of pool rows is one contiguous box.
+// Both are wgmma descriptors with a stride between 8-row groups (256 or
+// RUN) and between 16-column panels (2048 or 256).
+template <typename T, int HD>
+__global__ void __launch_bounds__(128)
+    paged_prefill_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tks,
+        const __grid_constant__ CUtensorMap tvs,
+        const __grid_constant__ CUtensorMap tkp,
+        const __grid_constant__ CUtensorMap tvp, const T* __restrict__ k_pool,
+        const T* __restrict__ v_pool, const int32_t* __restrict__ tables,
+        const int32_t* __restrict__ starts,
+        const int32_t* __restrict__ lengths, T* __restrict__ out, int Ls,
+        int H, int KV, int bs, int M, int window, int pb, int tma_pool,
+        float scale_log2) {
+  constexpr int NS = HD / 16;       // k-steps of Q.K^T, panels of a tile
+  constexpr int NP = BN / 16;       // k-steps of P.V
+  constexpr uint32_t SW32 = 3;      // descriptor mode: 32-byte swizzle
+  constexpr uint32_t PANEL = WM * 32;
+  constexpr uint32_t TILE = NS * PANEL;
+  constexpr uint32_t RUN = NS * 256;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sq = smem_raw;
+  unsigned char* sk = sq + TILE;   // two stages
+  unsigned char* sv = sk + 2 * TILE;  // two stages
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sv + 2 * TILE);
+  uint64_t* full = bar + 1;        // tile in stage 0 / 1 landed
+  int* stab = reinterpret_cast<int*>(sv + 2 * TILE + BAR_BYTES);
+  T* const tp = nullptr;           // selects pack2 / unpack2 for T
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tq_ = lane & 3;
+  const int n = blockIdx.z, kvh = blockIdx.y;
+  const int group = H / KV;
+  const int i0 = blockIdx.x * pb;          // the block's first position
+  const int nrows = pb * group;            // rows that hold a query
+  const int i_hi = min(i0 + pb, Ls) - 1;   // its last position
+  const int st = starts[n];
+  const int ln_s = lengths[n] - st;        // valid suffix tokens
+  const int pool_end = min(st, M * bs);
+  // the tiles some query of the block can see: pool tiles [p0, p1), then
+  // suffix tiles [s0, s1)
+  const int t_lo = window > 0 ? max(0, st + i0 - window + 1) : 0;
+  const int u_lo = window > 0 ? max(0, i0 - window + 1) : 0;
+  const int u_end = min(min(ln_s, Ls), i_hi + 1);
+  const int p0 = t_lo / BN;
+  const int p1 = t_lo < pool_end ? (pool_end + BN - 1) / BN : p0;
+  const int s0 = u_lo / BN;
+  const int s1 = u_lo < u_end ? (u_end + BN - 1) / BN : s0;
+  const int np = p1 - p0, nt = np + s1 - s0;
+
+  // the row's block ids; Q's rows past nrows zeroed (never written by TMA)
+  for (int e = threadIdx.x; e < (pool_end + bs - 1) / bs; e += 128)
+    stab[e] = tables[(size_t)n * M + e];
+  for (int e = threadIdx.x; e < NS * (WM - nrows) * 2; e += 128) {
+    const int p = e / ((WM - nrows) * 2), r = e % ((WM - nrows) * 2);
+    reinterpret_cast<uint4*>(sq + p * PANEL + (nrows + r / 2) * 32)[r & 1] =
+        make_uint4(0, 0, 0, 0);
+  }
+  tma::fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) tma::init(bar + i, 1);
+    tma::fence_init();
+  }
+  __syncthreads();
+
+  // Issued by the 32 lanes of warp 0: tile j's K and V into `stage`. A
+  // pool tile through TMA is one box of 8 rows per run that holds a key
+  // below pool_end (lanes 2 g and 2 g + 1: run g's K and V); a pool tile
+  // the threads gather only arrives on the barrier.
+  auto fetch = [&](int j, int stage) {
+    uint64_t* fb = full + stage;
+    unsigned char* kd = sk + stage * TILE;
+    unsigned char* vd = sv + stage * TILE;
+    if (j < np) {
+      const int t0 = (p0 + j) * BN;
+      if (!tma_pool) {
+        if (lane == 0) tma::arrive(fb);
+        return;
+      }
+      const int runs = min(BN, pool_end - t0 + 7) / 8;
+      if (lane == 0) tma::expect_tx(fb, runs * 2 * RUN);
+      __syncwarp();
+      if (lane < 2 * runs) {
+        const int t = t0 + 8 * (lane >> 1);
+        const int row = stab[t / bs] * bs + t % bs;
+        tma::load_4d((lane & 1 ? vd : kd) + (lane >> 1) * RUN,
+                     lane & 1 ? &tvp : &tkp, 0, row, 0, kvh, fb);
+      }
+    } else if (lane == 0) {
+      const int u0 = (s0 + j - np) * BN;
+      tma::expect_tx(fb, 2 * TILE);
+      tma::load_5d(kd, &tks, 0, u0, 0, kvh, n, fb);
+      tma::load_5d(vd, &tvs, 0, u0, 0, kvh, n, fb);
+    }
+  };
+  if (warp == 0) {
+    // Q: one box of (16 columns, the group's heads, pb positions) a panel
+    if (lane == 0) tma::expect_tx(bar, NS * nrows * 32);
+    __syncwarp();
+    for (int p = lane; p < NS; p += 32)
+      tma::load_5d(sq + p * PANEL, &tq, 0, kvh * group, i0, p, n, bar);
+    if (nt > 0) fetch(0, 0);
+  }
+
+  // Q: K-major, a k-step is one panel
+  const uint64_t dq = wg::desc(sq, 16, 256, SW32);
+  float o[HD / 2], s[BN / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+  float m[2] = {rt::NEG_INF, rt::NEG_INF}, l[2] = {0.f, 0.f};
+  const int row = 16 * warp + lane / 4;  // and row + 8
+  const int ipos[2] = {i0 + row / group, i0 + (row + 8) / group};
+  tma::wait(bar, 0);
+
+#pragma unroll 1
+  for (int j = 0; j < nt; ++j) {
+    const int stg = j & 1;
+    if (warp == 0 && j + 1 < nt) fetch(j + 1, stg ^ 1);
+    tma::wait(full + stg, (j >> 1) & 1);
+    const bool pool = j < np;
+    const int k0 = pool ? (p0 + j) * BN : (s0 + j - np) * BN;
+    unsigned char* kd = sk + stg * TILE;
+    unsigned char* vd = sv + stg * TILE;
+    if (pool && !tma_pool) {
+      // the threads gather the pool rows below pool_end (zeros past it),
+      // 16 bytes at a time, into the run-major swizzled layout
+      for (int e = threadIdx.x; e < BN * HD / 8; e += 128) {
+        const int r = e / (HD / 8), ch = e % (HD / 8), t = k0 + r;
+        uint4 kx = make_uint4(0, 0, 0, 0), vx = kx;
+        if (t < pool_end) {
+          const size_t off =
+              (((size_t)stab[t / bs] * bs + t % bs) * KV + kvh) * HD + ch * 8;
+          kx = *reinterpret_cast<const uint4*>(k_pool + off);
+          vx = *reinterpret_cast<const uint4*>(v_pool + off);
+        }
+        const uint32_t at = (r / 8) * RUN + (ch / 2) * 256 + (r % 8) * 32 +
+                            (((ch & 1) ^ ((r >> 2) & 1)) << 4);
+        *reinterpret_cast<uint4*>(kd + at) = kx;
+        *reinterpret_cast<uint4*>(vd + at) = vx;
+      }
+      tma::fence_proxy_async();
+      __syncthreads();
+    } else {
+      // zero the rows of keys past pool_end / past the valid suffix: they
+      // may hold stale or non-finite values, which P = 0 would not cancel
+      const int valid = max(pool ? pool_end - k0 : ln_s - k0, 0);
+      if (valid < BN) {
+        for (int e = threadIdx.x; e < (BN - valid) * NS; e += 128) {
+          const int r = valid + e / NS, p = e % NS;
+          const uint32_t at = pool ? (r / 8) * RUN + p * 256 + (r % 8) * 32
+                                   : p * PANEL + r * 32;
+          uint4* dk = reinterpret_cast<uint4*>(kd + at);
+          uint4* dv = reinterpret_cast<uint4*>(vd + at);
+          dk[0] = dk[1] = dv[0] = dv[1] = make_uint4(0, 0, 0, 0);
+        }
+        tma::fence_proxy_async();
+        __syncthreads();
+      }
+    }
+
+    // S = Q K^T
+    const uint64_t dk = wg::desc(kd, 16, pool ? RUN : 256, SW32);
+    const uint32_t kstep = pool ? 256 : PANEL;
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) s[e] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)
+      wg::mma_ss<T, BN>(s, dq + kk * (PANEL >> 4), dk + kk * (kstep >> 4),
+                        kk > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(s);
+
+    // mask (tiles some key of which a query of the block may not see)
+    const bool edge =
+        pool ? k0 + BN > pool_end || (window > 0 && k0 <= st + i_hi - window)
+             : k0 + BN - 1 > i0 || k0 + BN > ln_s ||
+                   (window > 0 && k0 <= i_hi - window);
+    if (edge) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = ipos[r];
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * c + 2 * tq_ + e;
+            const bool ok =
+                pool ? key < pool_end && (window <= 0 || key > st + i - window)
+                     : key <= i && key < ln_s &&
+                           (window <= 0 || key > i - window);
+            if (!ok) s[4 * c + 2 * r + e] = -INFINITY;
+          }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx0 = s[2 * r], mx1 = s[2 * r + 1];
+#pragma unroll
+      for (int c = 1; c < BN / 8; ++c) {
+        mx0 = fmaxf(mx0, s[4 * c + 2 * r]);
+        mx1 = fmaxf(mx1, s[4 * c + 2 * r + 1]);
+      }
+      float mx = fmaxf(mx0, mx1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        const float q0 = ex2(fmaf(s[4 * c + 2 * r], scale_log2, -m_new));
+        const float q1 = ex2(fmaf(s[4 * c + 2 * r + 1], scale_log2, -m_new));
+        s[4 * c + 2 * r] = q0;
+        s[4 * c + 2 * r + 1] = q1;
+        sum0 += q0;
+        sum1 += q1;
+      }
+      l[r] = l[r] * alpha[r] + (sum0 + sum1);
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        o[4 * c] *= alpha[0];
+        o[4 * c + 1] *= alpha[0];
+        o[4 * c + 2] *= alpha[1];
+        o[4 * c + 3] *= alpha[1];
+      }
+    }
+
+    // P as wgmma A fragments, hi and lo halves; O += P_hi V + P_lo V. V is
+    // MN-major: 16-column panels (2048 or 256 bytes apart) across hd, 8-key
+    // groups (256 or RUN apart) down a k-step of 16 keys
+    uint32_t ph[NP * 4], pl[NP * 4];
+#pragma unroll
+    for (int e = 0; e < NP * 4; ++e) {
+      ph[e] = pack2(s[2 * e], s[2 * e + 1], tp);
+      const float2 hi = unpack2(ph[e], tp);
+      pl[e] = pack2(s[2 * e] - hi.x, s[2 * e + 1] - hi.y, tp);
+    }
+    const uint64_t dv = pool ? wg::desc(vd, 256, RUN, SW32)
+                             : wg::desc(vd, PANEL, 256, SW32);
+    const uint32_t vstep = pool ? 2 * RUN : 512;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk)
+      wg::mma_rs<T, HD>(o, ph + 4 * kk, dv + kk * (vstep >> 4));
+#pragma unroll
+    for (int kk = 0; kk < NP; ++kk)
+      wg::mma_rs<T, HD>(o, pl + 4 * kk, dv + kk * (vstep >> 4));
+    wg::commit();
+    wg::wait<0>();
+    wg::keep(o);
+    wg::keep(ph);
+    wg::keep(pl);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float den = fmaxf(sum, 1e-30f);
+    const int rr = row + 8 * r, i = ipos[r];
+    if (rr < nrows && i < Ls) {
+      T* orow = out + (((size_t)n * Ls + i) * H + kvh * group + rr % group) *
+                          HD + 2 * tq_;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c) =
+            pack2(o[4 * c + 2 * r] / den, o[4 * c + 2 * r + 1] / den, tp);
+    }
+  }
+}
+
+struct WArgs {
+  const void *q, *ks_, *vs_, *kp, *vp;
+  const int32_t *tables, *starts, *lengths;
+  void* out;
+  int N, Ls, H, KV, P, bs, M, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD>
+cudaError_t launch_wgmma(const WArgs& a) {
+  constexpr cuuint64_t E = sizeof(T);
+  const int group = a.H / a.KV;
+  if (group > WM) return cudaErrorInvalidValue;
+  const int pb = WM / group;
+  const cuuint64_t N = a.N, Ls = a.Ls, H = a.H, KV = a.KV;
+  // q (N, Ls, H, hd) as (16 columns, heads, positions, panels, rows)
+  const cuuint64_t qd[5] = {16, H, Ls, HD / 16, N};
+  const cuuint64_t qs[4] = {HD * E, H * HD * E, 16 * E, Ls * H * HD * E};
+  const cuuint32_t qb[5] = {16, (cuuint32_t)group, (cuuint32_t)pb, 1, 1};
+  // k/v_suf (N, Ls, KV, hd) as (16 columns, positions, panels, KV heads,
+  // rows): a box is 64 positions of every panel
+  const cuuint64_t sd[5] = {16, Ls, HD / 16, KV, N};
+  const cuuint64_t ss[4] = {KV * HD * E, 16 * E, HD * E, Ls * KV * HD * E};
+  const cuuint32_t sb[5] = {16, BN, HD / 16, 1, 1};
+  // pools (P, bs, KV, hd) as (16 columns, pool rows, panels, KV heads): a
+  // box is one 8-row run of every panel
+  const cuuint64_t pd[4] = {16, (cuuint64_t)a.P * a.bs, HD / 16, KV};
+  const cuuint64_t ps[3] = {KV * HD * E, 16 * E, HD * E};
+  const cuuint32_t pbx[4] = {16, 8, HD / 16, 1};
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  CUtensorMap tq, tks, tvs, tkp, tvp;
+  cudaError_t e = tma::map_sw32(&tq, f16, a.q, 5, qd, qs, qb);
+  if (e == cudaSuccess) e = tma::map_sw32(&tks, f16, a.ks_, 5, sd, ss, sb);
+  if (e == cudaSuccess) e = tma::map_sw32(&tvs, f16, a.vs_, 5, sd, ss, sb);
+  if (e == cudaSuccess) e = tma::map_sw32(&tkp, f16, a.kp, 4, pd, ps, pbx);
+  if (e == cudaSuccess) e = tma::map_sw32(&tvp, f16, a.vp, 4, pd, ps, pbx);
+  if (e != cudaSuccess) return e;
+  constexpr int SMEM_MAX = 232448;  // an H100 block's dynamic limit
+  static bool opted_in = false;
+  if (!opted_in) {
+    e = cudaFuncSetAttribute(paged_prefill_wgmma_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const size_t smem = wg_tile_bytes<T, HD>() + BAR_BYTES + (size_t)a.M * 4;
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  dim3 grid((a.Ls + pb - 1) / pb, a.KV, a.N);
+  paged_prefill_wgmma_kernel<T, HD><<<grid, 128, smem, a.stream>>>(
+      tq, tks, tvs, tkp, tvp, static_cast<const T*>(a.kp),
+      static_cast<const T*>(a.vp), a.tables, a.starts, a.lengths,
+      static_cast<T*>(a.out), a.Ls, a.H, a.KV, a.bs, a.M, a.window, pb,
+      a.bs % 8 == 0, a.scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t wgmma_by_hd(int hd, const WArgs& a) {
+  switch (hd) {
+    case 16: return launch_wgmma<T, 16>(a);
+    case 64: return launch_wgmma<T, 64>(a);
+    case 80: return launch_wgmma<T, 80>(a);
+    case 128: return launch_wgmma<T, 128>(a);
+    case 256: return launch_wgmma<T, 256>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// bf16 / f16 q, suffix and pool, one dtype: the wgmma kernel. Returns the
+// cudaError_t of the launch (0 = success). Shapes as paged_prefill's, P
+// the pool's block count; every tensor contiguous and 16-byte aligned, H a
+// multiple of KV with H / KV <= 64, checked by the Python wrapper.
+extern "C" int paged_prefill_wgmma(const void* q, const void* k_suf,
+                                   const void* v_suf, const void* k_pool,
+                                   const void* v_pool, const void* tables,
+                                   const void* starts, const void* lengths,
+                                   void* out, int dtype, int N, int Ls, int H,
+                                   int KV, int hd, int P, int bs, int M,
+                                   int window, float scale, void* stream) {
+  if (H % KV != 0 || N <= 0 || Ls <= 0) return cudaErrorInvalidValue;
+  const WArgs a{q,
+                k_suf,
+                v_suf,
+                k_pool,
+                v_pool,
+                static_cast<const int32_t*>(tables),
+                static_cast<const int32_t*>(starts),
+                static_cast<const int32_t*>(lengths),
+                out,
+                N,
+                Ls,
+                H,
+                KV,
+                P,
+                bs,
+                M,
+                window,
+                scale,
+                static_cast<cudaStream_t>(stream)};
+  if (dtype == rt::BF16) return wgmma_by_hd<__nv_bfloat16>(hd, a);
+  if (dtype == rt::F16) return wgmma_by_hd<__half>(hd, a);
   return cudaErrorInvalidValue;
 }

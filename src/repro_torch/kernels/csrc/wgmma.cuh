@@ -15,6 +15,9 @@
 //       k + 8), B (16 x N) MN-major in shared memory (the transpose bit);
 //       d += A B.
 //
+// pack2 / unpack2 / ex2: the P fragment and softmax helpers both
+// tensor-core attention kernels share.
+//
 // Ordering: fence() before a batch whose registers other instructions
 // touched, commit() after it, wait<0>() before reading d, then
 // keep(d) so the compiler cannot move register reads above the wait.
@@ -62,6 +65,32 @@ __device__ __forceinline__ uint64_t desc(const void* smem, uint32_t lbo,
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) |
          (static_cast<uint64_t>(swizzle) << 62);
+}
+
+// Two floats rounded to a packed pair of T (the first in the low half),
+// and such a pair back in float: the register A operand of mma_rs. The
+// null pointer's type selects T.
+__device__ __forceinline__ uint32_t pack2(float a, float b, __nv_bfloat16*) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, __half*) {
+  const __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack2(uint32_t x, __nv_bfloat16*) {
+  return make_float2(__uint_as_float(x << 16),
+                     __uint_as_float(x & 0xffff0000u));
+}
+__device__ __forceinline__ float2 unpack2(uint32_t x, __half*) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&x));
+}
+
+// 2^x for the online softmax; 2^-inf = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <typename T, int N>

@@ -1,9 +1,17 @@
 """Paged suffix-prefill attention: CUDA kernel wrapper.
 
 The port of `repro/kernels/paged_prefill.py` (a Pallas TPU kernel). The
-kernel is `csrc/paged_prefill.cu`; `ref.paged_prefill_ref` is its plain
-twin. A CPU tensor takes the twin; a CUDA tensor launches the kernel or
-raises. `paged_prefill_attention.launches` counts kernel launches.
+kernels are in `csrc/paged_prefill.cu`; `ref.paged_prefill_ref` is their
+plain twin. A CPU tensor takes the twin; a CUDA tensor launches a kernel
+or raises. The dtypes pick the kernel: bf16 / f16 q with a pool of the
+same dtype (the serving path) run the tensor-core kernel (wgmma, TMA
+tiles, the pool gathered in 8-row runs through the block table; its
+inputs must be 16-byte aligned and the GQA group at most 64 heads);
+float32 q and int8 / fp8 pools run the CUDA-core kernel, since TF32 would
+keep too few bits for float32's 2e-5 and dequantizing into bf16 would add
+a rounding. Neither stands in for the other.
+`ref.paged_prefill_tiled_ref` orders the tensor-core kernel's work on the
+CPU. `paged_prefill_attention.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -11,6 +19,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS, QUANT_DTYPES
+
+# csrc/paged_prefill.cu: a tensor-core block's 64 rows hold whole positions
+# of one GQA group
+WGMMA_MAX_GROUP = 64
 
 
 def _check(q, k_suf, v_suf, k_pool, v_pool, block_tables, starts, lengths,
@@ -79,17 +91,39 @@ def paged_prefill_attention(q, k_suf, v_suf, k_pool, v_pool, block_tables,
     _check(q, k_suf, v_suf, k_pool, v_pool, block_tables, starts, lengths,
            k_scale, v_scale)
     N, Ls, H, hd = q.shape
-    _, bs, KV, _ = k_pool.shape
+    P, bs, KV, _ = k_pool.shape
     out = torch.empty_like(q)
-    fn = build.load("paged_prefill")
+    if out.numel() == 0:
+        return out
+    tensor_cores = q.dtype != torch.float32 and k_pool.dtype == q.dtype
+    if tensor_cores:
+        if H // KV > WGMMA_MAX_GROUP:
+            raise ValueError(f"paged_prefill_attention: {H // KV} query "
+                             f"heads per KV head; the tensor-core kernel "
+                             f"takes at most {WGMMA_MAX_GROUP}")
+        if any(t.data_ptr() % 16 for t in (q, k_suf, v_suf, k_pool, v_pool)):
+            raise ValueError("paged_prefill_attention: bf16 / f16 inputs "
+                             "must be 16-byte aligned (the kernel reads them "
+                             "with TMA)")
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
-                 k_pool.data_ptr(), v_pool.data_ptr(), build.ptr(k_scale),
-                 build.ptr(v_scale), block_tables.data_ptr(),
-                 starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype],
-                 N, Ls, H, KV, hd, bs, block_tables.shape[1], int(window),
-                 hd ** -0.5, build.stream())
+        if tensor_cores:
+            err = build.load("paged_prefill", "paged_prefill_wgmma")(
+                q.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
+                k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), starts.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(),
+                build.DTYPE_CODES[q.dtype], N, Ls, H, KV, hd, P, bs,
+                block_tables.shape[1], int(window), hd ** -0.5,
+                build.stream())
+        else:
+            err = build.load("paged_prefill")(
+                q.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
+                k_pool.data_ptr(), v_pool.data_ptr(), build.ptr(k_scale),
+                build.ptr(v_scale), block_tables.data_ptr(),
+                starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype],
+                N, Ls, H, KV, hd, bs, block_tables.shape[1], int(window),
+                hd ** -0.5, build.stream())
     build.check_launch("paged_prefill_attention", err)
     paged_prefill_attention.launches += 1
     return out

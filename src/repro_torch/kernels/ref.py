@@ -197,6 +197,87 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
     return o.reshape(B, H, Sq, hd).to(dt)
 
 
+def paged_prefill_tiled_ref(q, k_suf, v_suf, k_pool, v_pool, block_tables,
+                            starts, lengths, k_scale=None, v_scale=None,
+                            window: int = 0, *, key_tile: int,
+                            p_split: bool):
+    """paged_prefill as the 16-bit tensor-core kernel orders it: the pool
+    positions in tiles of `key_tile`, then the suffix in tiles of
+    `key_tile`, an online softmax across tiles in float32, and P rounded
+    to q's dtype before P.V, once (p_split=False) or as a hi + lo pair
+    (p_split=True, what the kernel does). V rows no query of the row may
+    see are zeroed, as the kernel zeroes them in shared memory. Returns
+    (N, Ls, H, hd) in q's dtype."""
+    N, Ls, H, hd = q.shape
+    KV = k_suf.shape[2]
+    dt, dev = q.dtype, q.device
+    kp = _gather_pool(k_pool, k_scale, block_tables)     # (N, KV, S, hd)
+    vp = _gather_pool(v_pool, v_scale, block_tables)
+    ks, vs = k_suf.float().transpose(1, 2), v_suf.float().transpose(1, 2)
+    qf = q.float().reshape(N, Ls, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
+    i = torch.arange(Ls, device=dev)
+    qpos = starts[:, None] + i[None, :]                  # (N, Ls)
+    m = torch.full((N, KV, H // KV, Ls, 1), -1e30, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    tiles = []
+    for t0 in range(0, kp.shape[2], key_tile):
+        t = torch.arange(t0, min(t0 + key_tile, kp.shape[2]), device=dev)
+        ok = (t[None, None, :] < starts[:, None, None]).expand(N, Ls, -1)
+        if window > 0:
+            ok = ok & (t[None, None, :] > qpos[:, :, None] - window)
+        tiles.append((kp[:, :, t], vp[:, :, t], ok))
+    for u0 in range(0, Ls, key_tile):
+        u = torch.arange(u0, min(u0 + key_tile, Ls), device=dev)
+        ok = ((u[None, None, :] <= i[None, :, None])
+              & (u[None, None, :] < (lengths - starts)[:, None, None]))
+        if window > 0:
+            ok = ok & (u[None, None, :] > i[None, :, None] - window)
+        tiles.append((ks[:, :, u], vs[:, :, u], ok))
+    for kt, vt, ok in tiles:
+        valid = ok[:, None, None]                        # (N, 1, 1, Ls, n)
+        vt = torch.where(ok.any(1)[:, None, :, None], vt,
+                         torch.zeros_like(vt))
+        s = torch.einsum("nkgqh,nksh->nkgqs", qf, kt) * hd ** -0.5
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(dt).float()
+        pr = hi + (p - hi).to(dt).float() if p_split else hi
+        acc = acc * alpha + torch.einsum("nkgqs,nksh->nkgqh", pr, vt)
+        m = m_new
+    o = (acc / l.clamp_min(1e-30)).permute(0, 3, 1, 2, 4)
+    return o.reshape(N, Ls, H, hd).to(dt)
+
+
+def rwkv6_scan_split_ref(r, k, v, w, u, s0=None):
+    """rwkv6_scan as csrc/rwkv6_scan.cu orders it: the kernel splits each
+    value column's key rows over lanes but sums y over them in one serial
+    chain, so here y_j of a step adds its terms r_i (S_ij + u_i k_i v_j) one
+    by one in float32, i = 0 .. N - 1. The state is updated exactly as in
+    rwkv6_scan_ref. Returns (y (B, H, T, N) in r's dtype, S_T (B, H, N, N)
+    float32)."""
+    B, H, T, N = r.shape
+    S = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(T):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        term = rf[:, :, t, :, None] * (S + uf * kv)     # (B, H, N, N)
+        acc = torch.zeros(B, H, N, device=r.device)
+        for i in range(N):
+            acc = acc + term[:, :, i]
+        ys.append(acc)
+        S = wf[:, :, t, :, None] * S + kv
+    y = (torch.stack(ys, dim=2) if ys
+         else torch.empty(B, H, 0, N, device=r.device))
+    return y.to(r.dtype), S
+
+
 def svrg_update_ref(x, g_x, g_z, mu, w_anchor, eta: float, gamma: float):
     """One fused variance-reduced prox step (paper Alg. 1 step 2):
 

@@ -2,7 +2,13 @@
 
 The port of `repro/kernels/rwkv6_scan.py` (a Pallas TPU kernel), the time
 mix of every RWKV6 layer (`models/recurrent.py:rwkv_seq`). The kernel is
-`csrc/rwkv6_scan.cu`; `ref.rwkv6_scan_ref` is its plain twin. A CPU tensor
+`csrc/rwkv6_scan.cu`: blocks of 16 value columns of one head, each
+column's key rows split over 4 lanes of N / 4 rows with the state in
+registers and y summed in one serial chain passed lane to lane (lane g a
+step behind lane g - 1), the inputs staged a 32-step chunk at a time by
+bulk TMA copies (hence 16-byte aligned inputs and a head dim that is a
+multiple of 8). `ref.rwkv6_scan_ref` is its plain twin;
+`ref.rwkv6_scan_split_ref` sums y in the kernel's order. A CPU tensor
 takes the twin; a CUDA tensor launches the kernel or raises.
 `rwkv6_scan.launches` counts kernel launches.
 """
@@ -22,8 +28,8 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
 
     r, k, v: (B, H, T, N), one float dtype; w: (B, H, T, N) float32; u:
     (H, N) float32; s0: (B, H, N, N) float32 or None (zeros); all
-    contiguous, N <= 64. Returns (y (B, H, T, N) in r's dtype, S_T
-    (B, H, N, N) float32)."""
+    contiguous, N a multiple of 8 up to 64. Returns (y (B, H, T, N) in
+    r's dtype, S_T (B, H, N, N) float32)."""
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     if r.device.type != "cuda":
@@ -33,9 +39,9 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, w "
                          f"{tuple(w.shape)}; all must be (B, H, T, N)")
     B, H, T, N = r.shape
-    if not 0 < N <= MAX_HEAD_DIM:
-        raise ValueError(f"rwkv6_scan: head dim {N} (the kernel takes 1 to "
-                         f"{MAX_HEAD_DIM})")
+    if not 0 < N <= MAX_HEAD_DIM or N % 8:
+        raise ValueError(f"rwkv6_scan: head dim {N} (the kernel takes "
+                         f"multiples of 8 up to {MAX_HEAD_DIM})")
     if r.dtype not in FLOAT_DTYPES or k.dtype != r.dtype \
             or v.dtype != r.dtype:
         raise TypeError(f"rwkv6_scan: r/k/v dtypes {r.dtype}, {k.dtype}, "
@@ -54,6 +60,9 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
                              f"{r.device}")
         if not t.is_contiguous():
             raise ValueError("rwkv6_scan: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("rwkv6_scan: r, k, v and w must be 16-byte aligned "
+                         "(the kernel copies them with bulk TMA copies)")
     y = torch.empty_like(r)
     s_out = torch.empty(B, H, N, N, dtype=torch.float32, device=r.device)
     if B * H == 0:

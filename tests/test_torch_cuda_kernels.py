@@ -10,10 +10,12 @@ at 2e-2 (one bf16 rounding of outputs <= ~4). svrg_update is held at
 float32 1e-6 (the JAX kernel test's own) and, in bf16 / f16, to within one
 rounding of its twin (both compute in float32 and round once); rwkv6_scan
 at float32 1e-5 (1 + |twin|), bf16 2 ulps, and its float32 state bit for
-bit. The tensor-core flash kernel (bf16 / f16) is held at 2e-2 at every
-head dim; paged decode's split is held bit for bit where the output must
-not move (a row alone or in any batch, a non-finite pool past ctx, ctx =
-1 giving the token's V row)."""
+bit, and its y bit for bit to ref.rwkv6_scan_split_ref (the kernel's
+order of the sum). The tensor-core flash kernel (bf16 / f16) is held at
+2e-2 at every head dim, the tensor-core paged_prefill kernel at 2 bf16
+ulps at every head dim and block size; paged decode's split is held bit
+for bit where the output must not move (a row alone or in any batch, a
+non-finite pool past ctx, ctx = 1 giving the token's V row)."""
 import numpy as np
 import pytest
 
@@ -542,3 +544,122 @@ def test_paged_attention_quantized_group10_hd256(cuda, pool):
     assert paged_attention.launches == before + 1
     want = ref.paged_attention_ref(q, kq, vq, bt, ctx, ks, vs)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+# ----------------------------------------------------------------------------
+# paged_prefill's tensor-core kernel (bf16 / f16 q and pool) and the
+# rwkv6_scan redesign
+# ----------------------------------------------------------------------------
+
+def _bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps of max(|want|, 2^-8): chip_smoke.py's
+    measure."""
+    diff = (got.float() - want.float()).abs()
+    _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -8))
+    return (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
+
+
+_PREFILL_HEADS = {16: (4, 2), 64: (9, 3), 80: (32, 32), 128: (16, 4),
+                  256: (10, 1)}
+
+
+def _prefill_args(rng, dtype, dev, hd, bs, starts, counts, Ls):
+    """N = len(starts) rows; bs = 2048 is one block a row, otherwise a pool
+    of 512 / bs blocks a row, shuffled; lengths = starts + counts."""
+    h, kv = _PREFILL_HEADS[hd]
+    n = len(starts)
+    m = max(1, 512 // bs)
+    P = n * m + 1
+    q = _rand(rng, n, Ls, h, hd, dtype=dtype, dev=dev)
+    ks, vs = (_rand(rng, n, Ls, kv, hd, dtype=dtype, dev=dev)
+              for _ in range(2))
+    kp, vp = (_rand(rng, P, bs, kv, hd, dtype=dtype, dev=dev)
+              for _ in range(2))
+    bt = torch.from_numpy((1 + rng.permutation(n * m)).reshape(n, m)
+                          .astype(np.int32)).to(dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ln = st + torch.tensor(counts, dtype=torch.int32, device=dev)
+    return q, ks, vs, kp, vp, bt, st, ln
+
+
+_PREFILL_CASES = {
+    # an admission: a fresh prompt, cached prefixes, a padding row
+    "admission": ([0, 48, 200, 0], [128, 128, 100, 0], 128),
+    # speculate=4's verify chains over contexts up to 500
+    "verify": ([0, 3, 17, 100, 250, 400, 500, 311],
+               [0, 1, 2, 4, 5, 3, 5, 0], 5),
+    # a short bucket with a partial last pool block
+    "bucket": ([160, 0, 33, 7], [10, 16, 12, 3], 16),
+}
+
+
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bs", [4, 8, 16, 2048])
+def test_paged_prefill_wgmma_matches_twin(cuda, hd, dtype, bs):
+    """Every case (windows 0 and 64) within 2 bf16 ulps of the float32
+    twin; lengths == 0 rows give zeros; one launch each."""
+    rng = np.random.default_rng(hd * 10 + bs)
+    for name, (starts, counts, Ls) in _PREFILL_CASES.items():
+        args = _prefill_args(rng, dtype, cuda, hd, bs, starts, counts, Ls)
+        for window in (0, 64):
+            before = paged_prefill_attention.launches
+            got = paged_prefill_attention(*args, window=window)
+            torch.cuda.synchronize()
+            assert paged_prefill_attention.launches == before + 1
+            want = ref.paged_prefill_ref(*args, window=window)
+            assert got.dtype == dtype and bool(torch.isfinite(got).all())
+            assert _bf16_ulps(got, want) <= 2, (name, window)
+            for n, (s_, c_) in enumerate(zip(starts, counts)):
+                if s_ == 0 and c_ == 0:
+                    assert torch.all(got[n] == 0)
+
+
+@pytest.mark.parametrize("bs", [4, 16, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_prefill_wgmma_ignores_nonfinite_masked_pool(cuda, bs, dtype):
+    """NaN / inf in every pool slot a row may not see (past its starts, in
+    its partial last block, the null block) and in the suffix past its
+    lengths leave the result bit for bit the same."""
+    rng = np.random.default_rng(bs)
+    starts, counts, Ls = [20, 0, 61, 5], [32, 32, 3, 0], 32
+    q, ks, vs, kp, vp, bt, st, ln = _prefill_args(rng, dtype, cuda, 64, bs,
+                                                  starts, counts, Ls)
+    clean = paged_prefill_attention(q, ks, vs, kp, vp, bt, st, ln)
+    used = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda)
+    for n, s_ in enumerate(starts):
+        t = torch.arange(s_, device=cuda)
+        used[bt[n, t // bs].long(), t % bs] = True
+    kd, vd, ksd, vsd = kp.clone(), vp.clone(), ks.clone(), vs.clone()
+    kd[~used] = float("nan")
+    vd[~used] = float("inf")
+    for n, c_ in enumerate(counts):
+        ksd[n, c_:] = float("nan")
+        vsd[n, c_:] = float("nan")
+    dirty = paged_prefill_attention(q, ksd, vsd, kd, vd, bt, st, ln)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 1, 64), (2, 40, 300, 64),
+                                   (1, 40, 2048, 64), (2, 4, 40, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_scan_bit_equal_to_split_emulation(cuda, shape, dtype,
+                                                 with_s0):
+    """y bit for bit the serial emulation's (one chain over the key rows in
+    order), S_T bit for bit the twin's."""
+    B, H, T, N = shape
+    rng = np.random.default_rng(T + N + with_s0)
+    r, k, v = (_rand(rng, *shape, dev=cuda).mul(0.5).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(_rand(rng, *shape, dev=cuda) - 1))
+    u = _rand(rng, H, N, dev=cuda) * 0.1
+    s0 = _rand(rng, B, H, N, N, dev=cuda) if with_s0 else None
+    got, got_s = rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    want, _ = ref.rwkv6_scan_split_ref(r, k, v, w, u, s0)
+    _, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(got_s, want_s, atol=0, rtol=0)

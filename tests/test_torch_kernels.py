@@ -291,6 +291,170 @@ def test_flash_single_bf16_p_breaks_the_bf16_gate():
     assert _bf16_ulps(split, want) <= _TOL_ULPS
 
 
+# The 16-bit paged_prefill kernel (csrc/paged_prefill.cu) runs Q.K^T and
+# P.V on the tensor cores over 64-key tiles, the pool's first, then the
+# suffix's, so P is rounded to the input type first, as in flash. Its
+# emulation must stay within chip_smoke.py's 2-ulp gate against the float32
+# twin at every bf16 shape of chip_smoke.py's phase 2 (the smollm
+# admission, the Ls = 16 bucket, speculate=4's verify chains, the other
+# head dims) and at the block sizes the engine and the tests take.
+def _prefill_bf16_case(seed, starts, counts, Ls, *, H=9, KV=3, hd=64, bs=16,
+                       M=32, lengths=None):
+    rng = np.random.default_rng(seed)
+    n = len(starts)
+    P = n * M + 1
+    q, ks, vs = (_t(_rand(rng, n, Ls, h, hd)).bfloat16()
+                 for h in (H, KV, KV))
+    kp, vp = (_t(_rand(rng, P, bs, KV, hd)).bfloat16() for _ in range(2))
+    bt = _t((1 + rng.permutation(n * M)).reshape(n, M).astype(np.int32))
+    st = _t(np.asarray(starts, np.int32))
+    ln = (st + _t(np.asarray(counts, np.int32)) if lengths is None
+          else _t(np.asarray(lengths, np.int32)))
+    return q, ks, vs, kp, vp, bt, st, ln
+
+
+_ADMISSION = ([0, 48, 200, 0], [128, 128, 100, 0], 128)
+_VERIFY_STARTS = [0, 3, 17, 100, 250, 400, 500, 311]
+
+
+def _verify(T):
+    return (_VERIFY_STARTS, [0, 1, 2, T, T, min(3, T), T, 0], T)
+
+
+_SMALL_HD = dict(starts=[0, 8, 0], counts=None, Ls=16, bs=16, M=8,
+                 lengths=[16, 24, 9])
+
+
+@pytest.mark.parametrize("case,kw,window", [
+    ("admission", dict(), 0),            # smollm 4 x 128, cached 0/48/200
+    ("admission", dict(), 64),
+    ("bucket16", dict(), 0),              # the smallest suffix bucket
+    ("verify2", dict(), 0),               # speculate=4's verify chains
+    ("verify4", dict(), 0),
+    ("verify5", dict(), 0),
+    ("small", dict(H=4, KV=2, hd=16), 0),    # the reduced configs
+    ("small", dict(H=4, KV=2, hd=16), 6),
+    ("small", dict(H=32, KV=32, hd=80), 0),  # stablelm-3b
+    ("small", dict(H=32, KV=32, hd=80), 6),
+    ("small", dict(H=10, KV=1, hd=256), 0),  # recurrentgemma-2b
+    ("small", dict(H=10, KV=1, hd=256), 6),
+    ("admission", dict(bs=4, M=128), 0),  # the block sizes tests take
+    ("admission", dict(bs=8, M=64), 64),
+    ("admission", dict(bs=2048, M=1), 0),  # one block a row
+])
+def test_paged_prefill_hi_lo_p_stays_in_the_bf16_gate(case, kw, window):
+    if case == "admission":
+        starts, counts, Ls = _ADMISSION
+    elif case == "bucket16":
+        starts, counts, Ls = [160, 0, 33, 0], [10, 16, 12, 0], 16
+    elif case.startswith("verify"):
+        starts, counts, Ls = _verify(int(case[-1]))
+    else:
+        kw = {**kw, "bs": 16, "M": 8, "lengths": _SMALL_HD["lengths"]}
+        starts, counts, Ls = _SMALL_HD["starts"], None, 16
+    args = _prefill_bf16_case(len(case) + window, starts, counts, Ls, **kw)
+    got = ref.paged_prefill_tiled_ref(*args, window=window,
+                                      key_tile=FLASH_KEY_TILE, p_split=True)
+    want = ref.paged_prefill_ref(*args, window=window)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got, want) <= _TOL_ULPS
+
+
+def test_paged_prefill_single_bf16_p_breaks_the_bf16_gate():
+    args = _prefill_bf16_case(7, *_ADMISSION)
+    want = ref.paged_prefill_ref(*args)
+    once = ref.paged_prefill_tiled_ref(*args, key_tile=FLASH_KEY_TILE,
+                                       p_split=False)
+    split = ref.paged_prefill_tiled_ref(*args, key_tile=FLASH_KEY_TILE,
+                                        p_split=True)
+    assert _bf16_ulps(once, want) > 4 * _TOL_ULPS
+    assert _bf16_ulps(split, want) <= _TOL_ULPS
+
+
+@pytest.mark.parametrize("which", ["twin", "tiled"])
+@pytest.mark.parametrize("bs,M", [(16, 32), (4, 128)])
+def test_paged_prefill_nonfinite_masked_pool_adds_nothing(which, bs, M):
+    """NaN / inf in every pool slot a row may not see (past its starts,
+    the partial last block, the null block 0) leave the twin and the
+    tensor-core emulation bit for bit the same."""
+    args = _prefill_bf16_case(3, [20, 0, 61], [32, 32, 3], 32, bs=bs, M=M)
+    q, ks, vs, kp, vp, bt, st, ln = args
+
+    def run(kp_, vp_):
+        a = (q, ks, vs, kp_, vp_, bt, st, ln)
+        if which == "twin":
+            return ref.paged_prefill_ref(*a)
+        return ref.paged_prefill_tiled_ref(*a, key_tile=FLASH_KEY_TILE,
+                                           p_split=True)
+
+    used = torch.zeros(kp.shape[:2], dtype=torch.bool)
+    for n, s in enumerate(st.tolist()):
+        t = torch.arange(s)
+        used[bt[n, t // bs].long(), t % bs] = True
+    kd, vd = kp.clone(), vp.clone()
+    kd[~used] = float("nan")
+    vd[~used] = float("inf")
+    clean, dirty = run(kp, vp), run(kd, vd)
+    assert torch.isfinite(dirty.float()).all()
+    torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+# The RWKV6 kernel (csrc/rwkv6_scan.cu) gives each value column's N key
+# rows to 4 lanes of N / 4 rows and sums y_j in one serial chain over the
+# rows, passed lane to lane: the order of ref.rwkv6_scan_split_ref. It
+# keeps the state bit-equal to the twin (each state element is still
+# updated by one multiply and one add, rounded on their own) and y within
+# chip_smoke.py's tolerances: float32 1e-5 (1 + |twin|), bf16 2 ulps.
+# chip_smoke.py's shapes, the time axis cut for the CPU.
+@pytest.mark.parametrize("shape", [(4, 40, 1, 64), (2, 40, 24, 64),
+                                   (1, 40, 33, 64), (2, 4, 40, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_split_emulation(shape, dtype, with_s0):
+    B, H, T, N = shape
+    rng = np.random.default_rng(T * N + with_s0)
+    td = getattr(torch, dtype)
+    r, k, v = (_t(_rand(rng, *shape) * 0.5).to(td) for _ in range(3))
+    w = torch.exp(-torch.exp(_t(_rand(rng, *shape)) - 1))
+    u = _t(_rand(rng, H, N)) * 0.1
+    s0 = _t(_rand(rng, B, H, N, N)) if with_s0 else None
+    got, got_s = ref.rwkv6_scan_split_ref(r, k, v, w, u, s0)
+    want, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    assert got.dtype == td and got.shape == want.shape
+    torch.testing.assert_close(got_s, want_s, atol=0, rtol=0)
+    if dtype == "float32":
+        diff = (got - want).abs()
+        assert bool((diff <= 1e-5 * (1 + want.abs())).all())
+    else:
+        assert _bf16_ulps(got, want) <= _TOL_ULPS
+
+
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_serial_emulation_is_one_chain(T, with_s0):
+    """The emulation adds the terms r_i (S_ij + u_i k_i v_j) of a step one
+    by one from 0 in float32, i = 0 .. N - 1: the kernel's chain, checked
+    element by element in numpy, at a decode step and over a prompt, from
+    zeros and from a carried state."""
+    rng = np.random.default_rng(5 + T + 2 * with_s0)
+    B, H, N = 1, 2, 8
+    r, k, v = (_rand(rng, B, H, T, N) for _ in range(3))
+    w = np.exp(-np.exp(_rand(rng, B, H, T, N) - 1)).astype(np.float32)
+    u = _rand(rng, H, N) * np.float32(0.1)
+    s0 = _rand(rng, B, H, N, N) if with_s0 else None
+    got, _ = ref.rwkv6_scan_split_ref(
+        *(_t(a) for a in (r, k, v, w, u)), None if s0 is None else _t(s0))
+    S = s0.copy() if with_s0 else np.zeros((B, H, N, N), np.float32)
+    for t in range(T):
+        kv = k[0, :, t, :, None] * v[0, :, t, None, :]          # (H, N, N)
+        term = r[0, :, t, :, None] * (S[0] + u[:, :, None] * kv)
+        acc = np.zeros((H, N), np.float32)
+        for i in range(N):
+            acc = acc + term[:, i]
+        np.testing.assert_array_equal(got[0, :, t].numpy(), acc)
+        S = (w[0, :, t, :, None] * S[0] + kv)[None]
+
+
 def test_flash_wrapper_takes_twin_on_cpu():
     rng = np.random.default_rng(9)
     q, k, v = (_t(_rand(rng, 1, 4, 12, 16)), _t(_rand(rng, 1, 2, 12, 16)),
