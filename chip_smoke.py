@@ -20,12 +20,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bf16 and f16 (the tensor-core kernel; block sizes 16, 4 and
              2048; NaN / inf in the masked pool slots) and in float32 and
              with int8 / fp8 pools (the CUDA-core kernel), svrg_update at
-             2^20, an odd tail and an unaligned view, rglru_scan at 2 x
-             512, 1 x 2304 and 4 x 1 by 2560 channels (float32 bit-equal),
+             2^20, an odd tail and an unaligned view, rglru_scan through
+             both its kernels (the bulk kernel at 2 x 512, 1 x 2304, 4 x
+             64 and the chunk edges T = 64 / 65; the direct kernel at
+             decode's 4 and 8 x 1, T = 63 and 0, C = 2561 and 13 and an
+             unaligned view; C = 2560 unless named; float32, bf16 and f16
+             bit-equal to the twin, the kernel and blocks named per arm),
              rwkv6_scan at 4 x 40 x 1 x 64 (a decode step), 2 x 40 x 512 x
-             64, 1 x 40 x 2048 x 64 and 2 x 4 x 40 x 16 with and without a
-             carried state (its state bit-equal to the twin, its y to the
-             split emulation of its order), float32 and bf16;
+             64, 1 x 40 x 2048 x 64 and 2 x 4 x 40 x 16, and padded to a
+             multiple of 8 at 2 x 4 x 40 x 12 / 60 and an unaligned 64
+             view, with and without a carried state (its state bit-equal
+             to the twin, its y to the split emulation of its order),
+             float32 and bf16;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
@@ -69,7 +75,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the JAX package's own gaps, measured by
              benchmarks/torch_rwkv6_bf16_reference.py);
      serve_cli_rwkv6  the naive serve CLI for rwkv6-3b at full width;
-  9. timings kernel / twin / library device time (torch.profiler) and
+  9. timings kernel / twin / library device time (torch.profiler; where
+             no profiler window holds every call's kernels, CUDA events
+             around calls queued behind a spin kernel) and
              wall time on phase 2's inputs, then one profiled window of
              engine decode steps, one profiled MP-DSVRG outer step at
              d = 2^20 and profiled rwkv6-3b and recurrentgemma decode steps
@@ -186,7 +194,7 @@ def _time_ms(fn, reps=50, warmup=5):
     return a.elapsed_time(b) / reps
 
 
-def _device_ms(fn, reps=20, tries=5):
+def _device_ms(fn, reps=20, tries=2):
     """Device time per call: the summed duration of every GPU kernel the
     calls ran, from torch.profiler (CUPTI), so host launch overhead is
     excluded. Every call launches the same kernels, so a whole window sees
@@ -233,10 +241,43 @@ def _profiled(window, tries=3):
                          f"{tries} windows")
 
 
+def _spaced_ms(fn, reps, wall_ms):
+    """Device time per call from CUDA events around `reps` calls queued
+    behind a spin kernel (torch.cuda._sleep) that outlasts their host-side
+    launch, so the card runs them back to back and the events time its
+    own work only. None where the launches outran the spin (host gaps
+    would then count) or would take over 200 ms to queue."""
+    if reps * wall_ms > 200:
+        return None
+    fn()
+    torch.cuda.synchronize()
+    s0, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    s0.record()
+    torch.cuda._sleep(int((2 * reps * wall_ms + 1) * 2e6))  # <= 2 GHz
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    e1.synchronize()
+    if s0.elapsed_time(e0) <= queued_ms:
+        return None
+    return e0.elapsed_time(e1) / reps
+
+
 def _times(fn, reps=20):
-    """(device ms per call, wall ms per call): the kernels' own time and
-    the host-visible time of back-to-back calls (CUDA events)."""
-    return _device_ms(fn, reps), _time_ms(fn, reps)
+    """(device ms per call, wall ms per call, how the device time was
+    taken): the kernels' own time from torch.profiler, or where no
+    profiler window held every call's kernels from CUDA events behind a
+    spin kernel ("spaced"), else None; and the host-visible time of
+    back-to-back calls (CUDA events)."""
+    dev = _device_ms(fn, reps)
+    wall = _time_ms(fn, reps)
+    if dev is not None:
+        return dev, wall, "profiler"
+    dev = _spaced_ms(fn, reps, wall)
+    return dev, wall, None if dev is None else "spaced"
 
 
 def _bound_ms(nbytes, flops, kind="bf16"):
@@ -323,10 +364,15 @@ def _check(name, got, want, tol_ulps=TOL_ULPS, f32_tol=None):
     """Kernel output against its twin's; returns (max abs error, max
     error in bf16 ulps of max(|twin|, ULP_FLOOR)). With f32_tol, every
     element must also be within f32_tol * (1 + |twin|)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)}, twin "
+                             f"{tuple(want.shape)}")
     diff = (got.float() - want.float()).abs()
     _, e = torch.frexp(want.float().abs().clamp_min(ULP_FLOOR))
-    ulps = (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
-    err = diff.max().item()
+    # an empty output (T = 0) has no element to differ
+    ulps = (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item() \
+        if diff.numel() else 0.0
+    err = diff.max().item() if diff.numel() else 0.0
     ok = ulps <= tol_ulps and bool(torch.isfinite(got).all())
     if f32_tol is not None:
         ok = ok and bool((diff <= f32_tol * (1 + want.float().abs())).all())
@@ -659,53 +705,91 @@ def phase_kernels(dev):
         **worst(arms, f"float32 {SVRG_TOL_F32} (1 + |twin|); bf16 "
                       f"{SVRG_TOL_ULPS} ulp")))
 
-    # -- rglru_scan at recurrentgemma-2b's width (rnn_width 2560): a
-    # prefill of 2 x 512, lm.forward's 1 x 2304, and a decode step of 4
-    # lanes (T = 1, the carried state as h0); float32 (the model's own
-    # inputs: its gates are float32) bit-equal to the twin, bf16 within
-    # the ulp tolerance; h_T bit-equal in every arm
+    # -- rglru_scan at recurrentgemma-2b's width (rnn_width 2560), through
+    # both kernels of csrc/rglru_scan.cu, the one kernels/rglru_scan.py's
+    # route picks from the shape and the pointers: the bulk kernel at a
+    # prefill of 2 x 512, lm.forward's 1 x 2304, generate()'s prefill of 4
+    # x 64 and the chunk edges T = 64 / 65; the direct kernel at a decode
+    # step of 4 and 8 lanes (T = 1), under a chunk (T = 63), at T = 0 (h_T
+    # = h0), at rows that are not 16-byte multiples (C = 2561, 13) and at a
+    # view one element into its buffer. float32 (the model's own inputs:
+    # its gates are float32), bf16 and f16; h_seq and h_T bit-equal to the
+    # twin in every arm
     arms = []
     C = 2560
-    for B_, T_ in ((2, 512), (1, 2304), (4, 1)):
-        for dt in (torch.float32, bf):
+
+    def on_card(t, offset):
+        """t `offset` elements into a larger buffer: a contiguous view,
+        16-byte aligned only where offset * itemsize is a multiple of
+        16."""
+        buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=dev)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def rg_inputs(B_, T_, C_, dt=torch.float32, with_h0=True, offset=0):
+        a_ = torch.sigmoid(rn(B_, T_, C_, dt=torch.float32) * 2).to(dt)
+        x_ = (rn(B_, T_, C_, dt=torch.float32) * 0.3).to(dt)
+        h0 = rn(B_, C_, dt=torch.float32) if with_h0 else None
+        return on_card(a_, offset), on_card(x_, offset), h0
+
+    def rg_launch(a_):
+        """(the kernel the route picks, blocks it launches)."""
+        return rglru_scan.plan(a_[0], a_[1])
+
+    for B_, T_, C_, off in ((2, 512, C, 0), (1, 2304, C, 0), (4, 64, C, 0),
+                            (1, 64, C, 0), (1, 65, C, 0), (4, 1, C, 0),
+                            (8, 1, C, 0), (1, 63, C, 0), (2, 0, C, 0),
+                            (2, 100, 2561, 0), (2, 100, 13, 0),
+                            (1, 100, 2564, 0), (2, 512, C, 1)):
+        for dt in (torch.float32, bf, torch.float16):
             for with_h0 in (False, True):
-                a_ = torch.sigmoid(rn(B_, T_, C, dt=torch.float32) * 2
-                                   ).to(dt)
-                x_ = (rn(B_, T_, C, dt=torch.float32) * 0.3).to(dt)
-                h0 = rn(B_, C, dt=torch.float32) if with_h0 else None
-                got, got_h = rglru_scan(a_, x_, h0)
-                want, want_h = ref.rglru_scan_ref(a_, x_, h0)
-                name = (f"rglru_scan {B_}x{T_}x{C} {dt} "
-                        f"h0={'yes' if with_h0 else 'no'}")
-                tol = (dict(f32_tol=0.0) if dt == torch.float32
-                       else dict(tol_ulps=TOL_ULPS))
-                arm(arms, name, got, want, **tol)
+                a_ = rg_inputs(B_, T_, C_, dt, with_h0, off)
+                got, got_h = rglru_scan(*a_)
+                want, want_h = ref.rglru_scan_ref(*a_)
+                k_, nb = rg_launch(a_)
+                name = (f"rglru_scan {B_}x{T_}x{C_} {dt} "
+                        f"h0={'yes' if with_h0 else 'no'}"
+                        + (f" offset {off}" if off else "")
+                        + f" ({k_} kernel, {nb} blocks)")
+                arm(arms, name, got, want, f32_tol=0.0)
                 arm(arms, name + " h_T", got_h, want_h, f32_tol=0.0)
+
+    def rg_bound(a_):
+        # two reads, one write per element, plus h0 read and h_T written;
+        # a multiply and an add per element
+        return _bound_ms(3 * _nbytes(a_[0]) + 2 * _nbytes(a_[2]),
+                         2 * a_[0].numel(), "f32")
+
+    def rg_timed(label, a_, reps=20):
+        b_ = rg_bound(a_)
+        k_, nb = rg_launch(a_)
+        return dict(label=f"{label}, {k_} kernel", kernel=k_, blocks=nb,
+                    _fns=(lambda: rglru_scan(*a_),
+                          lambda: ref.rglru_scan_ref(*a_), None),
+                    bound_ms=b_[0], bound_by=b_[1], _reps=reps)
+
     # the decode step's shape, where 1728 of a generate() run's launches
-    # go; two reads, one write per element, plus h0 read and h_T written
-    dec = (torch.sigmoid(rn(4, 1, C, dt=torch.float32)),
-           rn(4, 1, C, dt=torch.float32), rn(4, C, dt=torch.float32))
-    bound, by = _bound_ms(3 * _nbytes(dec[0]) + 2 * _nbytes(dec[2]),
-                          2 * dec[0].numel(), "f32")
-    fw = (torch.sigmoid(rn(1, 2304, C, dt=torch.float32)),
-          rn(1, 2304, C, dt=torch.float32), rn(1, C, dt=torch.float32))
-    fwb = _bound_ms(3 * _nbytes(fw[0]) + 2 * _nbytes(fw[2]),
-                    2 * fw[0].numel(), "f32")
+    # go; the prompt shapes beside it. The twin is a host loop of T steps:
+    # 3 timed calls, not 20, at the long prompts
+    dec = rg_inputs(4, 1, C)
+    k_dec, nb_dec = rg_launch(dec)
+    bound, by = rg_bound(dec)
     out.append(dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:44",
         _fns=(lambda: rglru_scan(*dec), lambda: ref.rglru_scan_ref(*dec),
               None),
-        bound_ms=bound, bound_by=by, shape=dict(B=4, T=1, C=C,
-                                                dtype="float32"),
-        # the twin is a 2304-step host loop: 3 timed calls, not 20
-        _extra=[dict(label=f"1 x 2304 x {C} float32 (lm.forward)",
-                     _fns=(lambda: rglru_scan(*fw),
-                           lambda: ref.rglru_scan_ref(*fw), None),
-                     bound_ms=fwb[0], bound_by=fwb[1], _reps=3)],
-        **worst(arms, f"float32 bit-equal; bf16 {TOL_ULPS} bf16 ulps; "
-                      f"h_T bit-equal")))
+        bound_ms=bound, bound_by=by, kernel=k_dec, blocks=nb_dec,
+        shape=dict(B=4, T=1, C=C, dtype="float32"),
+        _extra=[rg_timed(f"1 x 2304 x {C} float32 (lm.forward)",
+                         rg_inputs(1, 2304, C), 3),
+                rg_timed(f"2 x 512 x {C} float32", rg_inputs(2, 512, C), 3),
+                rg_timed(f"4 x 64 x {C} float32 (generate()'s prefill)",
+                         rg_inputs(4, 64, C))],
+        **worst(arms, "h_seq and h_T bit-equal to the twin (float32, "
+                      "bf16, f16)")))
 
     # -- the attention kernels at the other head dims the configs have: 16
     # (every .reduced(): the serve CLI's defaults), 80 (stablelm-3b) and,
@@ -762,32 +846,41 @@ def phase_kernels(dev):
 
     # -- rwkv6_scan at rwkv6-3b's width (40 heads of 64): a decode step of
     # 4 lanes (T = 1 from the carried state), a prefill of 2 x 512 and
-    # lm.forward's 1 x 2048; and the reduced model's 2 x 4 x 40 x 16; r / k /
-    # v float32 and bf16, w and u float32, with and without s0. y within
-    # float32 RWKV_TOL_F32 (1 + |twin|) or TOL_ULPS bf16 ulps (only the
-    # order of the sum over the key channel differs) and bit-equal to
+    # lm.forward's 1 x 2048; and the reduced model's 2 x 4 x 40 x 16; then
+    # the padded path (kernels/rwkv6_scan.py:pad_head_dim) at 2 x 4 x 40 x
+    # N for head dims that are not a multiple of 8 (N = 12, 60) and for a
+    # view one element into its buffer (N = 64); r / k / v float32 and
+    # bf16, w and u float32, with and without s0. y within float32
+    # RWKV_TOL_F32 (1 + |twin|) or TOL_ULPS bf16 ulps (only the order of
+    # the sum over the key channel differs) and bit-equal to
     # ref.rwkv6_scan_split_ref, which sums in the kernel's order;
     # S_T bit-equal
     arms = []
 
-    def rwkv_inputs(shape, dt, with_s0):
+    def rwkv_inputs(shape, dt, with_s0, offset=0):
         B_, H_, _, N_ = shape
-        r_, k_, v_ = (rn(*shape, dt=torch.float32).mul(0.5).to(dt)
-                      for _ in range(3))
-        w_ = torch.exp(-torch.exp(rn(*shape, dt=torch.float32) - 1))
+        r_, k_, v_ = (on_card(rn(*shape, dt=torch.float32).mul(0.5).to(dt),
+                              offset) for _ in range(3))
+        w_ = on_card(torch.exp(-torch.exp(rn(*shape, dt=torch.float32)
+                                          - 1)), offset)
         u_ = rn(H_, N_, dt=torch.float32) * 0.1
         s0_ = rn(B_, H_, N_, N_, dt=torch.float32) if with_s0 else None
         return r_, k_, v_, w_, u_, s0_
 
-    for shape in ((4, 40, 1, 64), (2, 40, 512, 64), (1, 40, 2048, 64),
-                  (2, 4, 40, 16)):
+    for shape, off in (((4, 40, 1, 64), 0), ((2, 40, 512, 64), 0),
+                       ((1, 40, 2048, 64), 0), ((2, 4, 40, 16), 0),
+                       ((2, 4, 40, 12), 0), ((2, 4, 40, 60), 0),
+                       ((2, 4, 40, 64), 1)):
         for dt in (torch.float32, bf):
             for with_s0 in (False, True):
-                a_ = rwkv_inputs(shape, dt, with_s0)
+                a_ = rwkv_inputs(shape, dt, with_s0, off)
                 got, got_s = rwkv6_scan(*a_)
                 want, want_s = ref.rwkv6_scan_ref(*a_)
                 name = (f"rwkv6_scan {'x'.join(map(str, shape))} {dt} "
-                        f"s0={'yes' if with_s0 else 'no'}")
+                        f"s0={'yes' if with_s0 else 'no'}"
+                        + (f" offset {off} (padded copy)" if off else "")
+                        + (" (padded to a multiple of 8)"
+                           if shape[-1] % 8 else ""))
                 tol = (dict(f32_tol=RWKV_TOL_F32) if dt == torch.float32
                        else dict(tol_ulps=TOL_ULPS))
                 arm(arms, name, got, want, **tol)
@@ -805,15 +898,20 @@ def phase_kernels(dev):
                          7 * B_ * H_ * T_ * N_ * N_, "f32")
 
     def rwkv_blocks(a_):
-        """Blocks the launch takes: 16 value columns of one head each."""
+        """Blocks the launch takes: 16 value columns of one head each, of
+        the head dim padded to a multiple of 8."""
         B_, H_, _, N_ = a_[0].shape
-        return B_ * H_ * -(-N_ // 16)
+        return B_ * H_ * -(-(-(-N_ // 8) * 8) // 16)
 
     step = rwkv_inputs((4, 40, 1, 64), bf, True)
     extra = []
-    for shape, what in (((1, 40, 2048, 64), " (lm.forward)"),
-                        ((2, 40, 512, 64), "")):
-        a_ = rwkv_inputs(shape, bf, True)
+    for shape, off, what in (
+            ((1, 40, 2048, 64), 0, " (lm.forward)"),
+            ((2, 40, 512, 64), 0, ""),
+            ((2, 4, 40, 16), 0, " (the reduced model's, aligned)"),
+            ((2, 4, 40, 12), 0, " (padded to 16)"),
+            ((2, 4, 40, 64), 1, " offset 1 (a padded copy)")):
+        a_ = rwkv_inputs(shape, bf, True, off)
         b_ = rwkv_bound(a_)
         # the twin is a host loop of T steps: 3 timed calls, not 20
         extra.append(dict(label=f"{' x '.join(map(str, shape))} bf16, w "
@@ -821,7 +919,8 @@ def phase_kernels(dev):
                           blocks=rwkv_blocks(a_),
                           _fns=(lambda a=a_: rwkv6_scan(*a),
                                 lambda a=a_: ref.rwkv6_scan_ref(*a), None),
-                          bound_ms=b_[0], bound_by=b_[1], _reps=3))
+                          bound_ms=b_[0], bound_by=b_[1],
+                          _reps=3 if shape[2] > 40 else 20))
     bound, by = rwkv_bound(step)
     out.append(dict(
         name="rwkv6_scan", route="cuda",
@@ -850,10 +949,12 @@ def phase_timings(kern):
             if fn is None:
                 r[key], r[wall_key] = None, None
                 continue
-            dev_ms, r[wall_key] = _times(fn, reps)
+            dev_ms, r[wall_key], how = _times(fn, reps)
+            if how == "spaced":
+                r.setdefault("spaced_timed", []).append(key)
             if dev_ms is None:
-                # no profiler window held every call's kernels: CUDA-event
-                # time of back-to-back calls stands in, and the record says so
+                # no device time could be taken: CUDA-event time of
+                # back-to-back calls stands in, and the record says so
                 r.setdefault("event_timed", []).append(key)
                 dev_ms = r[wall_key]
             r[key] = dev_ms
@@ -862,8 +963,12 @@ def phase_timings(kern):
                 f"; library {r['library_ms']}; bound {r['bound_ms']:.5f} by "
                 f"{r['bound_by']}"
                 + (f"; {r['blocks']} blocks" if "blocks" in r else "")
-                + (f"; CUDA-event time for {r['event_timed']} (no profiler "
-                   f"window held every call's kernels)"
+                + (f", {r['kernel']} kernel" if "kernel" in r else "")
+                + (f"; device time from CUDA events behind a spin kernel "
+                   f"for {r['spaced_timed']} (no profiler window held every "
+                   f"call's kernels)" if r.get("spaced_timed") else "")
+                + (f"; CUDA-event time of back-to-back calls for "
+                   f"{r['event_timed']} (no device time could be taken)"
                    if r.get("event_timed") else ""))
 
     for r in kern:

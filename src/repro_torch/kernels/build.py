@@ -64,7 +64,7 @@ SIGNATURES = {
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
     "flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [_F, _P],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
-    "rglru_scan": [_P] * 5 + [_I] * 4 + [_P],
+    "rglru_scan": [_P] * 5 + [_I] * 5 + [_P],
     "rwkv6_scan": [_P] * 8 + [_I] * 5 + [_P],
 }
 

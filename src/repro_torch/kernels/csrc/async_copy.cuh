@@ -1,6 +1,7 @@
-// Hopper's asynchronous copies into shared memory, for the attention
-// kernels: mbarriers, and the Tensor Memory Accelerator (TMA) copies that
-// complete on them (a whole tile from a tensor map, or one contiguous row).
+// Hopper's asynchronous copies into shared memory: mbarriers, the Tensor
+// Memory Accelerator (TMA) copies that complete on them (a whole tile from
+// a tensor map, or one contiguous row), and 16-byte cp.async copies whose
+// completion a thread signals on one (cp_async_arrive).
 //
 // Protocol: one thread inits a barrier (count 1) and fences the init;
 // per use, one thread arms it with the bytes to come (expect_tx), the
@@ -57,6 +58,27 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
 // async-proxy writes to the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16 bytes from device memory into shared memory by this thread (an
+// Ampere-style cp.async through the L2 only; both ends 16-byte aligned).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+// arrive on bar once every cp.async this thread issued before has landed;
+// the arrival is one of the count the barrier was initialised with
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait until every cp.async this thread issued has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // The box of a 4-D tensor map at coordinates (x, y, z, w) into dst.

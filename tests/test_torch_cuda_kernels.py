@@ -250,18 +250,43 @@ def test_paged_attention_group10_hd256_matches_twin(cuda, dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("B,T", [(2, 512), (4, 1), (1, 13)])
+def _on_card(t, offset):
+    """t copied to the card, `offset` elements into a larger buffer: a
+    contiguous view that is 16-byte aligned only where offset * itemsize
+    is a multiple of 16."""
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device="cuda")
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# both kernels of csrc/rglru_scan.cu: the bulk kernel (T >= 64, rows of
+# 16-byte multiples at aligned addresses) at its chunk edges 64 / 65, at
+# lm.forward's 1 x 2304 and at C = 2564 in float32 (a last tile of 4
+# channels); the direct
+# kernel at decode (B = 4, 8), under a chunk (13, 63), at odd widths
+# (2561, 13; 2564 in 16-bit), at a view one element into its buffer, and
+# at T = 0 (h_T = h0)
+@pytest.mark.parametrize("B,T,C,offset", [
+    (2, 512, 2560, 0), (4, 1, 2560, 0), (1, 13, 2560, 0), (1, 63, 2560, 0),
+    (1, 64, 2560, 0), (1, 65, 2560, 0), (1, 2304, 2560, 0),
+    (2, 100, 2561, 0), (2, 100, 13, 0), (2, 100, 2560, 1), (2, 0, 2560, 0),
+    (8, 1, 2560, 0), (1, 100, 2564, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("with_h0", [False, True])
-def test_rglru_scan_bit_equal_to_twin(cuda, B, T, dtype, with_h0):
+def test_rglru_scan_bit_equal_to_twin(cuda, B, T, C, offset, dtype,
+                                      with_h0):
     """Kernel and twin round each step's multiply and add on their own in
-    float32 and round h_seq once to x's dtype: equal bits."""
-    rng = np.random.default_rng(B * T)
-    C = 2560
-    a = torch.sigmoid(_rand(rng, B, T, C, dev=cuda) * 2).to(dtype)
-    x = (_rand(rng, B, T, C, dev=cuda) * 0.3).to(dtype)
+    float32 and round h_seq once to x's dtype: equal bits, whichever
+    kernel the route picks."""
+    rng = np.random.default_rng(B * T + C + offset)
+    a = _on_card(torch.sigmoid(_rand(rng, B, T, C) * 2).to(dtype), offset)
+    x = _on_card((_rand(rng, B, T, C) * 0.3).to(dtype), offset)
     h0 = _rand(rng, B, C, dev=cuda) if with_h0 else None
+    kernel, _ = rglru_scan.plan(a, x)
+    assert kernel == ("bulk" if T >= 64 and offset == 0
+                      and C * dtype.itemsize % 16 == 0 else "direct")
     before = rglru_scan.launches
     got, got_h = rglru_scan(a, x, h0)
     torch.cuda.synchronize()
@@ -391,6 +416,34 @@ def test_rwkv6_scan_raises_on_bad_inputs(cuda):
     with pytest.raises(ValueError):                     # u on the CPU
         rwkv6_scan(r, r, r, w, u.cpu())
     assert rwkv6_scan.launches == before
+
+
+@pytest.mark.parametrize("N,offset", [(1, 0), (12, 0), (60, 0), (64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_scan_pads_any_head_dim(cuda, N, offset, dtype, with_s0):
+    """Head dims that are not a multiple of 8, and inputs that are not
+    16-byte aligned (a view one element into its buffer), go through
+    pad_head_dim and the same kernel: S_T bit for bit the twin's, y bit for
+    bit the split emulation's on the unpadded inputs; one launch."""
+    B, H, T = 2, 4, 40
+    shape = (B, H, T, N)
+    rng = np.random.default_rng(N + offset + with_s0)
+    r, k, v = (_on_card(_rand(rng, *shape).mul(0.5).to(dtype), offset)
+               for _ in range(3))
+    w = _on_card(torch.exp(-torch.exp(_rand(rng, *shape) - 1)), offset)
+    u = _rand(rng, H, N, dev=cuda) * 0.1
+    s0 = _rand(rng, B, H, N, N, dev=cuda) if with_s0 else None
+    before = rwkv6_scan.launches
+    got, got_s = rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    assert got.shape == shape and got_s.shape == (B, H, N, N)
+    assert got.is_contiguous() and got_s.is_contiguous()
+    want, _ = ref.rwkv6_scan_split_ref(r, k, v, w, u, s0)
+    _, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(got_s, want_s, atol=0, rtol=0)
 
 
 # ----------------------------------------------------------------------------

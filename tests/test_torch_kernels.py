@@ -29,6 +29,7 @@ from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
                                  paged_prefill_attention, ref, svrg_update)
 from repro_torch.kernels import rglru_scan  # noqa: E402
 from repro_torch.kernels.build import FLASH_KEY_TILE, PAGED_CHUNK  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import pad_head_dim  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -455,6 +456,59 @@ def test_rwkv6_serial_emulation_is_one_chain(T, with_s0):
         S = (w[0, :, t, :, None] * S[0] + kv)[None]
 
 
+# A head dim that is not a multiple of 8 (or an input that is not 16-byte
+# aligned) reaches the RWKV6 kernel through pad_head_dim: r, k, v, u and s0
+# padded with zeros, w with ones, to the next multiple of 8, then y and S_T
+# sliced back. The padded key rows add exact zeros at the end of y's
+# serial chain and their state rows stay zero, so the kernel's order
+# (rwkv6_scan_split_ref) and the state give the unpadded call's bits. The
+# twin's y is an einsum, whose float32 sums are blocked by length, so
+# padded it keeps only the kernel's tolerance: float32 1e-5 (1 + |twin|),
+# bf16 2 ulps. The sliced result also matches the JAX oracle, which takes
+# any N up to 64.
+@pytest.mark.parametrize("N", [1, 12, 60])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_pad_head_dim_keeps_the_bits(N, dtype, with_s0):
+    B, H, T = 2, 4, 40
+    rng = np.random.default_rng(N + 100 * with_s0)
+    td = getattr(torch, dtype)
+    r, k, v = (_t(_rand(rng, B, H, T, N) * 0.5).to(td) for _ in range(3))
+    w = torch.exp(-torch.exp(_t(_rand(rng, B, H, T, N)) - 1))
+    u = _t(_rand(rng, H, N)) * 0.1
+    s0 = _t(_rand(rng, B, H, N, N)) if with_s0 else None
+    args = (r, k, v, w, u, s0)
+    padded = pad_head_dim(*args)
+    P = -(-N // 8) * 8
+    assert padded[0].shape == (B, H, T, P) and padded[4].shape == (H, P)
+    assert (padded[5] is None) == (s0 is None)
+    assert bool((padded[3][..., N:] == 1).all())
+    assert all(bool((t[..., N:] == 0).all()) for t in padded[:3] + padded[4:5])
+    if s0 is not None:
+        assert padded[5].shape == (B, H, P, P)
+        assert not padded[5][..., N:, :].any() and not padded[5][..., N:].any()
+    want, want_s = ref.rwkv6_scan_split_ref(*args)
+    got, got_s = ref.rwkv6_scan_split_ref(*padded)
+    torch.testing.assert_close(got[..., :N], want, atol=0, rtol=0)
+    torch.testing.assert_close(got_s[..., :N, :N], want_s, atol=0, rtol=0)
+    assert not got_s[..., N:, :].any()               # padded rows stay zero
+    twin, twin_s = ref.rwkv6_scan_ref(*args)
+    ptwin, ptwin_s = ref.rwkv6_scan_ref(*padded)
+    torch.testing.assert_close(ptwin_s[..., :N, :N], twin_s, atol=0, rtol=0)
+    if dtype == "float32":
+        diff = (ptwin[..., :N] - twin).abs()
+        assert bool((diff <= 1e-5 * (1 + twin.abs())).all())
+        jy, js = jref.rwkv6_ref(
+            *(jnp.asarray(a.numpy()) for a in (r, k, v, w, u)),
+            None if s0 is None else jnp.asarray(s0.numpy()))
+        np.testing.assert_allclose(got[..., :N].numpy(), np.asarray(jy),
+                                   **TOL)
+        np.testing.assert_allclose(got_s[..., :N, :N].numpy(),
+                                   np.asarray(js), **TOL)
+    else:
+        assert _bf16_ulps(ptwin[..., :N], twin) <= _TOL_ULPS
+
+
 def test_flash_wrapper_takes_twin_on_cpu():
     rng = np.random.default_rng(9)
     q, k, v = (_t(_rand(rng, 1, 4, 12, 16)), _t(_rand(rng, 1, 2, 12, 16)),
@@ -588,3 +642,53 @@ def test_rglru_wrapper_refuses_other_devices():
     a = torch.zeros(1, 4, 16, device="meta")
     with pytest.raises(ValueError):
         rglru_scan(a, a)
+
+
+# csrc/rglru_scan.cu has two kernels, one launch a call: the bulk kernel
+# (32-channel tiles, time chunks of 64 staged by bulk copies, whose rows
+# must be 16-byte multiples at 16-byte aligned addresses) and the direct
+# kernel (a thread per channel). The wrapper picks one from the shape and
+# the pointers before the launch; on the card both give the twin's bits
+# (tests/test_torch_cuda_kernels.py::test_rglru_scan_bit_equal_to_twin).
+@pytest.mark.parametrize("B,T,C,dtype,offset,kernel", [
+    (1, 2304, 2560, "float32", 0, "bulk"),     # lm.forward, 80 blocks
+    (2, 512, 2560, "bfloat16", 0, "bulk"),
+    (4, 64, 2560, "float32", 0, "bulk"),       # generate()'s prefill
+    (1, 65, 2560, "float16", 0, "bulk"),
+    (1, 63, 2560, "float32", 0, "direct"),     # under one chunk
+    (4, 1, 2560, "float32", 0, "direct"),      # a decode step
+    (8, 1, 2560, "bfloat16", 0, "direct"),
+    (1, 0, 2560, "float32", 0, "direct"),
+    (1, 2304, 13, "float32", 0, "direct"),     # rows not 16-byte multiples
+    (1, 2304, 2561, "float32", 0, "direct"),
+    (1, 2304, 2564, "float32", 0, "bulk"),     # 10256-byte rows
+    (1, 2304, 2564, "bfloat16", 0, "direct"),  # 5128-byte rows
+    (1, 2304, 2568, "bfloat16", 0, "bulk"),
+    (1, 2304, 2560, "float32", 4, "direct"),   # a view one element in
+    (1, 2304, 2560, "bfloat16", 8, "direct"),
+    (1, 2304, 2560, "bfloat16", 16, "bulk"),   # eight elements in
+])
+def test_rglru_scan_route(B, T, C, dtype, offset, kernel):
+    td = getattr(torch, dtype)
+    base = 1 << 20                                  # an aligned allocation
+    assert rglru_scan.route(B, T, C, td, base + offset, base,
+                            base) == kernel
+    assert rglru_scan.route(B, T, C, td, base, base + offset,
+                            base) == kernel
+    tile = -(-C // 32)
+    assert rglru_scan.blocks(B, C, kernel) == (
+        B * tile if kernel == "bulk" else -(-B * C // 128))
+
+
+def test_rglru_scan_route_of_a_view():
+    """A view at an element offset of a contiguous buffer is contiguous
+    but not 16-byte aligned: the direct kernel takes it."""
+    buf = torch.zeros(1 + 2 * 64 * 32)
+    view = buf[1:].view(2, 64, 32)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    whole = torch.zeros(2, 64, 32)
+    assert rglru_scan.route(2, 64, 32, torch.float32, view.data_ptr(),
+                            whole.data_ptr(), whole.data_ptr()) == "direct"
+    assert rglru_scan.route(2, 64, 32, torch.float32, whole.data_ptr(),
+                            whole.data_ptr(), whole.data_ptr()) == "bulk"
+    assert rglru_scan.blocks(2, 32, "bulk") == 2
