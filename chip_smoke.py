@@ -31,7 +31,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              multiple of 8 at 2 x 4 x 40 x 12 / 60 and an unaligned 64
              view, with and without a carried state (its state bit-equal
              to the twin, its y to the split emulation of its order),
-             float32 and bf16;
+             float32 and bf16; and flash, paged_prefill and paged decode
+             on bf16 views one element off a 16-byte boundary (copied
+             before their TMA reads), bit-equal to the aligned call;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
@@ -56,7 +58,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (X is 4 GiB a step on the card): wall time, launches, each
              step's prox subproblem solved to a stated share of its gap,
              w_avg near the exact minibatch-prox path's, the closed-form
-             suboptimality reported;
+             suboptimality reported. Between them, the stochastic local
+             solvers and the baselines, each on the card and (in worker
+             processes) on the CPU over the same data: MP-DANE with SAGA
+             and prox-SVRG at the quickstart's widths (the plan's K, R,
+             kappa), Figure 3's arm (d = 32, m = 4, b = 64 / 256 / 1024,
+             SAGA, K = 1 / 4) and App. E's (logistic, b = 512, prox-SVRG,
+             K = 4) beside minibatch SGD, and the five baselines at the
+             JAX tests' sizes; iterates within 1e-5, equal ledgers and
+             plans, threefry index draws bit-equal on card and CPU, each
+             within its test's limit, MP-DANE below minibatch SGD at
+             b = 1024 / 512, DSVRG-ERM launching svrg_update K x n / m
+             times;
   7. recurrentgemma  full-width recurrentgemma-2b (26 layers, 2.9 B seeded
              random params, bf16): lm.forward on 1 x 2304 tokens (18
              rglru_scan + 8 flash_attention launches), generate() on 4 x
@@ -80,7 +93,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              around calls queued behind a spin kernel) and
              wall time on phase 2's inputs, then one profiled window of
              engine decode steps, one profiled MP-DSVRG outer step at
-             d = 2^20 and profiled rwkv6-3b and recurrentgemma decode steps
+             d = 2^20, one profiled MP-DANE SAGA round at the quickstart's
+             widths and profiled rwkv6-3b and recurrentgemma decode steps
              (device busy vs wall, top kernels).
 Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7 and 8
 (their forwards and generate() runs) and read just after, so the launches
@@ -392,7 +406,7 @@ def phase_kernels(dev):
     every arm must be within its tolerance; a kernel's max_abs_err and
     max_ulps are the largest over its arms."""
     import torch.nn.functional as F
-    from repro_torch.kernels import (flash_attention, paged_attention,
+    from repro_torch.kernels import (build, flash_attention, paged_attention,
                                      paged_prefill_attention, ref,
                                      rglru_scan, rwkv6_scan, svrg_update)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -417,6 +431,32 @@ def phase_kernels(dev):
         return dict(max_abs_err=max(a["max_abs_err"] for a in arms),
                     max_ulps=max(a["max_ulps"] for a in arms),
                     tolerance=tolerance, arms=arms)
+
+    def off16(t):
+        """t copied into a view one element into a fresh buffer: contiguous
+        and, in bf16, 2 bytes off a 16-byte boundary."""
+        v = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+        return v.view(t.shape).copy_(t)
+
+    def unaligned_arm(name, fn, twin, args, which, bound):
+        """fn with the inputs at positions `which` moved off a 16-byte
+        boundary: the wrapper copies them back (build.tma_copies), so the
+        result must be the aligned call's bit for bit. Returns the arm for
+        the timings phase; its time beside the aligned call's is what the
+        copies cost."""
+        moved = tuple(off16(a) if i in which else a
+                      for i, a in enumerate(args))
+        if not all(build.tma_copies(*(moved[i].data_ptr() for i in which))):
+            raise AssertionError(f"{name}: the views are 16-byte aligned")
+        if not torch.equal(fn(*moved), fn(*args)):
+            raise AssertionError(f"{name}: an unaligned view changed the "
+                                 f"result")
+        print(f"[kernels] {name}: inputs {which} one element off a 16-byte "
+              f"boundary give the aligned call's bits ok")
+        return dict(label=f"inputs {which} one bf16 element off a 16-byte "
+                          f"boundary (copied before the launch)",
+                    _fns=(lambda: fn(*moved), lambda: twin(*moved), None),
+                    bound_ms=bound[0], bound_by=bound[1])
 
     out = []
     # -- paged_attention: 8 slots, ragged ctx incl. 0, bf16 / int8 / fp8
@@ -483,6 +523,11 @@ def phase_kernels(dev):
                                      f"alone differs from its batch row")
         print(f"[kernels] paged_attention {name}: each row alone equals its "
               f"batch row bit for bit ok")
+    # q and both pools as views off a 16-byte boundary (the pools are
+    # copied whole before the TMA row gathers)
+    pa_unaligned = unaligned_arm("paged_attention B=8 bf16", paged_attention,
+                                 ref.paged_attention_ref, args, (0, 1, 2),
+                                 (bound, by))
     out.append(dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -491,7 +536,7 @@ def phase_kernels(dev):
               lambda a=args: ref.paged_attention_ref(*a), None),
         bound_ms=bound, bound_by=by,
         shape=dict(B=B, H=H, KV=KV, hd=hd, bs=bs, M=M, ctx=ctx.tolist()),
-        _extra=[rg_arm], **worst(arms)))
+        _extra=[rg_arm, pa_unaligned], **worst(arms)))
 
     # -- paged_prefill, at each shape the engine gives it: an admission of
     # 4 x 128 (a fresh prompt, a cached prefix, a long cached prefix and a
@@ -606,6 +651,11 @@ def phase_kernels(dev):
             paged_prefill_attention(*c, k_scale=sc[0], v_scale=sc[1]),
             ref.paged_prefill_ref(*c, *sc))
     bound, by = prefill_bound(args)
+    # the admission with q, the suffix and both pools off a 16-byte
+    # boundary: the wrapper copies all five before the TMA reads
+    pp_extra.append(unaligned_arm(
+        "paged_prefill 4x128 bf16", paged_prefill_attention,
+        ref.paged_prefill_ref, args, (0, 1, 2, 3, 4), (bound, by)))
     out.append(dict(
         name="paged_prefill", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_prefill.cu",
@@ -663,6 +713,9 @@ def phase_kernels(dev):
                           lambda: F.scaled_dot_product_attention(
                               *f128, is_causal=True, enable_gqa=True)),
                     bound_ms=fb128[0], bound_by=fb128[1])
+    fl_unaligned = unaligned_arm(
+        f"flash_attention 2x{S} causal bf16", flash_attention,
+        ref.flash_attention_ref, (q, k, v), (0, 1, 2), (bound, by))
     out.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -672,7 +725,8 @@ def phase_kernels(dev):
               lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=bound, bound_by=by,
-        shape=dict(B=2, H=H, KV=KV, S=S, hd=hd), _extra=[fl_arm, f128_arm],
+        shape=dict(B=2, H=H, KV=KV, S=S, hd=hd),
+        _extra=[fl_arm, f128_arm, fl_unaligned],
         **worst(arms)))
 
     # -- svrg_update: n = 64 (the core phase's paper-lsq width), n = 2^20
@@ -1607,6 +1661,279 @@ def _prox_gap(w, w_star, Xm, gamma):
                   + gamma * e.square().sum()).item()
 
 
+class LogisticStream:
+    """The App. E task (benchmarks/appendix_e_logistic.py) on the port's
+    stream: paper-lsq's features, labels the signs of the teacher's margin
+    with 5% of them flipped, all drawn from the caller's torch.Generator."""
+
+    def __init__(self, dim, seed=0):
+        from repro_torch.data.synthetic import LeastSquaresStream
+        self.dim = dim
+        self._base = LeastSquaresStream(dim=dim, noise=0.0, seed=seed)
+
+    def sample(self, generator, n):
+        X, _ = self._base.sample(generator, n)
+        sign = torch.where(X @ self._base.w_star(X.device) >= 0, 1.0, -1.0)
+        flip = torch.rand(n, generator=generator, device=X.device) < 0.05
+        return X, torch.where(flip, -sign, sign)
+
+    def sample_distributed(self, generator, m, b):
+        X, y = self.sample(generator, m * b)
+        return X.reshape(m, b, self.dim), y.reshape(m, b)
+
+    def population_logloss(self, w, n_eval=32768):
+        X, y = self.sample(torch.Generator(device=w.device).manual_seed(
+            10**6), n_eval)
+        return torch.logaddexp(torch.zeros((), device=w.device),
+                               -y * (X @ w)).mean().item()
+
+
+def _core_run(job, device):
+    """One run of a core arm on `device` over the arm's replayed data:
+    {seconds, iterates (MP-DANE's), w_avg, w_last, ledger, plan}."""
+    import importlib
+    from repro_torch.core import losses
+    mod, name = job["fn"].split(":")
+    kw = dict(job["kw"])
+    if "loss" in kw:
+        kw["loss"] = getattr(losses, kw["loss"])()
+    data = [(X.to(device), y.to(device)) for X, y in job["data"]]
+    stream = Replay(job["dim"], data)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = getattr(importlib.import_module(mod), name)(
+        stream, job["spec"], *job["args"], device=device, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    plan = getattr(res, "plan", None)
+    return {"seconds": time.perf_counter() - t0,
+            "iterates": getattr(res, "iterates", None), "w_avg": res.w_avg,
+            "w_last": res.w_last, "ledger": res.ledger.as_dict(),
+            "plan": None if plan is None else dataclasses.asdict(plan)}
+
+
+def _cpu_replica(job):
+    """A core arm's run on the CPU, in a worker process (spawned: it
+    imports this file anew), so the CPU replicas run beside the card's."""
+    torch.set_num_threads(1)
+    out = _core_run(job, "cpu")
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+def _index_draws(seed, T, R, K, steps, n, device):
+    """The example indices of the first DANE round of every outer step of
+    run_mp_dane(seed=...), keys and draws on `device`: the reference's
+    chain split(key, 3) -> ks, split(ks, R)[0], split(., K)[0], then
+    randint(., (steps,), 0, n). (T, steps) int64."""
+    from repro_torch import prng
+    key, out = prng.PRNGKey(seed, device=device), []
+    for _ in range(T):
+        key, _, ks = prng.split(key, 3)
+        kk = prng.split(prng.split(ks, R)[0], K)[0]
+        out.append(prng.randint(kk, (steps,), 0, n))
+    return torch.stack(out)
+
+
+def _core_arms(dev, stream, spec, draws):
+    """The inexact MP-DANE runs and the baselines, at the widths the
+    paper's own drivers use, each with its data drawn on the card first
+    (the same batches then replay to its CPU run):
+      - quickstart (examples/quickstart.py: paper-lsq, m = 8, b = 128,
+        T = 8, its `draws`): MP-DANE saga (the quickstart's eta_scale 0.1)
+        and prox_svrg (0.05, tests/test_core_distributed.py's), the plan's
+        K, R and kappa; each within Thm 7's inexact rate bound;
+      - Figure 3 (benchmarks/fig3_convergence.py: d = 32, m = 4,
+        n_local = 1024, b = 64 / 256 / 1024, T = 1024 / b): MP-DANE saga,
+        K = 1 and 4, R = 1, kappa = 0, eta_scale 0.1 (each within Thm 7's
+        bound), beside minibatch SGD on the same data;
+      - Appendix E (benchmarks/appendix_e_logistic.py, the test's b = 512,
+        T = 1): MP-DANE prox_svrg on logistic loss, K = 4, eta_scale 0.3,
+        beside minibatch SGD with the logistic loss;
+      - the baselines at tests/test_core_distributed.py's sizes and
+        limits (d = 16): minibatch SGD (< 0.1), accelerated (< 0.15),
+        single-machine SGD (< 0.05), DSVRG-ERM (< 0.05; svrg_update
+        launched K x n / m times), EMSO (one round a step).
+    Each arm: {name, fn, args, kw, spec, dim, data, check}, where check
+    reads the card's result."""
+    from repro_torch.core import losses, theory
+    from repro_torch.data.synthetic import LeastSquaresStream
+    arms = []
+    dane = "repro_torch.core.mp_dane:run_mp_dane"
+    base = "repro_torch.core.baselines:"
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def suboptimality(stream, limit):
+        def check(res):
+            sub = stream.population_suboptimality(res["w_avg"]).item()
+            return {"population_suboptimality": sub, "limit": limit,
+                    "ok": limit is None or sub <= limit}
+        return check
+
+    def spec_of(stream):
+        L, beta = losses.loss_constants(*stream.sample(gen(1), 4096),
+                                        radius=1.0)
+        return theory.ProblemSpec(L=L, beta=beta, B=1.0, dim=stream.dim)
+
+    m, b, T = draws[0][0].shape[0], draws[0][0].shape[1], len(draws)
+    thm7 = theory.rate_bound_weakly_convex(spec, m * b, T, exact=False)
+    for solver, eta in (("saga", 0.1), ("prox_svrg", 0.05)):
+        arms.append(dict(
+            name=f"quickstart mp_dane {solver}", fn=dane, args=(m, b, T),
+            kw=dict(local_solver=solver, eta_scale=eta), spec=spec,
+            dim=spec.dim, data=draws, check=suboptimality(stream, thm7)))
+
+    fig3 = LeastSquaresStream(dim=32, noise=0.1, seed=0)
+    fspec = spec_of(fig3)
+    for b in (64, 256, 1024):
+        T = 1024 // b
+        g = gen(0)
+        data = [fig3.sample_distributed(g, 4, b) for _ in range(T)]
+        bound = theory.rate_bound_weakly_convex(fspec, 4 * b, T, exact=False)
+        for K in (1, 4):
+            arms.append(dict(
+                name=f"fig3 b={b} mp_dane saga K={K}", fn=dane,
+                args=(4, b, T), kw=dict(K=K, R=1, kappa=0.0,
+                                        local_solver="saga", eta_scale=0.1),
+                spec=fspec, dim=32, data=data,
+                check=suboptimality(fig3, bound)))
+        arms.append(dict(name=f"fig3 b={b} minibatch_sgd",
+                         fn=base + "run_minibatch_sgd", args=(4, b, T),
+                         kw={}, spec=fspec, dim=32, data=data,
+                         check=suboptimality(fig3, None)))
+
+    logi = LogisticStream(32)
+    lspec = theory.ProblemSpec(L=2.0, beta=0.5, B=2.0, dim=32)
+    data = [logi.sample_distributed(gen(0), 4, 512)]
+
+    def logloss(res):
+        return {"population_logloss": logi.population_logloss(res["w_avg"]),
+                "ok": True}
+    arms.append(dict(name="appE b=512 mp_dane prox_svrg K=4", fn=dane,
+                     args=(4, 512, 1),
+                     kw=dict(K=4, R=1, kappa=0.0, local_solver="prox_svrg",
+                             eta_scale=0.3, loss="logistic"),
+                     spec=lspec, dim=32, data=data, check=logloss))
+    arms.append(dict(name="appE b=512 minibatch_sgd",
+                     fn=base + "run_minibatch_sgd", args=(4, 512, 1),
+                     kw=dict(loss="logistic"), spec=lspec, dim=32, data=data,
+                     check=logloss))
+
+    test = LeastSquaresStream(dim=16, noise=0.1, seed=0)
+    tspec = spec_of(test)
+    for name, args, kw, limit in (
+            ("run_minibatch_sgd", (4, 16, 64), {}, 0.1),
+            ("run_acc_minibatch_sgd", (4, 32, 32), {}, 0.15),
+            ("run_single_sgd", (4096,), {}, 0.05),
+            ("run_dsvrg_erm", (4, 4096), dict(K=20), 0.05),
+            ("run_emso", (4, 64, 4), {}, None)):
+        g = gen(0)
+        if name == "run_single_sgd":
+            data = [test.sample(g, 4096)]
+        elif name == "run_dsvrg_erm":
+            data = [test.sample_distributed(g, 4, 1024)]
+        else:
+            data = [test.sample_distributed(g, *args[:2])
+                    for _ in range(args[2])]
+        arms.append(dict(name=f"baseline {name[4:]}", fn=base + name,
+                         args=args, kw=kw, spec=tspec, dim=16, data=data,
+                         check=suboptimality(test, limit)))
+    return arms
+
+
+def _run_core_arms(dev, arms):
+    """Each arm on the card, its CPU run beside it in worker processes:
+    iterates (or w_avg and w_last) within CORE_ATOL, equal ledgers and
+    plans, the MP-DANE runs' threefry index draws with keys on the card
+    bit-equal to the CPU's, each result within its limit; then the claims
+    of Figure 3 (MP-DANE below minibatch SGD at b = 1024) and App. E (at
+    b = 512, in log loss), EMSO's one round a step and DSVRG-ERM's
+    svrg_update launches. Returns (record, svrg_update launches)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch import kernels
+    record, launches = {}, 0
+    jobs = [{k: a[k] for k in ("fn", "args", "kw", "spec", "dim")}
+            | {"data": [(X.cpu(), y.cpu()) for X, y in a["data"]]}
+            for a in arms]
+    with ProcessPoolExecutor(
+            4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        replicas = [pool.submit(_cpu_replica, j) for j in jobs]
+        results = []
+        for a, j in zip(arms, jobs):
+            kernels.reset_launch_counts()
+            got = _core_run(dict(j, data=a["data"]), dev)
+            results.append((got, kernels.launch_counts()))
+        wants = [f.result() for f in replicas]
+    for a, (got, counts), want in zip(arms, results, wants):
+        name = a["name"]
+        if got["iterates"] is not None:
+            err = (got["iterates"].cpu() - want["iterates"]).abs().max()
+        else:
+            err = max((got[k].cpu() - want[k]).abs().max()
+                      for k in ("w_avg", "w_last"))
+        err = err.item()
+        rec = {"seconds": got["seconds"], "cpu_seconds": want["seconds"],
+               "cpu_max_abs_err": err, "launches": counts,
+               "ledger": got["ledger"], "plan": got["plan"],
+               **a["check"](got)}
+        kw = a["kw"]
+        if "local_solver" in kw:
+            plan = got["plan"]
+            steps = a["args"][1]
+            draws = [_index_draws(0, a["args"][2], plan["R"], plan["K"],
+                                  steps, steps, d) for d in (dev, "cpu")]
+            rec["index_draws_bit_equal"] = torch.equal(draws[0].cpu(),
+                                                       draws[1])
+            if not rec["index_draws_bit_equal"]:
+                raise AssertionError(f"{name}: threefry draws on the card "
+                                     f"differ from the CPU's")
+        record[name] = rec
+        metric = {k: rec[k] for k in ("population_suboptimality",
+                                      "population_logloss", "limit")
+                  if k in rec}
+        print(f"[core] {name}: {got['seconds'] * 1e3:.1f} ms on the card "
+              f"(CPU run {want['seconds'] * 1e3:.1f} ms); vs CPU "
+              f"max_abs_err {err:.3g} (tolerance {CORE_ATOL}); {metric}; "
+              f"ledger {rec['ledger']}; svrg_update launches "
+              f"{counts['svrg_update']}"
+              + ("; index draws bit-equal on the card and the CPU"
+                 if "index_draws_bit_equal" in rec else ""))
+        if not err <= CORE_ATOL:
+            raise AssertionError(f"{name}: CUDA and CPU runs differ by {err}")
+        if got["ledger"] != want["ledger"] or got["plan"] != want["plan"]:
+            raise AssertionError(f"{name}: ledger or plan differs from the "
+                                 f"CPU run's")
+        if not rec["ok"]:
+            raise AssertionError(f"{name}: {metric} outside its limit")
+        want_svrg = (kw["K"] * a["args"][1] // a["args"][0]
+                     if a["fn"].endswith("run_dsvrg_erm") else 0)
+        if counts["svrg_update"] != want_svrg:
+            raise AssertionError(f"{name}: svrg_update launched "
+                                 f"{counts['svrg_update']} times, expected "
+                                 f"{want_svrg}")
+        launches += counts["svrg_update"]
+    for mp, sgd, key in (
+            ("fig3 b=1024 mp_dane saga K=1", "fig3 b=1024 minibatch_sgd",
+             "population_suboptimality"),
+            ("fig3 b=1024 mp_dane saga K=4", "fig3 b=1024 minibatch_sgd",
+             "population_suboptimality"),
+            ("appE b=512 mp_dane prox_svrg K=4", "appE b=512 minibatch_sgd",
+             "population_logloss")):
+        if not record[mp][key] < record[sgd][key]:
+            raise AssertionError(f"{mp}: {key} {record[mp][key]} not below "
+                                 f"{sgd}'s {record[sgd][key]}")
+        print(f"[core] {mp}: {key} {record[mp][key]:.5f} below {sgd}'s "
+              f"{record[sgd][key]:.5f} ok")
+    emso = record["baseline emso"]["ledger"]
+    if emso["comm_rounds"] != 4:
+        raise AssertionError(f"EMSO: {emso['comm_rounds']} rounds in 4 steps")
+    return record, launches
+
+
 def phase_core(dev):
     """The paper core on the card. paper-lsq at its own widths (d = 64,
     noise 0.1, decay 0.5; spec from 8192 rows) with the quickstart's
@@ -1685,6 +2012,11 @@ def phase_core(dev):
                                  f"{counts['svrg_update']} times, expected "
                                  f"T * K * batch = {want_svrg}")
         launches += counts["svrg_update"]
+
+    record["inexact_and_baselines"], n = _run_core_arms(
+        dev, _core_arms(dev, stream, spec, draws))
+    launches += n
+    first = draws[0]                # the SAGA round's profile reruns it
 
     # -- scale arm: MP-DSVRG at d = 2^20, X (8, 128, 2^20) float32 = 4 GiB
     # a step. The T steps' data is drawn first (32 GiB on the card) and
@@ -1800,7 +2132,52 @@ def phase_core(dev):
                   f"{t['name']}")
         return out
 
-    return record, profile_outer_step
+    saga = record["inexact_and_baselines"]["quickstart mp_dane saga"]["plan"]
+
+    def profile_saga_round():
+        """One DANE iteration of the quickstart's MP-DANE with the SAGA
+        local solver (b = 128 solver steps over the 8 machines at once, the
+        first step's data) under torch.profiler: wall, device busy, the
+        idle share, and wall and launches per solver step."""
+        from repro_torch import prng
+        from repro_torch.core.mp_dane import _dane_round
+        Xm, ym = first
+        gamma, kappa = saga["gamma"], saga["kappa"]
+        eta = 0.1 / (spec.beta + gamma + kappa)
+        w = torch.zeros(cfg.dim, device=dev)
+        step = lambda: _dane_round(losses.least_squares(), w, Xm, ym, w, w,
+                                   gamma, kappa, 0.0, True, "saga",
+                                   prng.PRNGKey(0), eta)
+        step()
+        torch.cuda.synchronize()
+        kern, wall = _profiled(lambda: _timed(step)[1] * 1e3)
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        launches = sum(e.count for e in kern)
+        out = {"wall_ms": wall, "device_busy_ms": busy,
+               "idle_share": 1.0 - busy / wall, "launches": launches,
+               "wall_us_per_solver_step": wall * 1e3 / b,
+               "launches_per_solver_step": launches / b,
+               "top_kernels": [
+                   {"name": e.key[:80],
+                    "ms": e.self_device_time_total / 1e3, "calls": e.count}
+                   for e in sorted(kern,
+                                   key=lambda e: -e.self_device_time_total)[
+                                       :6]]}
+        print(f"[profile] MP-DANE SAGA round (quickstart, {b} solver steps "
+              f"x {m} machines): wall {wall:.2f} ms, device busy "
+              f"{busy:.3f} ms (idle {out['idle_share']:.1%}), {launches} "
+              f"launches ({launches / b:.1f} and "
+              f"{out['wall_us_per_solver_step']:.1f} us a solver step)")
+        for t in out["top_kernels"]:
+            print(f"[profile]   {t['ms']:.4f} ms x {t['calls']}  "
+                  f"{t['name']}")
+        return out
+
+    def profile_core():
+        return {"mp_dsvrg_outer_step_d2e20": profile_outer_step(),
+                "mp_dane_saga_round": profile_saga_round()}
+
+    return record, profile_core
 
 
 def profile_decode(eng, vocab, n_steps=10):
@@ -1903,7 +2280,7 @@ def main(argv=None):
     record["forward"] = phase("forward", phase_forward, params, cfg, dev)
     record["engine"], engine = phase("engine", phase_engine, params, cfg,
                                      dev)
-    record["core"], profile_outer_step = phase("core", phase_core, dev)
+    record["core"], profile_core = phase("core", phase_core, dev)
     record["recurrentgemma"] = phase("recurrentgemma", phase_recurrentgemma,
                                      dev)
     record["serve_cli"] = phase("serve_cli", phase_serve_cli, dev,
@@ -1920,7 +2297,7 @@ def main(argv=None):
     phase("timings", phase_timings, kern)
     record["decode_profile"] = phase("decode_profile", profile_decode,
                                      engine, cfg.vocab_size)
-    record["core_profile"] = phase("core_profile", profile_outer_step)
+    record["core_profile"] = phase("core_profile", profile_core)
     record["rwkv6_decode_profile"] = phase(
         "rwkv6_decode_profile", profile_lm_decode, rwkv_params,
         get_config("rwkv6-3b"), dev)

@@ -12,7 +12,9 @@ Every loss exposes:
 
 `value_fn` / `grad_fn` take a batch written out, x (..., d) and y (...),
 where the reference `vmap`s a one-example function; one example (x (d,),
-y a scalar) is the batch with no leading axes.
+y a scalar) is the batch with no leading axes. w is one (d,) vector, or
+one a machine in a stack of machines: w (m, d) against x (m, d), or
+w (m, 1, d) against x (m, n, d) (see `margin`).
 """
 from __future__ import annotations
 
@@ -47,13 +49,19 @@ class Loss:
 # Least squares:  l(w, (x,y)) = 0.5 (w.x - y)^2
 # --------------------------------------------------------------------------
 
+def margin(w, x):
+    """x . w over the last axis: x @ w for one w (d,); for a stack of w
+    (..., d) broadcast against x (..., d), one dot product each."""
+    return x @ w if w.dim() == 1 else torch.linalg.vecdot(x, w)
+
+
 def _lsq_value(w, x, y):
-    r = x @ w - y
+    r = margin(w, x) - y
     return 0.5 * r * r
 
 
 def _lsq_grad(w, x, y):
-    return (x @ w - y).unsqueeze(-1) * x
+    return (margin(w, x) - y).unsqueeze(-1) * x
 
 
 def least_squares() -> Loss:
@@ -80,12 +88,12 @@ def ridge_least_squares(lam: float) -> Loss:
 # --------------------------------------------------------------------------
 
 def _logistic_value(w, x, y):
-    z = -y * (x @ w)
+    z = -y * margin(w, x)
     return torch.logaddexp(torch.zeros_like(z), z)
 
 
 def _logistic_grad(w, x, y):
-    s = torch.sigmoid(-y * (x @ w))
+    s = torch.sigmoid(-y * margin(w, x))
     return (-s * y).unsqueeze(-1) * x
 
 

@@ -7,12 +7,11 @@ algorithm: at step t draw a fresh minibatch I_t of b samples and set
 
 `run_minibatch_prox` supports:
   - exact subproblem solves (closed-form least squares oracle)      [Thm 4/5]
-  - inexact solves by gradient descent                              [Thm 7/8]
+  - inexact solves through any solver meeting the eta_t schedule    [Thm 7/8]
   - weakly convex (constant gamma) and strongly convex (gamma_t = lam(t-1)/2)
   - the averaged outputs of the theorems (uniform / t-weighted)
 
-The 'prox_svrg' and 'saga' solvers raise until they are ported (see
-`solvers.py`). Distributed execution lives in mp_dsvrg.py / mp_dane.py;
+Distributed execution lives in mp_dsvrg.py / mp_dane.py;
 this module is the single-sequence form used to validate the statistical
 claims.
 """
@@ -23,8 +22,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import prox, solvers, theory
 from repro_torch.core.accounting import Ledger
+from repro_torch.core.losses import least_squares, ridge_least_squares
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -48,6 +49,7 @@ def run_minibatch_prox(
     lam: float = 0.0,
     gamma_override: Optional[float] = None,
     inner_steps: int = 0,
+    inner_epochs: int = 2,
     seed: int = 0,
     radius: float = float("inf"),
     w0: Optional[torch.Tensor] = None,
@@ -55,23 +57,29 @@ def run_minibatch_prox(
 ) -> ProxResult:
     """Run T iterations of minibatch-prox with minibatch size b.
 
-    solver: 'exact' | 'gd' ('prox_svrg' | 'saga' raise until ported).
+    solver: 'exact' | 'gd' | 'prox_svrg' | 'saga'
     For strongly_convex=True uses gamma_t = lam (t-1)/2 and t-weighted average
     (Thm 5/8); otherwise constant gamma from Thm 4/7 and uniform average.
     `stream.sample(generator, b)` gives each minibatch (a torch.Generator on
-    `device`, seeded from `seed`); `device` None means CUDA.
+    `device`, seeded from `seed`); the stochastic solvers' keys are the
+    reference's, `key, kd, ks = split(key, 3)` per step from
+    `prng.PRNGKey(seed)` (kd unused). `device` None means CUDA.
     """
     dev = resolve_device(device)
     d = stream.dim
     w = (torch.zeros(d, device=dev) if w0 is None
          else torch.as_tensor(w0, dtype=torch.float32, device=dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
+    key = prng.PRNGKey(seed)
     ledger = Ledger()
     ledger.hold(b)  # each machine holds its current minibatch
 
     iterates = []
     gammas = []
+    loss = ridge_least_squares(lam) if lam > 0 else least_squares()
+
     for t in range(1, T + 1):
+        key, _, ks = prng.split(key, 3)
         X, y = stream.sample(gen, b)
         X = torch.as_tensor(X, dtype=torch.float32, device=dev)
         y = torch.as_tensor(y, dtype=torch.float32, device=dev)
@@ -93,8 +101,18 @@ def run_minibatch_prox(
             iters = inner_steps or 64
             w_new = solvers.gd(grad_fn, w, eta, iters=iters)
             ledger.compute(iters * b)
-        elif solver in ("prox_svrg", "saga"):
-            raise NotImplementedError(solvers.NOT_PORTED.format(solver))
+        elif solver == "prox_svrg":
+            eta = 0.1 / spec.beta
+            w_new = solvers.prox_svrg(
+                loss.per_example_grad, ks, w, X, y, eta, gamma_t, w,
+                lam=0.0, epochs=inner_epochs, steps=inner_steps or b)
+            ledger.compute(inner_epochs * (b + (inner_steps or b)))
+        elif solver == "saga":
+            eta = 0.3 / spec.beta
+            w_new = solvers.saga_linear(
+                solvers.lsq_residual, ks, w, X, y, eta, gamma_t, w,
+                lam=lam, steps=inner_steps or b)
+            ledger.compute(b + (inner_steps or b))
         else:
             raise ValueError(f"unknown solver {solver!r}")
 

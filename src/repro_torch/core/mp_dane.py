@@ -13,8 +13,11 @@ The local subproblem (eq. 33):
                         - grad phi_{I^(i)}(z_{k-1}), z>
                         + gamma/2 ||z - w_{t-1}||^2 + kappa/2 ||z - y_{r-1}||^2
 
-solved by 'exact' (the closed-form quadratic). The 'saga' and 'prox_svrg'
-local solvers raise until they are ported (see `solvers.py`).
+solved to theta-accuracy by 'exact' (closed-form quadratic), 'saga' or
+'prox_svrg' (one pass over local data — App. E setup). The stochastic
+solvers draw their indices from JAX's threefry key chain (`prng.py`),
+seeded and split as in the reference, so they draw the reference's
+indices.
 
 EMSO (Li et al. 2014) = this algorithm with the gradient correction removed,
 K=1, R=1, kappa=0 — exposed via `correction=False` for the baseline table.
@@ -27,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core import solvers, theory
 from repro_torch.core.accounting import Ledger
 from repro_torch.core.losses import Loss, least_squares
@@ -34,11 +38,16 @@ from repro_torch.device import DeviceLike, resolve_device
 
 
 def _dane_round(loss: Loss, z_prev, Xm, ym, w_anchor, y_cat, gamma: float,
-                kappa: float, lam: float, correction: bool):
+                kappa: float, lam: float, correction: bool,
+                local_solver: str = "exact", key=None, eta: float = 0.0):
     """One inexact-DANE iteration (steps 1-3 of the inner loop) on all m
     machines at once: Xm (m, b, d), ym (m, b); z_prev, w_anchor and y_cat
     are the replicated (d,) vectors. Each machine's exact local solve is
-    `solvers.exact_quadratic` on its own batch, batched over machines."""
+    `solvers.exact_quadratic` on its own batch, batched over machines;
+    'saga' and 'prox_svrg' run on the stack with step size eta, every
+    machine drawing the indices of the one `key`, as in the reference.
+    'saga' takes the least-squares residual as its scalar gradient whatever
+    `loss` is, as the reference does."""
     m, b, d = Xm.shape
     Xt = Xm.transpose(1, 2)
     if loss.name.startswith("least_squares"):
@@ -49,11 +58,22 @@ def _dane_round(loss: Loss, z_prev, Xm, ym, w_anchor, y_cat, gamma: float,
     g_glob = g_loc.mean(0)                             # round 1: gradient avg
     c = (g_glob - g_loc) if correction else torch.zeros_like(g_loc)
 
-    eye = torch.eye(d, dtype=Xm.dtype, device=Xm.device)
-    H = Xt @ Xm / b + (lam + gamma + kappa) * eye
-    rhs = ((Xt @ ym.unsqueeze(-1)).squeeze(-1) / b - c + gamma * w_anchor
-           + kappa * y_cat)
-    z_i = torch.linalg.solve(H, rhs)
+    if local_solver == "exact":
+        eye = torch.eye(d, dtype=Xm.dtype, device=Xm.device)
+        H = Xt @ Xm / b + (lam + gamma + kappa) * eye
+        rhs = ((Xt @ ym.unsqueeze(-1)).squeeze(-1) / b - c
+               + gamma * w_anchor + kappa * y_cat)
+        z_i = torch.linalg.solve(H, rhs)
+    elif local_solver == "saga":
+        z_i = solvers.saga_linear(solvers.lsq_residual, key, z_prev, Xm, ym,
+                                  eta, gamma, w_anchor, kappa=kappa,
+                                  yv=y_cat, linear_c=c, lam=lam)
+    elif local_solver == "prox_svrg":
+        z_i = solvers.prox_svrg(loss.per_example_grad, key, z_prev, Xm, ym,
+                                eta, gamma, w_anchor, kappa=kappa, yv=y_cat,
+                                linear_c=c, lam=lam, epochs=1)
+    else:
+        raise ValueError(local_solver)
     return z_i.mean(0)                                 # round 2: solution avg
 
 
@@ -70,19 +90,21 @@ def run_mp_dane(stream, spec: theory.ProblemSpec, m: int, b: int, T: int,
                 *, K: Optional[int] = None, R: Optional[int] = None,
                 kappa: Optional[float] = None, gamma: Optional[float] = None,
                 local_solver: str = "exact", correction: bool = True,
-                lam: float = 0.0, seed: int = 0,
+                eta_scale: float = 0.3, lam: float = 0.0, seed: int = 0,
                 loss: Optional[Loss] = None,
                 device: DeviceLike = None) -> MPDANEResult:
     """Run Algorithm 2. Defaults follow Theorems 14/16 given n = bmT.
 
-    Only local_solver='exact' is ported ('saga' / 'prox_svrg' raise).
+    local_solver: 'exact' | 'saga' | 'prox_svrg'; the stochastic ones step
+    with eta = eta_scale / (beta + gamma + kappa + lam).
     `stream.sample_distributed(generator, m, b)` gives each outer step's data
-    (a torch.Generator on `device`, seeded from `seed`); `device` None means
-    CUDA.
+    (a torch.Generator on `device`, seeded from `seed`). The solvers' keys
+    come from `prng.PRNGKey(seed)` split as the reference splits it: per
+    outer step `key, kd, ks = split(key, 3)` (kd, the reference's data key,
+    is unused), then `split(ks, R)` and each of those `split(rk, K)`.
+    `device` None means CUDA.
     """
-    if local_solver in ("saga", "prox_svrg"):
-        raise NotImplementedError(solvers.NOT_PORTED.format(local_solver))
-    if local_solver != "exact":
+    if local_solver not in ("exact", "saga", "prox_svrg"):
         raise ValueError(local_solver)
     dev = resolve_device(device)
     n = b * m * T
@@ -93,6 +115,8 @@ def run_mp_dane(stream, spec: theory.ProblemSpec, m: int, b: int, T: int,
     gamma = gamma if gamma is not None else plan.gamma
     plan = dataclasses.replace(plan, T=T, K=K, R=R, kappa=kappa, gamma=gamma)
     loss = loss or least_squares()
+    eta = eta_scale / (spec.beta + gamma + kappa + lam)
+    stochastic = local_solver != "exact"
 
     ledger = Ledger()
     ledger.hold(b)
@@ -111,18 +135,21 @@ def run_mp_dane(stream, spec: theory.ProblemSpec, m: int, b: int, T: int,
         alpha_prev = alpha
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    key = prng.PRNGKey(seed)
     w = torch.zeros(stream.dim, device=dev)
     iterates = []
     for _ in range(T):
+        key, _, ks = prng.split(key, 3)
         Xm, ym = stream.sample_distributed(gen, m, b)
         Xm = torch.as_tensor(Xm, dtype=torch.float32, device=dev)
         ym = torch.as_tensor(ym, dtype=torch.float32, device=dev)
         x_prev = y_cat = w
-        for beta_mom in momenta:
+        rkeys = prng.split(ks, R) if stochastic else [None] * R
+        for beta_mom, rk in zip(momenta, rkeys):
             x_r = y_cat
-            for _ in range(K):
+            for kk in prng.split(rk, K) if stochastic else [None] * K:
                 x_r = _dane_round(loss, x_r, Xm, ym, w, y_cat, gamma, kappa,
-                                  lam, correction)
+                                  lam, correction, local_solver, kk, eta)
             y_cat = x_r + beta_mom * (x_r - x_prev)
             x_prev = x_r
         w = x_prev

@@ -137,6 +137,30 @@ def load(name: str, symbol: str | None = None):
     return fn
 
 
+# TMA copies tiles from global addresses on a 16-byte boundary
+TMA_ALIGN = 16
+
+
+def tma_copies(*ptrs: int) -> tuple:
+    """For inputs at device addresses `ptrs` that a kernel reads with TMA:
+    which must first be copied into a fresh buffer (True: the address is
+    not on a TMA_ALIGN-byte boundary, as a contiguous view at an element
+    offset may not be). A function of the pointers alone, so the route is
+    fixed before the launch."""
+    return tuple(p % TMA_ALIGN != 0 for p in ptrs)
+
+
+def tma_ready(*tensors) -> tuple:
+    """The tensors, each as it is where `tma_copies` leaves it and else a
+    fresh contiguous copy (a fresh allocation is aligned far past 16
+    bytes). A
+    copy holds the same values, so the kernel gives the bits of a call on
+    aligned inputs; aligned inputs pass through untouched."""
+    return tuple(t.clone(memory_format=torch.contiguous_format) if c else t
+                 for t, c in zip(tensors,
+                                 tma_copies(*(t.data_ptr() for t in tensors))))
+
+
 def ptr(t) -> int | None:
     """Device pointer of a tensor, or None (a C null) for None."""
     return None if t is None else t.data_ptr()

@@ -6,7 +6,9 @@ their plain twin. A CPU tensor takes the twin; a CUDA tensor launches a
 kernel or raises. The dtype picks the kernel: bf16 / f16 run the
 tensor-core (wgmma) kernel, float32 the CUDA-core one, since TF32 tensor
 cores would keep too few bits for float32's 2e-5. Neither stands in for
-the other. `flash_attention.launches` counts kernel launches.
+the other. The tensor-core kernel reads q, k and v with TMA, so a bf16 /
+f16 view off a 16-byte boundary is first copied into a fresh buffer
+(`build.tma_ready`). `flash_attention.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -39,10 +41,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; "
                          f"the CUDA kernel takes head_dim in {HEAD_DIMS}")
-    if q.dtype != torch.float32 and any(t.data_ptr() % 16
-                                        for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 / f16 inputs must be 16-byte "
-                         "aligned (the kernel reads them with TMA)")
+    if q.dtype != torch.float32:
+        # the tensor-core kernel reads q, k and v with TMA: a view off a
+        # 16-byte boundary is copied first
+        q, k, v = build.tma_ready(q, k, v)
     out = torch.empty_like(q)
     fn = (build.load("flash_attention") if q.dtype == torch.float32
           else build.load("flash_attention", "flash_attention_wgmma"))

@@ -3,7 +3,9 @@
 The port of `repro/kernels/paged_attention.py` (a Pallas TPU kernel). The
 kernel is `csrc/paged_attention.cu`; `ref.paged_attention_ref` is its
 plain twin. A CPU tensor takes the twin; a CUDA tensor launches the kernel
-or raises. `paged_attention.launches` counts kernel launches.
+or raises. `paged_attention.launches` counts kernel launches. The kernel
+gathers pool rows with TMA, so a pool view off a 16-byte boundary is
+first copied into a fresh buffer (`build.tma_ready`).
 
 The kernel splits each row's tokens into chunks of `build.PAGED_CHUNK`
 and merges the chunks inside the same launch: the wrapper sizes its
@@ -39,9 +41,6 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale):
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError("paged_attention: inputs must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_attention: pools must be 16-byte aligned "
-                         "(the kernel copies rows with TMA)")
     if q.dtype not in FLOAT_DTYPES:
         raise TypeError(f"paged_attention: q dtype {q.dtype}")
     quant = k_pool.dtype in QUANT_DTYPES
@@ -94,6 +93,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale)
+    # the kernel copies pool rows with TMA: a pool view off a 16-byte
+    # boundary is copied whole first
+    k_pool, v_pool = build.tma_ready(k_pool, v_pool)
     B, H, hd = q.shape
     _, bs, KV, _ = k_pool.shape
     M = block_tables.shape[1]

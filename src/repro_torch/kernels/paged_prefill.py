@@ -5,8 +5,9 @@ kernels are in `csrc/paged_prefill.cu`; `ref.paged_prefill_ref` is their
 plain twin. A CPU tensor takes the twin; a CUDA tensor launches a kernel
 or raises. The dtypes pick the kernel: bf16 / f16 q with a pool of the
 same dtype (the serving path) run the tensor-core kernel (wgmma, TMA
-tiles, the pool gathered in 8-row runs through the block table; its
-inputs must be 16-byte aligned and the GQA group at most 64 heads);
+tiles, the pool gathered in 8-row runs through the block table; a view
+off a 16-byte boundary is first copied into a fresh buffer by
+`build.tma_ready`, and the GQA group is at most 64 heads);
 float32 q and int8 / fp8 pools run the CUDA-core kernel, since TF32 would
 keep too few bits for float32's 2e-5 and dequantizing into bf16 would add
 a rounding. Neither stands in for the other.
@@ -101,10 +102,10 @@ def paged_prefill_attention(q, k_suf, v_suf, k_pool, v_pool, block_tables,
             raise ValueError(f"paged_prefill_attention: {H // KV} query "
                              f"heads per KV head; the tensor-core kernel "
                              f"takes at most {WGMMA_MAX_GROUP}")
-        if any(t.data_ptr() % 16 for t in (q, k_suf, v_suf, k_pool, v_pool)):
-            raise ValueError("paged_prefill_attention: bf16 / f16 inputs "
-                             "must be 16-byte aligned (the kernel reads them "
-                             "with TMA)")
+        # TMA reads all five: a view off a 16-byte boundary is copied
+        # first (for a pool, the whole pool)
+        q, k_suf, v_suf, k_pool, v_pool = build.tma_ready(
+            q, k_suf, v_suf, k_pool, v_pool)
     with torch.cuda.device(q.device):
         if tensor_cores:
             err = build.load("paged_prefill", "paged_prefill_wgmma")(

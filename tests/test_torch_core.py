@@ -28,6 +28,9 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
+from benchmarks.appendix_e_logistic import \
+    LogisticStream as JLogisticStream  # noqa: E402
+from repro.core import baselines as jbaselines  # noqa: E402
 from repro.core import losses as jlosses  # noqa: E402
 from repro.core import prox as jprox  # noqa: E402
 from repro.core import solvers as jsolvers  # noqa: E402
@@ -37,8 +40,9 @@ from repro.core.mp_dane import run_mp_dane as jrun_dane  # noqa: E402
 from repro.core.mp_dsvrg import _dsvrg_inner_spmd  # noqa: E402
 from repro.core.mp_dsvrg import run_mp_dsvrg as jrun_dsvrg  # noqa: E402
 from repro.data.synthetic import LeastSquaresStream as JStream  # noqa: E402
-from repro_torch import kernels  # noqa: E402
+from repro_torch import kernels, prng  # noqa: E402
 from repro_torch.core import Ledger, losses, prox, solvers, theory  # noqa: E402
+from repro_torch.core import baselines  # noqa: E402
 from repro_torch.core.minibatch_prox import run_minibatch_prox  # noqa: E402
 from repro_torch.core.mp_dane import _dane_round, run_mp_dane  # noqa: E402
 from repro_torch.core.mp_dsvrg import _dsvrg_inner, run_mp_dsvrg  # noqa: E402
@@ -84,10 +88,12 @@ class Replay:
         return self._next((m, b))
 
 
-def _jax_draws(T, shape, seed):
+def _jax_draws(T, shape, seed, logistic=False):
     """T batches from the JAX stream as numpy: (m, b, d) / (m, b) for
-    shape (m, b), (n, d) / (n,) for shape (n,)."""
-    s = JStream(dim=DIM, noise=0.1, seed=0)
+    shape (m, b), (n, d) / (n,) for shape (n,); with `logistic`, from the
+    App. E benchmark's LogisticStream (labels +-1, 5% flipped)."""
+    s = (JLogisticStream(dim=DIM, noise=0.0, seed=0) if logistic
+         else JStream(dim=DIM, noise=0.1, seed=0))
     out = []
     for t in range(T):
         X, y = s.sample(jax.random.PRNGKey(seed + t), math.prod(shape))
@@ -301,17 +307,106 @@ def test_exact_quadratic_matches_jax(stacked):
                jsolvers.exact_quadratic(w_prev, X, y, 0.8, **kw))
 
 
-def test_unported_solvers_raise():
-    s = LeastSquaresStream(dim=DIM)
-    spec = theory.ProblemSpec(L=2.0, beta=2.0, B=1.0, dim=DIM)
-    for fn in (solvers.prox_svrg, solvers.saga_linear):
-        with pytest.raises(NotImplementedError, match="threefry"):
-            fn()
-    for solver in ("prox_svrg", "saga"):
-        with pytest.raises(NotImplementedError, match="threefry"):
-            run_minibatch_prox(s, spec, 8, 2, solver=solver, device=CPU)
-        with pytest.raises(NotImplementedError, match="threefry"):
-            run_mp_dane(s, spec, 2, 8, 2, local_solver=solver, device=CPU)
+def test_prox_step_is_quad_prox():
+    """The solvers' two-op prox step against the reference's _quad_prox of
+    the gradient step (float32 rounding apart)."""
+    rng = np.random.default_rng(8)
+    x, g, a, yv = (_t(rng.standard_normal((M, DIM))) for _ in range(4))
+    for eta, gamma, kappa in ((0.05, 1.5, 0.0), (0.3, 0.2, 4.0)):
+        _, shift, div, step, _ = solvers._setup(x[0], x[:, None], eta, gamma,
+                                                a, kappa, yv)
+        _close(solvers._prox_step(x, g, shift, div, step),
+               solvers._quad_prox(x - eta * g, eta, gamma, a, kappa, yv),
+               atol=1e-6)
+
+
+LAM_LOSSES = {"least_squares": ("least_squares", None),
+              "logistic": ("logistic", None),
+              "ridge_least_squares": ("ridge_least_squares", 0.3)}
+
+
+def _solver_case(stacked, extra, logistic=False, seed=9):
+    """Inputs of a local solve: one machine's (n, d) rows or an (m, n, d)
+    stack, and with `extra` a catalyst point, a correction c (one per
+    machine in a stack) and lam > 0."""
+    rng = np.random.default_rng(seed)
+    shape = (M, 32) if stacked else (32,)
+    X = (rng.standard_normal((*shape, DIM)) / 4).astype(np.float32)
+    y = rng.standard_normal(shape).astype(np.float32)
+    if logistic:
+        y = np.where(y >= 0, 1.0, -1.0).astype(np.float32)
+    x0, a, yv = (rng.standard_normal(DIM).astype(np.float32) / 4
+                 for _ in range(3))
+    c = (rng.standard_normal((M, DIM) if stacked else DIM) / 4).astype(
+        np.float32)
+    kw = dict(kappa=2.0, yv=yv, linear_c=c, lam=0.1) if extra else {}
+    return X, y, x0, a, kw
+
+
+def _jax_solve(fn, X, y, x0, a, kw, **static):
+    """The reference solver, under vmap over machines for a stack (its
+    key and every vector but c unmapped, as mp_dane.py runs it)."""
+    if X.ndim == 2:
+        return fn(X, y, x0, a, **kw, **static)
+    c = kw.pop("linear_c", None)
+    if c is None:
+        return jax.vmap(lambda Xl, yl: fn(Xl, yl, x0, a, **kw, **static))(
+            X, y)
+    return jax.vmap(lambda Xl, yl, cl: fn(Xl, yl, x0, a, linear_c=cl, **kw,
+                                          **static))(X, y, c)
+
+
+def _tkw(kw):
+    return {k: _t(v) if isinstance(v, np.ndarray) else v
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("loss", sorted(LAM_LOSSES))
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("extra", [False, True])
+def test_prox_svrg_matches_jax(loss, stacked, extra):
+    """Two epochs (one for a stack, with more steps than rows) from the
+    same key: the port's host loop against the reference's scan."""
+    X, y, x0, a, kw = _solver_case(stacked, extra, loss == "logistic")
+    jl, tl = LOSSES[loss](jlosses), LOSSES[loss](losses)
+    static = dict(epochs=1, steps=48) if stacked else dict(epochs=2)
+    seed = 5
+    want = _jax_solve(
+        lambda *args, **k: jsolvers.prox_svrg(
+            jl.per_example_grad, jax.random.PRNGKey(seed), args[2], args[0],
+            args[1], 0.05, 1.5, args[3], **k),
+        X, y, x0, a, dict(kw), **static)
+    got = solvers.prox_svrg(tl.per_example_grad, prng.PRNGKey(seed), _t(x0),
+                            _t(X), _t(y), 0.05, 1.5, _t(a), **_tkw(kw),
+                            **static)
+    assert got.shape == np.shape(want)
+    _close(got, want)
+
+
+SCALAR_GRADS = {
+    "residual": (lambda w, x, y: jnp.dot(w, x) - y, solvers.lsq_residual),
+    "logistic": (lambda w, x, y: -jax.nn.sigmoid(-y * jnp.dot(w, x)) * y,
+                 lambda w, x, y: -torch.sigmoid(-y * losses.margin(w, x))
+                 * y)}
+
+
+@pytest.mark.parametrize("grad", sorted(SCALAR_GRADS))
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("extra", [False, True])
+def test_saga_linear_matches_jax(grad, stacked, extra):
+    X, y, x0, a, kw = _solver_case(stacked, extra, grad == "logistic")
+    jg, tg = SCALAR_GRADS[grad]
+    static = dict(steps=80) if stacked else {}
+    seed = 2**32 + 5
+    want = _jax_solve(
+        lambda *args, **k: jsolvers.saga_linear(
+            jg, jax.random.PRNGKey(seed), args[2], args[0], args[1], 0.05,
+            1.5, args[3], **k),
+        X, y, x0, a, dict(kw), **static)
+    got = solvers.saga_linear(tg, prng.PRNGKey(seed), _t(x0), _t(X), _t(y),
+                              0.05, 1.5, _t(a), **_tkw(kw), **static)
+    assert got.shape == np.shape(want)
+    _close(got, want)
 
 
 # ----------------------------------------------------------------------------
@@ -418,6 +513,121 @@ def test_run_minibatch_prox_matches_jax(jspec, solver, strong, radius, w0):
     _close(tr.w_avg, jr.w_avg)
     if radius != float("inf"):
         assert float(torch.linalg.vector_norm(tr.w_last)) <= radius * 1.0001
+
+
+@pytest.mark.parametrize("solver,loss", [("saga", "least_squares"),
+                                         ("prox_svrg", "least_squares"),
+                                         ("prox_svrg", "logistic"),
+                                         ("saga", "logistic")])
+def test_run_mp_dane_inexact_matches_jax(jspec, solver, loss):
+    """MP-DANE with a stochastic local solver, the AIDE loop running (R = 2,
+    the plan's kappa > 0), the same threefry keys as the reference. On
+    logistic data (the App. E benchmark's stream, replayed) 'saga' keeps
+    the reference's quirk: its scalar gradient is the least-squares
+    residual whatever the loss."""
+    T, eta = 3, {"saga": 0.1, "prox_svrg": 0.05}[solver]
+    logistic = loss == "logistic"
+    jstream, tstream = _replays(_jax_draws(T, (M, B), seed=250,
+                                           logistic=logistic))
+    spec = (jtheory.ProblemSpec(L=2.0, beta=0.5, B=2.0, dim=DIM) if logistic
+            else jspec)
+    kw = dict(K=2, R=2, local_solver=solver, eta_scale=eta, seed=3)
+    jr = jrun_dane(jstream, spec, M, B, T, loss=LOSSES[loss](jlosses), **kw)
+    tr = run_mp_dane(tstream, _tspec(spec), M, B, T,
+                     loss=LOSSES[loss](losses), device=CPU, **kw)
+    assert dataclasses.asdict(tr.plan) == dataclasses.asdict(jr.plan)
+    assert tr.plan.kappa > 0
+    assert tr.ledger.as_dict() == jr.ledger.as_dict()
+    _close(tr.iterates, jr.iterates)
+    _close(tr.w_avg, jr.w_avg)
+
+
+@pytest.mark.parametrize("solver,strong,inner_steps,inner_epochs", [
+    ("saga", False, 0, 2), ("prox_svrg", False, 0, 2),
+    ("saga", True, 40, 2), ("prox_svrg", True, 40, 3)])
+def test_run_minibatch_prox_inexact_matches_jax(jspec, solver, strong,
+                                                inner_steps, inner_epochs):
+    """prox-SVRG (ridge loss and lam = 0 in the solver when lam > 0) and
+    SAGA (lam in the solver) with the reference's step sizes, keys and
+    ledger charges."""
+    T, b = 3, 64
+    jstream, tstream = _replays(_jax_draws(T, (b,), seed=350))
+    kw = dict(solver=solver, strongly_convex=strong,
+              lam=0.5 if strong else 0.0, inner_steps=inner_steps,
+              inner_epochs=inner_epochs, seed=4)
+    jr = jrun_mbp(jstream, jspec, b, T, **kw)
+    tr = run_minibatch_prox(tstream, _tspec(jspec), b, T, device=CPU, **kw)
+    assert tr.ledger.as_dict() == jr.ledger.as_dict()
+    _close(tr.gammas, jr.gammas, atol=0)
+    _close(tr.iterates, jr.iterates)
+    _close(tr.w_avg, jr.w_avg)
+
+
+# ----------------------------------------------------------------------------
+# baselines through the replay stream
+# ----------------------------------------------------------------------------
+
+BASELINE_RUNS = {
+    "minibatch_sgd": ("run_minibatch_sgd", (M, 16, 8), {}, False),
+    "minibatch_sgd_radius": ("run_minibatch_sgd", (M, 16, 8),
+                             dict(radius=0.3), False),
+    "minibatch_sgd_logistic": ("run_minibatch_sgd", (M, 32, 4),
+                               dict(loss="logistic"), True),
+    "acc_minibatch_sgd": ("run_acc_minibatch_sgd", (M, 32, 8), {}, False),
+    "acc_minibatch_sgd_radius": ("run_acc_minibatch_sgd", (M, 32, 8),
+                                 dict(radius=0.3, step_scale=2.0), False),
+    "single_sgd": ("run_single_sgd", (512,), {}, False),
+    "single_sgd_radius": ("run_single_sgd", (512,), dict(radius=0.3),
+                          False),
+    "dsvrg_erm": ("run_dsvrg_erm", (M, 512), {}, False),
+    "dsvrg_erm_K3": ("run_dsvrg_erm", (M, 1024), dict(K=3), False),
+    "emso": ("run_emso", (M, B, 4), {}, False),
+}
+
+
+def _baseline_draws(name, args, logistic):
+    """The data the run draws: T minibatches of (m, b) (one stored
+    dataset of (m, n // m) for DSVRG-ERM, n rows for single SGD)."""
+    if name == "run_single_sgd":
+        return _jax_draws(1, (args[0],), seed=600)
+    if name == "run_dsvrg_erm":
+        return _jax_draws(1, (args[0], args[1] // args[0]), seed=700)
+    return _jax_draws(args[-1], args[:2], seed=500, logistic=logistic)
+
+
+@pytest.mark.parametrize("case", sorted(BASELINE_RUNS))
+def test_baselines_match_jax(jspec, case):
+    """Each baseline within ATOL of the reference on replayed data, with
+    an equal ledger (and, for EMSO, an equal plan)."""
+    name, args, kw, logistic = BASELINE_RUNS[case]
+    jkw, tkw = dict(kw), dict(kw)
+    if "loss" in kw:
+        jkw["loss"], tkw["loss"] = (LOSSES[kw["loss"]](jlosses),
+                                    LOSSES[kw["loss"]](losses))
+    spec = (jtheory.ProblemSpec(L=2.0, beta=0.5, B=2.0, dim=DIM) if logistic
+            else jspec)
+    jstream, tstream = _replays(_baseline_draws(name, args, logistic))
+    jr = getattr(jbaselines, name)(jstream, spec, *args, **jkw)
+    before = kernels.launch_counts()
+    tr = getattr(baselines, name)(tstream, _tspec(spec), *args, device=CPU,
+                                  **tkw)
+    assert kernels.launch_counts() == before      # the CPU takes the twin
+    assert tr.ledger.as_dict() == jr.ledger.as_dict()
+    if name == "run_emso":
+        assert dataclasses.asdict(tr.plan) == dataclasses.asdict(jr.plan)
+    _close(tr.w_avg, jr.w_avg)
+    _close(tr.w_last, jr.w_last)
+
+
+def test_dsvrg_erm_default_K_is_the_float32_log():
+    """K = int(log(n)) with the log taken in float32, as the reference
+    takes it (its ledger shows K)."""
+    s = LeastSquaresStream(dim=DIM)
+    spec = theory.ProblemSpec(L=2.0, beta=2.0, B=1.0, dim=DIM)
+    for n in (8, 20, 148):
+        r = baselines.run_dsvrg_erm(s, spec, 4, n, device=CPU)
+        K = max(1, int(jnp.log(jnp.asarray(float(n)))))
+        assert r.ledger.comm_rounds == 2 * K, (n, K)
 
 
 # ----------------------------------------------------------------------------
@@ -699,9 +909,92 @@ def test_mp_dane_converges_and_emso_accounting(stream, spec):
     sub = float(stream.population_suboptimality(res.w_avg))
     assert sub <= theory.rate_bound_weakly_convex(spec, B * M, 8,
                                                   exact=False), sub
-    emso = run_mp_dane(stream, spec, m=M, b=B, T=4, K=1, R=1, kappa=0.0,
-                       correction=False, device=CPU)
-    assert emso.ledger.comm_rounds == 4
+    emso = baselines.run_emso(stream, spec, M, B, 4, device=CPU)
+    assert emso.ledger.comm_rounds == 4             # one round a step
+
+
+@pytest.mark.parametrize("solver,eta", [("saga", 0.1), ("prox_svrg", 0.05)])
+def test_mp_dane_converges_inexact_solvers(stream, spec, solver, eta):
+    """MP-DANE with the plan's K, R and kappa and a stochastic local solver
+    meets the Thm 7 inexact rate bound (tests/test_core_distributed.py::
+    test_mp_dane_converges_all_solvers)."""
+    res = run_mp_dane(stream, spec, m=M, b=B, T=8, local_solver=solver,
+                      eta_scale=eta, device=CPU)
+    sub = float(stream.population_suboptimality(res.w_avg))
+    assert sub <= theory.rate_bound_weakly_convex(spec, B * M, 8,
+                                                  exact=False), sub
+
+
+def test_theorem7_inexact_rate(stream, spec):
+    """Inexact minibatch-prox (prox-SVRG inner) still meets the Thm 7
+    rate."""
+    res = run_minibatch_prox(stream, spec, 64, 16, solver="prox_svrg",
+                             inner_epochs=3, device=CPU)
+    sub = float(stream.population_suboptimality(res.w_avg))
+    assert sub <= theory.rate_bound_weakly_convex(spec, 64, 16,
+                                                  exact=False), sub
+
+
+def test_solvers_agree_on_quadratic(stream):
+    """prox-SVRG and SAGA run long enough reach the exact prox point."""
+    X, y = stream.sample(_gen(7), 128)
+    w_prev = torch.zeros(DIM)
+    exact = solvers.exact_quadratic(w_prev, X, y, 1.0)
+    key = prng.PRNGKey(7)
+    psvrg = solvers.prox_svrg(losses.least_squares().per_example_grad, key,
+                              w_prev, X, y, 0.05, 1.0, w_prev, epochs=8)
+    _close(psvrg, exact, atol=3e-2)
+    saga = solvers.saga_linear(solvers.lsq_residual, key, w_prev, X, y,
+                               0.05, 1.0, w_prev, steps=8 * 128)
+    _close(saga, exact, atol=3e-2)
+
+
+def test_minibatch_sgd_converges(stream, spec):
+    res = baselines.run_minibatch_sgd(stream, spec, M, 16, 64, device=CPU)
+    assert float(stream.population_suboptimality(res.w_avg)) < 0.1
+
+
+def test_minibatch_sgd_degrades_with_huge_minibatch(stream, spec):
+    """Figure 3 claim: at huge b (tiny T), MP beats minibatch SGD because
+    minibatch SGD cannot exploit minibatch sizes beyond O(sqrt(n))."""
+    sgd = baselines.run_minibatch_sgd(stream, spec, M, 2048, 2, device=CPU)
+    mp = run_mp_dane(stream, spec, M, 2048, 2, local_solver="exact",
+                     device=CPU)
+    sub_sgd = float(stream.population_suboptimality(sgd.w_avg))
+    sub_mp = float(stream.population_suboptimality(mp.w_avg))
+    assert sub_mp < sub_sgd, (sub_mp, sub_sgd)
+
+
+def test_acc_minibatch_sgd_converges(stream, spec):
+    res = baselines.run_acc_minibatch_sgd(stream, spec, M, 32, 32,
+                                          device=CPU)
+    assert float(stream.population_suboptimality(res.w_avg)) < 0.15
+
+
+def test_single_sgd_reference(stream, spec):
+    res = baselines.run_single_sgd(stream, spec, 4096, device=CPU)
+    assert float(stream.population_suboptimality(res.w_avg)) < 0.05
+
+
+def test_dsvrg_erm_converges(stream, spec):
+    res = baselines.run_dsvrg_erm(stream, spec, M, 4096, K=20, device=CPU)
+    assert float(stream.population_suboptimality(res.w_avg)) < 0.05
+    assert res.ledger.peak_memory_vectors == 4096 // M  # stores its shard
+
+
+def test_mp_dane_logistic_beats_sgd_at_large_b():
+    """App. E: on logistic loss the large-b advantage of MP-DANE holds, on
+    the logistic stream chip_smoke.py's core phase draws (labels the signs
+    of the teacher's margin, 5% flipped)."""
+    from chip_smoke import LogisticStream
+    ls = LogisticStream(DIM)
+    lspec = theory.ProblemSpec(L=2.0, beta=0.5, B=2.0, dim=DIM)
+    mp = run_mp_dane(ls, lspec, M, 512, 1, K=4, R=1, kappa=0.0,
+                     local_solver="prox_svrg", eta_scale=0.3,
+                     loss=losses.logistic(), device=CPU)
+    sgd = baselines.run_minibatch_sgd(ls, lspec, M, 512, 1,
+                                      loss=losses.logistic(), device=CPU)
+    assert ls.population_logloss(mp.w_avg) < ls.population_logloss(sgd.w_avg)
 
 
 def test_entry_points_default_to_cuda(stream, spec):
@@ -711,7 +1004,13 @@ def test_entry_points_default_to_cuda(stream, spec):
         pytest.skip("a GPU is present: device=None runs there")
     for run in (lambda: run_mp_dsvrg(stream, spec, 2, 8, 1),
                 lambda: run_mp_dane(stream, spec, 2, 8, 1),
-                lambda: run_minibatch_prox(stream, spec, 8, 1)):
+                lambda: run_minibatch_prox(stream, spec, 8, 1),
+                lambda: baselines.run_minibatch_sgd(stream, spec, 2, 8, 1),
+                lambda: baselines.run_acc_minibatch_sgd(stream, spec, 2, 8,
+                                                        1),
+                lambda: baselines.run_single_sgd(stream, spec, 8),
+                lambda: baselines.run_dsvrg_erm(stream, spec, 2, 8),
+                lambda: baselines.run_emso(stream, spec, 2, 8, 1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
 
@@ -723,6 +1022,7 @@ def test_entry_points_default_to_cuda(stream, spec):
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.data.synthetic\n"
+            "import repro_torch.prng, repro_torch.core.baselines\n"
             "import repro_torch.models.recurrent, repro_torch.kernels.rglru_scan\n"
             "import repro_torch.models.lm, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

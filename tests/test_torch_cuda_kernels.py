@@ -15,7 +15,9 @@ order of the sum). The tensor-core flash kernel (bf16 / f16) is held at
 2e-2 at every head dim, the tensor-core paged_prefill kernel at 2 bf16
 ulps at every head dim and block size; paged decode's split is held bit
 for bit where the output must not move (a row alone or in any batch, a
-non-finite pool past ctx, ctx = 1 giving the token's V row)."""
+non-finite pool past ctx, ctx = 1 giving the token's V row), and each
+wrapper that reads with TMA gives the aligned call's bits on bf16 views
+off a 16-byte boundary."""
 import numpy as np
 import pytest
 
@@ -258,6 +260,61 @@ def _on_card(t, offset):
     view = buf[offset:].view(t.shape)
     view.copy_(t)
     return view
+
+
+def _unaligned_case(wrapper, cuda):
+    """(wrapper, its bf16 arguments, the positions of the inputs it reads
+    with TMA) at smollm's shapes: paged decode over 8 ragged rows, the
+    4 x 128 paged_prefill admission, the 2 x 512 causal flash."""
+    rng = np.random.default_rng(11)
+    bf = torch.bfloat16
+    if wrapper == "paged_attention":
+        B = 8
+        bt = torch.from_numpy((1 + rng.permutation(B * M)).reshape(B, M)
+                              .astype(np.int32)).to(cuda)
+        ctx = torch.tensor([0, 1, 15, 16, 17, 100, 300, 512],
+                           dtype=torch.int32, device=cuda)
+        return paged_attention, (
+            _rand(rng, B, H, HD, dtype=bf, dev=cuda),
+            *(_rand(rng, B * M + 1, BS, KV, HD, dtype=bf, dev=cuda)
+              for _ in range(2)), bt, ctx), (0, 1, 2)
+    if wrapper == "paged_prefill":
+        N, Ls = 4, 128
+        bt = torch.from_numpy((1 + rng.permutation(N * M)).reshape(N, M)
+                              .astype(np.int32)).to(cuda)
+        st = torch.tensor([0, 48, 200, 0], dtype=torch.int32, device=cuda)
+        ln = torch.tensor([128, 176, 300, 0], dtype=torch.int32,
+                          device=cuda)
+        return paged_prefill_attention, (
+            _rand(rng, N, Ls, H, HD, dtype=bf, dev=cuda),
+            *(_rand(rng, N, Ls, KV, HD, dtype=bf, dev=cuda)
+              for _ in range(2)),
+            *(_rand(rng, N * M + 1, BS, KV, HD, dtype=bf, dev=cuda)
+              for _ in range(2)), bt, st, ln), (0, 1, 2, 3, 4)
+    return flash_attention, (
+        _rand(rng, 2, H, 512, HD, dtype=bf, dev=cuda),
+        *(_rand(rng, 2, KV, 512, HD, dtype=bf, dev=cuda)
+          for _ in range(2))), (0, 1, 2)
+
+
+@pytest.mark.parametrize("wrapper", ["paged_attention", "paged_prefill",
+                                     "flash_attention"])
+@pytest.mark.parametrize("moved", ["each", "all"])
+def test_unaligned_bf16_views_give_the_aligned_bits(cuda, wrapper, moved):
+    """A bf16 input that is a contiguous view one element (2 bytes) off a
+    16-byte boundary is copied before the TMA reads (build.tma_ready): the
+    result is the aligned call's bit for bit, in one launch."""
+    fn, args, tma = _unaligned_case(wrapper, cuda)
+    want = fn(*args)
+    for which in ([(i,) for i in tma] if moved == "each" else [tma]):
+        views = tuple(_on_card(a, 1) if i in which else a
+                      for i, a in enumerate(args))
+        assert all(views[i].data_ptr() % 16 == 2 for i in which)
+        before = fn.launches
+        got = fn(*views)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 # both kernels of csrc/rglru_scan.cu: the bulk kernel (T >= 64, rows of

@@ -28,6 +28,7 @@ from repro.models.attention import \
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
                                  paged_prefill_attention, ref, svrg_update)
 from repro_torch.kernels import rglru_scan  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.build import FLASH_KEY_TILE, PAGED_CHUNK  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import pad_head_dim  # noqa: E402
 
@@ -692,3 +693,42 @@ def test_rglru_scan_route_of_a_view():
     assert rglru_scan.route(2, 64, 32, torch.float32, whole.data_ptr(),
                             whole.data_ptr(), whole.data_ptr()) == "bulk"
     assert rglru_scan.blocks(2, 32, "bulk") == 2
+
+
+# flash_attention (bf16 / f16), paged_prefill's tensor-core path and
+# paged_attention read their inputs with TMA, which needs 16-byte aligned
+# addresses: the wrappers pass each such input through build.tma_ready,
+# which copies one that is off a 16-byte boundary (a pure function of its
+# pointer, build.tma_copies) and passes an aligned one through untouched.
+# On the card the wrappers then give the aligned call's bits
+# (tests/test_torch_cuda_kernels.py::
+# test_unaligned_bf16_views_give_the_aligned_bits).
+@pytest.mark.parametrize("offset,copied", [(0, False), (2, True),
+                                           (8, True), (16, False),
+                                           (17, True), (4096, False)])
+def test_tma_copies_route(offset, copied):
+    base = 1 << 20                                  # an aligned allocation
+    assert build.tma_copies(base + offset) == (copied,)
+    assert build.tma_copies(base, base + offset, base) == (False, copied,
+                                                           False)
+
+
+@pytest.mark.parametrize("dtype,offset", [("bfloat16", 1), ("float16", 3),
+                                          ("bfloat16", 8),
+                                          ("float32", 1), ("int8", 5)])
+def test_tma_ready_copies_only_unaligned_views(dtype, offset):
+    td = getattr(torch, dtype)
+    shape = (3, 5, 16)
+    whole = torch.arange(np.prod(shape)).reshape(shape).to(td)
+    buf = torch.zeros(offset + whole.numel(), dtype=td)
+    view = buf[offset:].view(shape)
+    view.copy_(whole)
+    assert view.is_contiguous()
+    misaligned = (offset * whole.element_size()) % 16 != 0
+    assert build.tma_copies(view.data_ptr()) == (misaligned,)
+    got_whole, got_view = build.tma_ready(whole, view)
+    assert got_whole is whole                       # aligned: untouched
+    assert (got_view is view) == (not misaligned)
+    assert got_view.data_ptr() % 16 == 0 and got_view.is_contiguous()
+    assert got_view.dtype == td and got_view.shape == shape
+    torch.testing.assert_close(got_view, whole, atol=0, rtol=0)
