@@ -31,15 +31,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
              multiple of 8 at 2 x 4 x 40 x 12 / 60 and an unaligned 64
              view, with and without a carried state (its state bit-equal
              to the twin, its y to the split emulation of its order),
-             float32 and bf16; and flash, paged_prefill and paged decode
-             on bf16 views one element off a 16-byte boundary (copied
-             before their TMA reads), bit-equal to the aligned call;
+             float32 and bf16, and with return_states over the engine's
+             verify chains (4 x 40 x 2 / 4 / 5 x 64, 2 x 4 x 5 x 16 / 12:
+             y and S_T unchanged by the flag, every step's state bit-equal
+             to the twin and to the call cut to that step); paged decode
+             with window 2048 at hd 256, group 10, over engine pools (ctx
+             past, at and inside the window; bf16 and float32; rows
+             inside the window bit-equal to the unwindowed call, each row
+             alone to its batch row); and flash, paged_prefill and paged
+             decode on bf16 views one element off a 16-byte boundary
+             (copied before their TMA reads), bit-equal to the aligned
+             call;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
      small_hybrid  the same for a reduced float32 recurrentgemma-2b with
              the full model's attention shapes (forward on 2 x 40 tokens
-             past its window of 16, generate() token for token);
+             past its window of 16, generate() token for token), and its
+             engine on the card against its engine on the CPU token for
+             token: a 30-token prompt admitted in chunks of 8 beside a
+             decoding lane (also equal to generate()), and four prompts at
+             speculate=4 with partial scripted drafts (equal accepted
+             counts);
      small_rwkv  the same for the reduced float32 rwkv6-3b (4 heads of 16);
      serve_cli_default  `python -m repro_torch.launch.serve` with its
              defaults (the engine on the reduced smollm) exits 0 on the card;
@@ -75,13 +88,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
              rglru_scan + 8 flash_attention launches), generate() on 4 x
              64-token prompts with 32 new tokens (96 steps x 18 rglru_scan
              and x 8 paged_attention launches), the margin rule in float32
-             (prefill + decode from its cache vs generate()), then the
-             naive serve CLI once;
+             (prefill + decode from its cache vs generate()); then
+     engine_recurrentgemma  the same weights through ServingEngine (4
+             slots, block 16, max_seq_len 2560) on six prompts of 32-160
+             tokens and one of 2300 (admitted in 2048-token chunks while
+             the others decode; decoding past the 2048 window), 16 new
+             tokens each: float32 (every completion under the float32
+             margin rule against float32 generate()), float32 at
+             speculate=4 with partial scripted drafts, and bf16 (tokens/s,
+             TTFT, TPOT, finite logprobs, every block returned), launches
+             counted per dispatch; then the naive serve CLI once;
   8. rwkv6   full-width rwkv6-3b (32 layers, 3.07 B seeded random params,
              bf16; the other models' weights freed first): lm.forward on 1 x
              2048 tokens (32 rwkv6_scan launches), generate() on 4 x 64 + 32
              (96 steps x 32 launches), the margin rule in float32, and a
              record of the bf16 gaps at 32 layers beside JAX's;
+     engine_rwkv6  the same weights through the engine as in
+             engine_recurrentgemma (verify launches rwkv6_scan with
+             return_states, 32 a dispatch);
      rwkv6_4_layers  the bf16 gate at 4 layers on three seeds: bf16 prefill
              vs stepwise decode <= 0.125 and bf16 vs float32 <= 0.86 on the
              first token's logits, as the port runs (the bounds are twice
@@ -94,11 +118,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              wall time on phase 2's inputs, then one profiled window of
              engine decode steps, one profiled MP-DSVRG outer step at
              d = 2^20, one profiled MP-DANE SAGA round at the quickstart's
-             widths and profiled rwkv6-3b and recurrentgemma decode steps
-             (device busy vs wall, top kernels).
-Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7 and 8
-(their forwards and generate() runs) and read just after, so the launches
-reported are the main paths' own. The last lines are the card's name and
+             widths and profiled rwkv6-3b and recurrentgemma decode steps,
+             through generate()'s lm.decode_step and through the engine
+             (4 lanes; device busy vs wall, top kernels).
+Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8
+and the engine phases (their forwards, generate() and engine runs) and
+read just after, so the launches reported are the main paths' own. The last lines are the card's name and
 power limit, the kernels JSON line and {"ok": true, "device": {...}}.
 `--record PATH` also writes the full record (per-stream telemetry, every
 divergence, the profiles) as JSON. It needs a CUDA device and the repo's
@@ -523,6 +548,51 @@ def phase_kernels(dev):
                                      f"alone differs from its batch row")
         print(f"[kernels] paged_attention {name}: each row alone equals its "
               f"batch row bit for bit ok")
+    # the engine's decode of recurrentgemma-2b's attn_local layers: hd 256,
+    # 10 query heads over 1 KV head, the whole history in 16-token blocks,
+    # window 2048; contexts past the window (the chunked 2300-token prompt
+    # of the engine phase decodes at 2300..2316), at it and inside it; bf16
+    # and float32 (the engine phase's float32 run). Rows inside the window
+    # give the unwindowed call's bits, and every row its bits alone
+    win, wctx = 2048, [2316, 2049, 2048, 900, 1, 0]
+    wm = -(-max(wctx) // bs)
+    for dt_name, dt in (("bf16", bf), ("float32", torch.float32)):
+        wa = (rn(len(wctx), 10, 256, dt=dt),
+              rn(len(wctx) * wm + 1, bs, 1, 256, dt=dt),
+              rn(len(wctx) * wm + 1, bs, 1, 256, dt=dt),
+              tables_for(len(wctx), wm), i32(wctx))
+        got = paged_attention(*wa, window=win)
+        arm(arms, f"paged_attention window={win} hd256 group10 engine "
+                  f"pools {dt_name}", got,
+            ref.paged_attention_ref(*wa, window=win),
+            **({} if dt is bf else dict(f32_tol=2e-5)))
+        inside = wa[4] <= win
+        if not torch.equal(got[inside], paged_attention(*wa)[inside]):
+            raise AssertionError(f"paged_attention window={win}: rows "
+                                 f"inside the window differ from the call "
+                                 f"without one")
+        for b_ in range(len(wctx)):
+            alone = paged_attention(wa[0][b_:b_ + 1], wa[1], wa[2],
+                                    wa[3][b_:b_ + 1], wa[4][b_:b_ + 1],
+                                    window=win)
+            if not torch.equal(alone[0], got[b_]):
+                raise AssertionError(f"paged_attention window={win} "
+                                     f"{dt_name}: row {b_} alone differs "
+                                     f"from its batch row")
+        if dt is bf:
+            w_args = wa
+    print(f"[kernels] paged_attention window={win} (ctx {wctx}): rows "
+          f"inside the window equal the unwindowed call, each row alone "
+          f"its batch row, bit for bit ok")
+    w_tok = sum(min(c, win) for c in wctx)
+    w_bound = _bound_ms(2 * _nbytes(w_args[0]) + _nbytes(w_args[3], w_args[4])
+                        + 2 * w_tok * 256 * 2, 4 * 10 * 256 * w_tok)
+    w_arm = dict(label=f"hd256 group10 B=6, window {win}, engine pools "
+                       f"(block {bs}), ctx {'/'.join(map(str, wctx))}, bf16",
+                 _fns=(lambda a=w_args: paged_attention(*a, window=win),
+                       lambda a=w_args: ref.paged_attention_ref(
+                           *a, window=win), None),
+                 bound_ms=w_bound[0], bound_by=w_bound[1])
     # q and both pools as views off a 16-byte boundary (the pools are
     # copied whole before the TMA row gathers)
     pa_unaligned = unaligned_arm("paged_attention B=8 bf16", paged_attention,
@@ -536,7 +606,7 @@ def phase_kernels(dev):
               lambda a=args: ref.paged_attention_ref(*a), None),
         bound_ms=bound, bound_by=by,
         shape=dict(B=B, H=H, KV=KV, hd=hd, bs=bs, M=M, ctx=ctx.tolist()),
-        _extra=[rg_arm, pa_unaligned], **worst(arms)))
+        _extra=[rg_arm, w_arm, pa_unaligned], **worst(arms)))
 
     # -- paged_prefill, at each shape the engine gives it: an admission of
     # 4 x 128 (a fresh prompt, a cached prefix, a long cached prefix and a
@@ -943,12 +1013,42 @@ def phase_kernels(dev):
                 arm(arms, name + " y vs the split emulation", got, split,
                     f32_tol=0.0)
 
-    def rwkv_bound(a_):
+    # the speculative verify's arm: return_states=True over the engine's
+    # chain buckets (speculate=4: T = 2, 4, 5) at 4 lanes, bf16 from a
+    # carried state, and the reduced model's 2 x 4 x 5 x 16 and a padded
+    # N = 12: y and S_T bit-equal to the call without the flag, S_steps
+    # bit-equal to the twin's and each S_steps[:, :, t] to S_T of the call
+    # cut to t + 1 steps
+    for shape in ((4, 40, 2, 64), (4, 40, 4, 64), (4, 40, 5, 64),
+                  (2, 4, 5, 16), (2, 4, 5, 12)):
+        for dt in (torch.float32, bf):
+            a_ = rwkv_inputs(shape, dt, True)
+            y_, s_, steps_ = rwkv6_scan(*a_, return_states=True)
+            y0, s0_ = rwkv6_scan(*a_)
+            name = (f"rwkv6_scan {'x'.join(map(str, shape))} {dt} "
+                    f"return_states")
+            if not (torch.equal(y_, y0) and torch.equal(s_, s0_)):
+                raise AssertionError(f"{name}: y or S_T moved with the flag")
+            _, _, want_steps = ref.rwkv6_scan_ref(*a_, return_states=True)
+            arm(arms, name + " S_steps", steps_, want_steps, f32_tol=0.0)
+            for t_ in range(shape[2]):
+                _, s_cut = rwkv6_scan(*(x[:, :, :t_ + 1].contiguous()
+                                        for x in a_[:4]), *a_[4:])
+                if not torch.equal(steps_[:, :, t_], s_cut):
+                    raise AssertionError(f"{name}: step {t_} differs from "
+                                         f"the cut call's S_T")
+    print("[kernels] rwkv6_scan return_states: y and S_T unchanged by the "
+          "flag, every step's state bit-equal to the twin and to the cut "
+          "call ok")
+
+    def rwkv_bound(a_, states=False):
         r_, k_, v_, w_, u_, s0_ = a_
         B_, H_, T_, N_ = r_.shape
-        # r, k, v, w, u and s0 read once, y and S_T written once; 7 float32
-        # operations per state element per step
-        return _bound_ms(_nbytes(r_, k_, v_, w_, u_, s0_, r_, s0_),
+        # r, k, v, w, u and s0 read once, y and S_T (and with states every
+        # step's state) written once; 7 float32 operations per state
+        # element per step
+        return _bound_ms(_nbytes(r_, k_, v_, w_, u_, s0_, r_, s0_)
+                         + (4 * B_ * H_ * T_ * N_ * N_ if states else 0),
                          7 * B_ * H_ * T_ * N_ * N_, "f32")
 
     def rwkv_blocks(a_):
@@ -975,6 +1075,17 @@ def phase_kernels(dev):
                                 lambda a=a_: ref.rwkv6_scan_ref(*a), None),
                           bound_ms=b_[0], bound_by=b_[1],
                           _reps=3 if shape[2] > 40 else 20))
+    vfy = rwkv_inputs((4, 40, 5, 64), bf, True)
+    for states in (True, False):
+        b_ = rwkv_bound(vfy, states)
+        extra.append(dict(
+            label=f"verify 4 x 40 x 5 x 64 bf16 from s0, "
+                  f"{'with' if states else 'without'} return_states",
+            blocks=rwkv_blocks(vfy),
+            _fns=(lambda a=vfy, st=states: rwkv6_scan(*a, return_states=st),
+                  lambda a=vfy, st=states: ref.rwkv6_scan_ref(
+                      *a, return_states=st), None),
+            bound_ms=b_[0], bound_by=b_[1]))
     bound, by = rwkv_bound(step)
     out.append(dict(
         name="rwkv6_scan", route="cuda",
@@ -1041,19 +1152,29 @@ def _first_divergence(a, b):
 
 
 def check_against_generate(params, cfg, reqs, done, dev, bound):
-    """The margin rule: engine tokens equal generate()'s up to the first
-    divergence, and there generate()'s top-1/top-2 gap is <= bound. Also
-    returns generate()'s gaps at every generated position."""
+    """The margin rule (_margin_rule) against generate() run on each
+    request alone. Also returns generate()'s gaps at every generated
+    position."""
     from repro_torch.launch.serve import generate
-    by_rid = {r.rid: r for r in reqs}
-    exact, within, gaps = 0, [], []
-    for c in sorted(done, key=lambda c: c.rid):
-        r = by_rid[c.rid]
+    refs = {}
+    for r in reqs:
         toks, margins = generate(params, cfg, r.prompt[None],
                                  r.max_new_tokens, device=dev,
                                  return_margins=True)
-        toks, margins = toks[0].cpu().numpy(), margins[0].cpu().numpy()
-        gaps.extend(float(x) for x in margins)
+        refs[r.rid] = (toks[0].cpu().numpy(), margins[0].cpu().numpy())
+    rec = _margin_rule(done, refs, bound, "engine vs generate()")
+    rec["gaps"] = [float(x) for c in sorted(done, key=lambda c: c.rid)
+                   for x in refs[c.rid][1]]
+    return rec
+
+
+def _margin_rule(done, refs, bound, what):
+    """The margin rule: each completion equals generate()'s tokens up to
+    the first divergence, and there generate()'s top-1/top-2 gap is <=
+    bound. refs: {rid: (generate()'s tokens, its gaps)}."""
+    exact, within = 0, []
+    for c in sorted(done, key=lambda c: c.rid):
+        toks, margins = refs[c.rid]
         i = _first_divergence(c.tokens, toks)
         if i is None:
             exact += 1
@@ -1062,11 +1183,11 @@ def check_against_generate(params, cfg, reqs, done, dev, bound):
         within.append({"rid": c.rid, "at": i, "margin": gap})
         if gap > bound:
             raise AssertionError(
-                f"request {c.rid}: engine and generate() diverge at token "
-                f"{i} where generate()'s top-1/top-2 margin is {gap:.4f} "
-                f"> {bound}")
+                f"{what}: request {c.rid} leaves generate() at token {i} "
+                f"where generate()'s top-1/top-2 margin is {gap:.5f} > "
+                f"{bound}")
     return {"requests": len(done), "exact": exact,
-            "diverged_within_bound": within, "bound": bound, "gaps": gaps}
+            "diverged_within_bound": within, "bound": bound}
 
 
 def phase_small(dev):
@@ -1131,7 +1252,111 @@ def phase_small_recurrent(dev, cfg, tag):
     if not same:
         raise AssertionError(f"{tag}: generate() differs between the card "
                              f"and the CPU")
-    return {"forward_max_abs_err": err, "generate_equal": same}
+    return {"forward_max_abs_err": err, "generate_equal": same,
+            "engine": _small_engine_card_vs_cpu(params, cuda_params, cfg,
+                                                dev, tag)}
+
+
+class ScriptedProposer:
+    """A draft proposer that knows each request's greedy continuation
+    (`scripts`: [(prompt list, continuation list)]) and proposes it with
+    its second token off by one: the first draft token is accepted and
+    the rest rejected, so every verify of a longer draft rolls the
+    recurrent state back to a mid-chain snapshot."""
+
+    def __init__(self, scripts, vocab_size):
+        self.scripts = scripts
+        self.vocab_size = vocab_size
+
+    def propose(self, history, k):
+        hist = list(history)
+        for prompt, out in self.scripts:
+            full = prompt + out
+            if (len(prompt) < len(hist) <= len(full)
+                    and hist == full[:len(hist)]):
+                nxt = full[len(hist):len(hist) + k]
+                if len(nxt) > 1:
+                    nxt[1] = (nxt[1] + 1) % self.vocab_size
+                return nxt
+        return []
+
+
+def _scripts(reqs, outs):
+    """ScriptedProposer scripts from requests and {rid: continuation}."""
+    return [([int(t) for t in r.prompt], [int(t) for t in outs[r.rid]])
+            for r in reqs]
+
+
+def _small_engine_card_vs_cpu(params, cuda_params, cfg, dev, tag):
+    """The reduced recurrent model's engine on the card against the same
+    engine on the CPU, token for token: (a) a 30-token prompt admitted in
+    chunks of 8 beside a decoding 5-token request (2 slots, block 4), the
+    stream on which the JAX engine leaves generate() (ROADMAP, reference
+    faults), also equal to generate() on the CPU; (b) four 9-token prompts
+    at speculate=4 with partial scripted drafts (scripts from generate()
+    on the CPU), equal accepted counts on both."""
+    import numpy as np
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving.engine import Request, ServingEngine
+    V = cfg.vocab_size
+
+    def chunked():
+        rng = np.random.default_rng(0)
+        return [Request(rid=0, prompt=rng.integers(0, V, 5).astype(np.int32),
+                        max_new_tokens=20),
+                Request(rid=1, prompt=rng.integers(0, V, 30).astype(np.int32),
+                        max_new_tokens=6)]
+
+    def drafted():
+        rng = np.random.default_rng(2)
+        return [Request(rid=i, prompt=rng.integers(0, V, 9).astype(np.int32),
+                        max_new_tokens=n)
+                for i, n in enumerate((12, 7, 10, 5))]
+
+    want = {name: {r.rid: generate(params, cfg, r.prompt[None],
+                                   r.max_new_tokens, device="cpu")[0].numpy()
+                   for r in make()}
+            for name, make in (("chunked", chunked), ("drafted", drafted))}
+    runs = {"chunked": (chunked, dict(num_slots=2, block_size=4,
+                                      max_seq_len=64, prefill_buckets=[4, 8],
+                                      prefill_chunk=8)),
+            "drafted": (drafted, dict(num_slots=2, block_size=4,
+                                      max_seq_len=32, speculate=4))}
+    rec = {}
+    for name, (make, kw) in runs.items():
+        got = {}
+        for where, p_ in (("cpu", params), ("cuda", cuda_params)):
+            eng = ServingEngine(p_, cfg, device="cpu" if where == "cpu"
+                                else dev, **kw)
+            if kw.get("speculate"):
+                eng.scheduler._proposers = [ScriptedProposer(
+                    _scripts(make(), want[name]), V)] * eng.num_slots
+            done = sorted(eng.run(make()), key=lambda c: c.rid)
+            got[where] = ([c.tokens.tolist() for c in done],
+                          eng.scheduler.proposed_tokens,
+                          eng.scheduler.accepted_tokens,
+                          eng.runner.prefill_dispatches)
+        same = got["cpu"] == got["cuda"]
+        exact = got["cpu"][0] == [want[name][i].tolist()
+                                  for i in sorted(want[name])]
+        rec[name] = {"equal": same, "equals_generate": exact,
+                     "proposed": got["cuda"][1], "accepted": got["cuda"][2],
+                     "prefill_dispatches": got["cuda"][3]}
+        print(f"[{tag}] engine {name} cuda vs cpu: "
+              f"{'equal' if same else 'DIFFER'} (tokens, proposed / "
+              f"accepted {got['cuda'][1]} / {got['cuda'][2]}, "
+              f"{got['cuda'][3]} prefill dispatches); equal to generate(): "
+              f"{exact}")
+        if not same:
+            raise AssertionError(f"{tag}: engine {name} differs between the "
+                                 f"card and the CPU: {got}")
+        if name == "chunked" and not exact:
+            raise AssertionError(f"{tag}: the chunked stream leaves "
+                                 f"generate() on the CPU")
+        if name == "drafted" and not 0 < got["cuda"][2] < got["cuda"][1]:
+            raise AssertionError(f"{tag}: partial drafts were not partly "
+                                 f"accepted: {got['cuda'][1:3]}")
+    return rec
 
 
 def phase_serve_cli_default():
@@ -1292,18 +1517,16 @@ def phase_recurrentgemma(dev):
     """Full-width recurrentgemma-2b (26 layers: 18 RG-LRU, 8 attn_local
     with window 2048; d_model 2560, 10 heads over 1 KV head, head_dim 256,
     vocab 256000) through _full_width: lm.forward on 1 x 2304 tokens (past
-    the window), generate() and the margin rule."""
+    the window), generate() and the margin rule. Returns (record, the
+    float32 master, the bf16 params) for the engine phase."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     cfg = get_config("recurrentgemma-2b")
     kinds = lm.layer_kinds(cfg)
     n_rec, n_attn = kinds.count("rec"), kinds.count("attn_local")
-    rec, master, params = _full_width(
+    return _full_width(
         cfg, dev, 2304, {"rglru_scan": n_rec, "flash_attention": n_attn},
         {"rglru_scan": n_rec, "paged_attention": n_attn}, "recurrentgemma")
-    del master, params
-    torch.cuda.empty_cache()
-    return rec
 
 
 def _first_token_logits(params, cfg, prompts):
@@ -1353,7 +1576,7 @@ def phase_rwkv6(dev):
     d_ff 8960, vocab 65536; 3.07 B params) through _full_width: lm.forward
     on 1 x 2048 tokens, generate() and the margin rule; then, as a record
     with no bound, the bf16 gaps of the first token's logits at 32 layers
-    beside JAX's. Returns (record, the bf16 params)."""
+    beside JAX's. Returns (record, the float32 master, the bf16 params)."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     cfg = get_config("rwkv6-3b")
@@ -1363,7 +1586,6 @@ def phase_rwkv6(dev):
     # bf16 at 32 layers: a record, not a check (the reference's own gap is
     # a large share of its logits at this depth)
     b32 = _bf16_gaps(master, cfg, _np_prompts(0, cfg.vocab_size, dev))
-    del master
     torch.cuda.empty_cache()
     b32["jax"] = JAX_BF16_32_LAYERS
     rec["bf16_record_32_layers"] = b32
@@ -1379,7 +1601,7 @@ def phase_rwkv6(dev):
           f"prefill vs stepwise {b32['float32_prefill_vs_stepwise']:.2e}; "
           f"float32 max |logit| {b32['float32_max_abs_logit']:.3f} (JAX: "
           f"{JAX_BF16_32_LAYERS['float32_max_abs_logit']:.3f})")
-    return rec, params
+    return rec, master, params
 
 
 def phase_rwkv6_4_layers(dev):
@@ -1422,6 +1644,173 @@ def phase_rwkv6_4_layers(dev):
             raise AssertionError(f"seed {seed}: bf16 gaps {r} past the "
                                  f"bounds {rec['bounds']}")
     return rec
+
+
+def _full_width_stream(vocab, logprobs=0):
+    """The recurrent engine phases' stream: six prompts of 32-160 tokens
+    and one of 2300 (past the 2048-token default prefill chunk, so it is
+    admitted in two chunks while the others decode, and it decodes past
+    recurrentgemma-2b's 2048-token window), 16 new tokens each, all at t =
+    0, prompts from numpy.random.default_rng(5)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+    rng = np.random.default_rng(5)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=16,
+                    sampling=SamplingParams(logprobs=logprobs))
+            for i, n in enumerate((32, 96, 160, 2300, 32, 96, 160))]
+
+
+def _generate_refs(params, cfg, reqs, dev):
+    """{rid: (generate()'s tokens, its top-1/top-2 gaps)}, the prompts of
+    one length in one batch."""
+    import numpy as np
+    from repro_torch.launch.serve import generate
+    groups = {}
+    for r in reqs:
+        groups.setdefault((len(r.prompt), r.max_new_tokens), []).append(r)
+    out = {}
+    for (_, n), rs in groups.items():
+        toks, margins = generate(params, cfg, np.stack([r.prompt for r in rs]),
+                                 n, device=dev, return_margins=True)
+        for i, r in enumerate(rs):
+            out[r.rid] = (toks[i].cpu().numpy(),
+                          margins[i].float().cpu().numpy())
+    return out
+
+
+def phase_engine_recurrent(master, params, cfg, dev, tag):
+    """A full-width recurrent model (phase 7's or 8's weights) through
+    ServingEngine with 4 slots, block 16, max_seq_len 2560, on
+    _full_width_stream: in float32 (every completion under the float32
+    margin rule against float32 generate()), in float32 at speculate=4
+    with partial scripted drafts (scripts from generate()'s tokens), and
+    in bf16 (tokens/s, TTFT, TPOT; every request completes with finite
+    logprobs and every block returns). Launch counters are zeroed before
+    each run and read after it: per dispatch, each attention layer
+    launches paged_prefill (prefill, verify) or paged_attention (decode),
+    each recurrent layer its scan; rwkv6 verifies launch rwkv6_scan with
+    return_states. Returns (record, launches summed over the runs)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import (ServingEngine, summarize,
+                                            synthetic_requests)
+    V = cfg.vocab_size
+    kinds = lm.layer_kinds(cfg)
+    n_attn = kinds.count("attn") + kinds.count("attn_local")
+    n_rec, n_rwkv = kinds.count("rec"), kinds.count("rwkv")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kw = dict(num_slots=4, block_size=16, max_seq_len=2560, device=dev)
+    totals = {k: 0 for k in kernels.launch_counts()}
+
+    def run(eng, name, logprobs=0):
+        eng.run(synthetic_requests(2, vocab_size=V, prompt_len=(20, 40),
+                                   max_new=(3, 3), seed=9))   # warm-up
+        torch.cuda.synchronize()
+        free0 = eng.allocator.num_free
+        reqs = _full_width_stream(V, logprobs)
+        kernels.reset_launch_counts()
+        rwkv6_scan.state_launches = 0
+        done = sorted(eng.run(reqs), key=lambda c: c.rid)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        stats = summarize(done, eng.wall_time, eng)
+        prefills = stats["prefill"]["dispatches"]
+        verifies = (stats.get("speculation") or {}).get(
+            "verify_dispatches", 0)
+        want = {"paged_prefill": n_attn * (prefills + verifies),
+                "paged_attention": n_attn * (eng.steps - verifies),
+                "flash_attention": 0, "svrg_update": 0,
+                "rglru_scan": n_rec * (prefills + eng.steps),
+                "rwkv6_scan": n_rwkv * (prefills + eng.steps)}
+        stats.update(launches=counts, decode_or_verify_steps=eng.steps,
+                     rwkv6_scan_with_states=rwkv6_scan.state_launches)
+        print(f"[{tag}] {name}: {stats['requests']} requests, "
+              f"{stats['generated_tokens']} tokens in {stats['wall_s']} s, "
+              f"{stats['tokens_per_s']} tokens/s, ttft p50 "
+              f"{stats['ttft_p50_ms']} ms p99 {stats['ttft_p99_ms']} ms, "
+              f"tpot p50 {stats['tpot_p50_ms']} ms; {prefills} prefill, "
+              f"{verifies} verify, {eng.steps - verifies} decode dispatches; "
+              f"prefill shapes {sorted(eng.runner.prefill_shapes)}; "
+              f"launches {counts}"
+              + (f", {rwkv6_scan.state_launches} rwkv6_scan with states"
+                 if n_rwkv else ""))
+        if counts != want:
+            raise AssertionError(f"{tag} {name}: launches {counts}, expected "
+                                 f"{want} from the dispatch counts")
+        if n_rwkv and rwkv6_scan.state_launches != n_rwkv * verifies:
+            raise AssertionError(f"{tag} {name}: {rwkv6_scan.state_launches} "
+                                 f"rwkv6_scan launches with states, expected "
+                                 f"{n_rwkv * verifies}")
+        if len(done) != len(reqs) or eng.allocator.num_free != free0:
+            raise AssertionError(f"{tag} {name}: {len(done)} of {len(reqs)} "
+                                 f"requests completed, "
+                                 f"{free0 - eng.allocator.num_free} blocks "
+                                 f"not returned")
+        if (1, 2048) not in eng.runner.prefill_shapes:
+            raise AssertionError(f"{tag} {name}: the 2300-token prompt was "
+                                 f"not admitted in 2048-token chunks")
+        for c in done:
+            if len(c.tokens) != 16 or not bool(((c.tokens >= 0)
+                                                & (c.tokens < V)).all()):
+                raise AssertionError(f"{tag} {name}: request {c.rid}'s "
+                                     f"tokens misshapen or out of range")
+        for k in totals:
+            totals[k] += counts[k]
+        return reqs, done, stats
+
+    rec = {"stream": {"prompts": [32, 96, 160, 2300, 32, 96, 160],
+                      "new_tokens": 16, "slots": 4, "block_size": 16,
+                      "max_seq_len": 2560, "prefill_chunk": 2048}}
+    eng = ServingEngine(master, cfg32, **kw)
+    reqs, done, stats = run(eng, "float32")
+    del eng
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        refs = _generate_refs(master, cfg32, reqs, dev)
+    gen_s = time.perf_counter() - t0
+    rule = _margin_rule(done, refs, MARGIN_BOUND_F32, f"{tag} float32")
+    print(f"[{tag}] float32 engine vs float32 generate() ({gen_s:.1f} s): "
+          f"{rule['exact']}/{rule['requests']} exact; divergences within "
+          f"the bound {MARGIN_BOUND_F32}: "
+          f"{[(d['rid'], d['at'], d['margin']) for d in rule['diverged_within_bound']]}")
+    rec["float32"] = {"stats": stats, "vs_generate": rule,
+                      "generate_seconds": gen_s}
+
+    eng = ServingEngine(master, cfg32, speculate=4, **kw)
+    eng.scheduler._proposers = [ScriptedProposer(
+        _scripts(reqs, {r: t for r, (t, _) in refs.items()}),
+        V)] * eng.num_slots
+    _, done, stats = run(eng, "float32 speculate=4 partial drafts")
+    sched = eng.scheduler
+    del eng
+    rule = _margin_rule(done, refs, MARGIN_BOUND_F32,
+                        f"{tag} float32 speculate=4")
+    spec = stats.get("speculation") or {}
+    print(f"[{tag}] float32 speculate=4 vs float32 generate(): "
+          f"{rule['exact']}/{rule['requests']} exact; proposed "
+          f"{sched.proposed_tokens}, accepted {sched.accepted_tokens}")
+    if not spec.get("verify_dispatches") or not (
+            0 < sched.accepted_tokens < sched.proposed_tokens):
+        raise AssertionError(f"{tag}: the partial drafts were not verified "
+                             f"and partly accepted ({spec})")
+    rec["float32_speculate4"] = {"stats": stats, "vs_generate": rule,
+                                 "proposed": sched.proposed_tokens,
+                                 "accepted": sched.accepted_tokens}
+    torch.cuda.empty_cache()
+
+    eng = ServingEngine(params, cfg, **kw)
+    _, done, stats = run(eng, "bf16", logprobs=1)
+    del eng
+    torch.cuda.empty_cache()
+    lps = np.concatenate([c.logprobs for c in done])
+    if not (np.isfinite(lps).all() and (lps <= 0).all()):
+        raise AssertionError(f"{tag} bf16: logprobs not finite or positive")
+    rec["bf16"] = {"stats": stats}
+    return rec, totals
 
 
 def profile_lm_decode(params, cfg, dev, n_steps=4):
@@ -2181,18 +2570,18 @@ def phase_core(dev):
 
 
 def profile_decode(eng, vocab, n_steps=10):
-    """Where one decode step's time goes: 8 lanes decoding (prompts of
+    """Where one decode step's time goes: every lane decoding (prompts of
     128, all admitted first), n_steps engine steps under torch.profiler.
     Returns wall ms per step, device-busy ms per step (summed kernel
     time), the idle share and the top kernels by device time."""
     from repro_torch.serving.engine import synthetic_requests
     # room for three profiled windows (_profiled)
     new = 3 * n_steps + 8
-    for r in synthetic_requests(8, vocab_size=vocab, prompt_len=128,
-                                max_new=(new, new), seed=5):
+    for r in synthetic_requests(eng.num_slots, vocab_size=vocab,
+                                prompt_len=128, max_new=(new, new), seed=5):
         eng.submit(r)
     eng.begin_run()
-    while eng.stats().queue_depth:     # admit all 8
+    while eng.stats().queue_depth:     # admit them all
         eng.step()
     for _ in range(2):                 # then a couple of plain decodes
         eng.step()
@@ -2219,7 +2608,9 @@ def profile_decode(eng, vocab, n_steps=10):
                             e.self_device_time_total / 1e3 / n_steps,
                             "calls_per_step": e.count / n_steps}
                            for e in top]}
-    print(f"[profile] decode step: wall {wall:.2f} ms, device busy "
+    rec["lanes"] = eng.num_slots
+    print(f"[profile] {eng.cfg.name} engine decode step ({eng.num_slots} "
+          f"lanes): wall {wall:.2f} ms, device busy "
           f"{busy:.3f} ms (idle {rec['idle_share']:.1%}), "
           f"{launches:.0f} kernel launches per step")
     for t in rec["top_kernels"]:
@@ -2243,6 +2634,7 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import lm
+    from repro_torch.serving.engine import ServingEngine
     dev = resolve_device("cuda")       # also sets the float flags
     t_start = time.perf_counter()
     card = subprocess.run(
@@ -2281,14 +2673,25 @@ def main(argv=None):
     record["engine"], engine = phase("engine", phase_engine, params, cfg,
                                      dev)
     record["core"], profile_core = phase("core", phase_core, dev)
-    record["recurrentgemma"] = phase("recurrentgemma", phase_recurrentgemma,
-                                     dev)
+    record["recurrentgemma"], rg_master, rg_params = phase(
+        "recurrentgemma", phase_recurrentgemma, dev)
+    record["engine_recurrentgemma"], rg_engine = phase(
+        "engine_recurrentgemma", phase_engine_recurrent, rg_master,
+        rg_params, get_config("recurrentgemma-2b"), dev,
+        "engine_recurrentgemma")
+    del rg_master, rg_params
+    torch.cuda.empty_cache()
     record["serve_cli"] = phase("serve_cli", phase_serve_cli, dev,
                                 "recurrentgemma-2b")
     # the other models' weights leave the card before rwkv6-3b's 17 GiB
     del params
     torch.cuda.empty_cache()
-    record["rwkv6"], rwkv_params = phase("rwkv6", phase_rwkv6, dev)
+    record["rwkv6"], rw_master, rwkv_params = phase("rwkv6", phase_rwkv6, dev)
+    record["engine_rwkv6"], rw_engine = phase(
+        "engine_rwkv6", phase_engine_recurrent, rw_master, rwkv_params,
+        get_config("rwkv6-3b"), dev, "engine_rwkv6")
+    del rw_master
+    torch.cuda.empty_cache()
     record["rwkv6_4_layers"] = phase("rwkv6_4_layers", phase_rwkv6_4_layers,
                                      dev)
     record["serve_cli_rwkv6"] = phase("serve_cli_rwkv6", phase_serve_cli,
@@ -2298,29 +2701,43 @@ def main(argv=None):
     record["decode_profile"] = phase("decode_profile", profile_decode,
                                      engine, cfg.vocab_size)
     record["core_profile"] = phase("core_profile", profile_core)
+    rw_cfg = get_config("rwkv6-3b")
     record["rwkv6_decode_profile"] = phase(
-        "rwkv6_decode_profile", profile_lm_decode, rwkv_params,
-        get_config("rwkv6-3b"), dev)
+        "rwkv6_decode_profile", profile_lm_decode, rwkv_params, rw_cfg, dev)
+    # the engine of the bf16 runs of phase engine_rwkv6, every lane decoding
+    record["rwkv6_engine_decode_profile"] = phase(
+        "rwkv6_engine_decode_profile", profile_decode,
+        ServingEngine(rwkv_params, rw_cfg, num_slots=4, block_size=16,
+                      max_seq_len=2560, device=dev), rw_cfg.vocab_size)
     del rwkv_params
     torch.cuda.empty_cache()
     rg_cfg = get_config("recurrentgemma-2b")
+    rg_params = lm.cast_params(lm.init_params(0, rg_cfg, device=dev), rg_cfg)
     record["recurrentgemma_decode_profile"] = phase(
-        "recurrentgemma_decode_profile", profile_lm_decode,
-        lm.cast_params(lm.init_params(0, rg_cfg, device=dev), rg_cfg),
+        "recurrentgemma_decode_profile", profile_lm_decode, rg_params,
         rg_cfg, dev)
+    record["recurrentgemma_engine_decode_profile"] = phase(
+        "recurrentgemma_engine_decode_profile", profile_decode,
+        ServingEngine(rg_params, rg_cfg, num_slots=4, block_size=16,
+                      max_seq_len=2560, device=dev), rg_cfg.vocab_size)
+    del rg_params
     rg, rw = record["recurrentgemma"], record["rwkv6"]
     launches = {"flash_attention":
                 record["forward"]["launches"]["flash_attention"]
                 + rg["forward"]["launches"]["flash_attention"],
                 "paged_attention":
                 record["engine"]["launches"]["paged_attention"]
-                + rg["generate"]["launches"]["paged_attention"],
-                "paged_prefill": record["engine"]["launches"]["paged_prefill"],
+                + rg["generate"]["launches"]["paged_attention"]
+                + rg_engine["paged_attention"],
+                "paged_prefill": record["engine"]["launches"]["paged_prefill"]
+                + rg_engine["paged_prefill"],
                 "svrg_update": record["core"]["svrg_update_launches"],
                 "rglru_scan": rg["forward"]["launches"]["rglru_scan"]
-                + rg["generate"]["launches"]["rglru_scan"],
+                + rg["generate"]["launches"]["rglru_scan"]
+                + rg_engine["rglru_scan"],
                 "rwkv6_scan": rw["forward"]["launches"]["rwkv6_scan"]
-                + rw["generate"]["launches"]["rwkv6_scan"]}
+                + rw["generate"]["launches"]["rwkv6_scan"]
+                + rw_engine["rwkv6_scan"]}
     for k in kern:
         k["launches"] = launches[k["name"]]
     record["kernels"] = kern

@@ -58,14 +58,14 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signatures of the extern "C" entry points (pointers and the stream as
 # c_void_p so ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "paged_attention": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
     "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
     "paged_prefill_wgmma": [_P] * 9 + [_I] * 10 + [_F, _P],
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
     "flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [_F, _P],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
     "rglru_scan": [_P] * 5 + [_I] * 5 + [_P],
-    "rwkv6_scan": [_P] * 8 + [_I] * 5 + [_P],
+    "rwkv6_scan": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 

@@ -5,7 +5,11 @@
 // (B, H, hd) attends to the first ctx_lens[b] tokens of its sequence,
 // gathered from (N, bs, KV, hd) pools through the (B, M) block table, with
 // a softmax; ctx == 0 gives zeros; int8 / fp8-e4m3 pools are dequantized
-// against (N, bs, KV) float32 scale tables.
+// against (N, bs, KV) float32 scale tables. With window > 0 (the local
+// attention layers of recurrentgemma-2b, whose paged history keeps every
+// token) row b attends only to tokens ctx_b - window <= i < ctx_b, as the
+// JAX oracle's mask (src/repro/models/attention.py:
+// paged_decode_attention_block) does.
 //
 // What bounds it on the H100: bytes. Each context token's K and V row is
 // read once (2 * KV * hd elements per token) against ~4 * H * hd flops, far
@@ -19,8 +23,12 @@
 // CHUNK)): a block takes one chunk of one (row, KV head) for the whole
 // GQA group, so each K/V row is read once for all `group` query rows (the
 // TPU kernel's (group, hd) tile). A block whose chunk starts at or past
-// its row's ctx exits at once; tokens at or past ctx are never read, and
-// chunks cross block-table boundaries freely.
+// its row's ctx, or ends at or below the window's first token, exits at
+// once and is no part of the merge; tokens outside [ctx - window, ctx) are
+// never read (in the first live chunk the warps skip the rows below the
+// window), and chunks cross block-table boundaries freely. The chunks
+// stay aligned to token 0 whatever the window, so with ctx <= window the
+// launch does exactly what it does without one.
 //
 // Inside a chunk each of the eight warps takes a tile of 16 tokens: lane
 // i gathers token i's K and V rows into shared memory with one bulk TMA
@@ -38,9 +46,9 @@
 // scratch, fences, and counts itself in on the (row, KV head)'s counter;
 // the block that comes last merges the partials in split order and resets
 // the counter to 0. No value is combined with atomics, so a row's output
-// bits depend on its own ctx and data only, not on the batch or on which
-// block finished first: the engine and generate() can be held to each
-// other token for token.
+// bits depend on its own ctx, window and data only, not on the batch or
+// on which block finished first: the engine and generate() can be held to
+// each other token for token.
 
 #include <type_traits>
 
@@ -146,7 +154,7 @@ __global__ void __launch_bounds__(NT)
                            const int32_t* __restrict__ ctx_lens,
                            TQ* __restrict__ out, float* __restrict__ scratch,
                            int* __restrict__ counters, int H, int KV, int bs,
-                           int M, float scale_log2) {
+                           int M, int window, float scale_log2) {
   constexpr int LPR = lanes_per_row<HD>();
   constexpr int RPW = 32 / LPR;        // token rows per warp in P.V
   constexpr int MAXG = max_group<HD>();
@@ -172,21 +180,26 @@ __global__ void __launch_bounds__(NT)
   const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ctx = max(0, min(ctx_lens[b], M * bs));
+  // the window's first token, the first live split and the live splits
+  const int lo = window > 0 ? max(0, ctx - window) : 0;
+  const int s_lo = lo / CHUNK;
   const int c0 = split * CHUNK, c1 = min(c0 + CHUNK, ctx);
-  const int n_act = (ctx + CHUNK - 1) / CHUNK;
+  const int n_act = (ctx + CHUNK - 1) / CHUNK - s_lo;
   // the group's query / output rows are contiguous: heads kvh * group + g
   const size_t qrow0 = (size_t)b * H + (size_t)kvh * group;
 
-  if (c0 >= ctx) {
+  if (c0 >= ctx || split < s_lo) {
     if (ctx == 0 && split == 0)
       for (int e = threadIdx.x; e < group * HD; e += NT)
         out[qrow0 * HD + e] = rt::from_f<TQ>(0.f);
     return;
   }
 
-  // this warp's tile: tokens t0 .. t0 + n_tok - 1, lane i's is t0 + i
+  // this warp's tile: tokens t0 + skip .. t0 + n_tok - 1, lane i's is
+  // t0 + i (skip > 0 only where the window starts inside the tile)
   const int t0 = c0 + TT * warp;
   const int n_tok = max(0, min(TT, c1 - t0));
+  const int skip = max(0, min(n_tok, lo - t0));
   uint4* kt = tiles + (size_t)warp * (TWO ? 2 : 1) * TT * P;
   uint4* vt = TWO ? kt + TT * P : kt;
   float* wp = sp + (size_t)warp * MAXG * TT;
@@ -196,7 +209,7 @@ __global__ void __launch_bounds__(NT)
   uint64_t* vbar = sm_bar[warp] + 1;
   size_t rowoff = 0;                   // the lane's token row in the pools
   float ks = 1.f, vs = 1.f;
-  if (lane < n_tok) {
+  if (lane >= skip && lane < n_tok) {
     const int t = t0 + lane;
     const size_t slot = (size_t)tables[(size_t)b * M + t / bs] * bs + t % bs;
     rowoff = (slot * KV + kvh) * HD;
@@ -206,13 +219,14 @@ __global__ void __launch_bounds__(NT)
     }
   }
   // each lane copies its own token's row with one bulk TMA copy; rows
-  // past the tile's tokens are neither copied nor read
+  // outside the tile's tokens are neither copied nor read
   auto copy_tile = [&](uint4* dst, const TKV* pool, uint64_t* bar) {
-    if (lane == 0) tma::expect_tx(bar, n_tok * ROW);
+    if (lane == 0) tma::expect_tx(bar, (n_tok - skip) * ROW);
     __syncwarp();
-    if (lane < n_tok) tma::load_1d(dst + lane * P, pool + rowoff, ROW, bar);
+    if (lane >= skip && lane < n_tok)
+      tma::load_1d(dst + lane * P, pool + rowoff, ROW, bar);
   };
-  if (n_tok > 0) {
+  if (n_tok > skip) {
     if (lane == 0) {
       tma::init(kbar, 1);
       tma::init(vbar, 1);
@@ -238,7 +252,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int d = 0; d < DPL; ++d) acc[g][d] = 0.f;
 
-  if (n_tok > 0) {
+  if (n_tok > skip) {
     tma::wait(kbar, 0);
     // scores: lanes 2 i and 2 i + 1 own token i, each the even or the
     // odd slots of its row, query heads four at a time
@@ -273,7 +287,7 @@ __global__ void __launch_bounds__(NT)
     __syncwarp();
     // softmax over the tile per query head (lane = token): max, P, sum;
     // P * v_scale is what P.V multiplies the raw V by
-    const bool valid = lane < n_tok;
+    const bool valid = lane >= skip && lane < n_tok;
     for (int g = 0; g < group; ++g) {
       const float x = valid ? wp[g * TT + lane] * (ks * scale_log2)
                             : rt::NEG_INF;
@@ -300,7 +314,7 @@ __global__ void __launch_bounds__(NT)
     tma::wait(vbar, 0);
     // P.V: lanes own 8 dims of a row, RPW rows at a time
     if (owns) {
-      for (int tt = rslot; tt < n_tok; tt += RPW) {
+      for (int tt = skip + rslot; tt < n_tok; tt += RPW) {
         float vf[DPL];
         if constexpr (sizeof(TKV) == 4) {
           const uint4 a = vt[tt * P + 2 * sub], c = vt[tt * P + 2 * sub + 1];
@@ -349,7 +363,8 @@ __global__ void __launch_bounds__(NT)
       for (int d = 0; d < DPL; ++d)
         merge[((size_t)warp * group + g) * HD + d0 + d] = acc[g][d];
   __syncthreads();
-  const size_t part0 = ((size_t)b * KV + kvh) * n_split;  // split 0's partial
+  // the first live split's partial
+  const size_t part0 = ((size_t)b * KV + kvh) * n_split;
   // a partial: acc (group x HD), m, l, padded to whole float4s
   const int stride = group * HD + (2 * group + 3) / 4 * 4;
   for (int e = threadIdx.x; e < group * HD; e += NT) {
@@ -367,7 +382,7 @@ __global__ void __launch_bounds__(NT)
     if (n_act == 1) {
       out[qrow0 * HD + e] = rt::from_f<TQ>(A / fmaxf(L, 1e-30f));
     } else {
-      float* p = scratch + (part0 + split) * stride;
+      float* p = scratch + (part0 + split - s_lo) * stride;
       p[e] = A;
       if (e % HD == 0) {
         p[group * HD + g] = mx;
@@ -465,7 +480,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const float* ks, const float* vs, const int32_t* tables,
                    const int32_t* ctx, void* out, float* scratch,
                    int* counters, int B, int H, int KV, int bs, int M,
-                   float scale, cudaStream_t stream) {
+                   int window, float scale, cudaStream_t stream) {
   const int n_split = (M * bs + CHUNK - 1) / CHUNK;
   const int group = H / KV, group4 = (group + 3) / 4 * 4;
   dim3 grid(B, KV, n_split);
@@ -482,18 +497,18 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   paged_attention_kernel<TQ, TKV, HD, QUANT><<<grid, NT, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
       static_cast<const TKV*>(vp), ks, vs, tables, ctx, static_cast<TQ*>(out),
-      scratch, counters, H, KV, bs, M, scale * 1.4426950408889634f);
+      scratch, counters, H, KV, bs, M, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 #define PAGED_ARGS                                                         \
   q, kp, vp, ks, vs, tables, ctx, out, scratch, counters, B, H, KV, bs, M, \
-      scale, stream
+      window, scale, stream
 #define PAGED_PARAMS                                                        \
   const void *q, const void *kp, const void *vp, const float *ks,           \
       const float *vs, const int32_t *tables, const int32_t *ctx, void *out, \
       float *scratch, int *counters, int B, int H, int KV, int bs, int M,   \
-      float scale, cudaStream_t stream
+      int window, float scale, cudaStream_t stream
 
 template <typename TQ, int HD>
 cudaError_t by_pool(int kv_dtype, int q_dtype, PAGED_PARAMS) {
@@ -520,17 +535,20 @@ cudaError_t by_hd(int hd, int kv_dtype, int q_dtype, PAGED_PARAMS) {
 
 // Returns the cudaError_t of the launch (0 = success). Shapes: q/out
 // (B, H, hd); pools (N, bs, KV, hd); scales (N, bs, KV) or null; tables
-// (B, M); ctx (B,); scratch: float32, B * KV * ceil(M * bs / CHUNK) *
-// (g * hd + 4 ceil(2 g / 4)) for g = H / KV; counters: int32, B * KV, zero (and left zero). All
-// contiguous, pools 16-byte aligned, checked by the Python wrapper.
+// (B, M); ctx (B,); window: 0 (none) or the tokens a row attends to, its
+// last; scratch: float32, B * KV * ceil(M * bs / CHUNK) * (g * hd + 4
+// ceil(2 g / 4)) for g = H / KV; counters: int32, B * KV, zero (and left
+// zero). All contiguous, pools 16-byte aligned, checked by the Python
+// wrapper.
 extern "C" int paged_attention(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* tables,
                                const void* ctx_lens, void* out,
                                void* scratch, void* counters, int q_dtype,
                                int kv_dtype, int B, int H, int KV, int hd,
-                               int bs, int M, float scale, void* stream) {
-  if (H % KV != 0 || KV <= 0) return cudaErrorInvalidValue;
+                               int bs, int M, int window, float scale,
+                               void* stream) {
+  if (H % KV != 0 || KV <= 0 || window < 0) return cudaErrorInvalidValue;
   if (H / KV > (hd >= 256 ? max_group<256>() : max_group<64>()))
     return cudaErrorInvalidValue;
   const void *q_ = q, *kp = k_pool, *vp = v_pool;
@@ -543,7 +561,7 @@ extern "C" int paged_attention(const void* q, const void* k_pool,
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
 #define PAGED_CALL(TQ)                                                     \
   by_hd<TQ>(hd, kv_dtype, q_dtype, q_, kp, vp, ks, vs, tables_, ctx, out, \
-            scratch_, counters_, B, H, KV, bs, M, scale, stream_)
+            scratch_, counters_, B, H, KV, bs, M, window, scale, stream_)
   switch (q_dtype) {
     case rt::F32: return PAGED_CALL(float);
     case rt::BF16: return PAGED_CALL(__nv_bfloat16);

@@ -9,9 +9,13 @@
 //
 // over r, k, v (B, H, T, N) in one float dtype, w (B, H, T, N) float32
 // decays and u (H, N) float32 bonus; it writes y (B, H, T, N) in r's dtype
-// and S_T (B, H, N, N) in float32. It is the time mix of every RWKV6 layer
-// (models/recurrent.py:rwkv_seq): T = the prompt in lm.forward /
-// lm.prefill, T = 1 in each decode step. The TPU kernel starts from zeros;
+// and S_T (B, H, N, N) in float32; given s_steps, also the state after
+// every step, S_t for t = 0 .. T - 1, as (B, H, T, N, N) float32. It is
+// the time mix of every RWKV6 layer (models/recurrent.py:rwkv_seq): T =
+// the prompt in lm.forward / lm.prefill, T = 1 in each decode step, and T
+// = a draft chain of at most 8 tokens in the serving engine's speculative
+// verify, which keeps every step's state (s_steps) to roll a lane back
+// to its accepted length. The TPU kernel starts from zeros;
 // this one takes the carried state s0, which decode and resumed prefill
 // need. Padded steps need no length argument: the caller zeroes k and sets
 // w = 1 there, which leaves S unchanged.
@@ -61,6 +65,16 @@
 // threads, a thread per column walking all N key rows each step with the
 // state in shared memory and a block barrier every step.
 //
+// Per-step states: each lane writes its R state elements of column j to
+// s_steps right after it updates them, in the same 32-byte runs as S_T,
+// so S_t there is bit-equal to S_T of the same call cut to t + 1 steps
+// and to t + 1 single-step calls chained through s0. The extra bytes are
+// T N^2 4 per (b, h): for a verify chain of T <= 8 at N = 64, 128 KiB,
+// against 32 KiB of s0 and S_T. It is a separate instantiation (STATES),
+// so a call without s_steps runs the same code as before it existed: a
+// run-time test of s_steps in the step loop cost the 2048-token prompt
+// ~5% (benchmarks/torch_rwkv6_scan_times.py, PERF.md section 6).
+//
 // Inputs must be 16-byte aligned with N a multiple of 8 (the bulk copies'
 // rule; kernels/rwkv6_scan.py checks both).
 
@@ -103,14 +117,16 @@ __device__ __forceinline__ void load_rows(const T* p, float (&x)[R]) {
   for (int i = 0; i < R; ++i) x[i] = rt::to_f(a.v[i]);
 }
 
-// R = N / G key rows a lane.
-template <typename T, int R>
+// R = N / G key rows a lane; STATES: write every step's state to s_steps.
+template <typename T, int R, bool STATES>
 __global__ void __launch_bounds__(NT)
     rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ w,
                       const float* __restrict__ u,
                       const float* __restrict__ s0, T* __restrict__ y,
-                      float* __restrict__ s_out, int H, int Tn, int tcm) {
+                      float* __restrict__ s_out,
+                      float* __restrict__ s_steps, int H, int Tn,
+                      int tcm) {
   constexpr int N = G * R;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -143,7 +159,8 @@ __global__ void __launch_bounds__(NT)
     for (int ci = 0; ci < min(NB, nchunks); ++ci) fetch(ci);
   }
   // the lane's rows of column j: a warp reads 4 rows x 8 columns at a time
-  const size_t sj = (size_t)bh * N * N + (size_t)g * R * N + j;
+  const size_t lj = (size_t)g * R * N + j;  // its first element in a state
+  const size_t sj = (size_t)bh * N * N + lj;
   float S[R], ur[R];
 #pragma unroll
   for (int p = 0; p < R; ++p) {
@@ -199,6 +216,11 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int p = 0; p < R; ++p) out = __fadd_rn(out, term[p]);
       if (g == G - 1 && col) y[in0 + (size_t)s * N + j] = rt::from_f<T>(out);
+      if (STATES && col) {
+        float* st = s_steps + ((size_t)bh * Tn + s) * N * N + lj;
+#pragma unroll
+        for (int p = 0; p < R; ++p) st[(size_t)p * N] = S[p];
+      }
       if (++srow == tcm) {
         srow = 0;
         ++sch;
@@ -227,25 +249,28 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, bool STATES>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const float* w, const float* u, const float* s0, void* y,
-                   float* s_out, int B, int H, int Tn, cudaStream_t stream) {
+                   float* s_out, float* s_steps, int B, int H, int Tn,
+                   cudaStream_t stream) {
   constexpr int N = G * R;
   static bool opted_in = false;  // the largest buffers, once
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        rwkv6_scan_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rwkv6_scan_kernel<T, R, STATES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes<T>(TC, N));
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
   const int tcm = max(1, min(Tn, TC));
   dim3 grid(B * H, (N + JC - 1) / JC);
-  rwkv6_scan_kernel<T, R><<<grid, NT, smem_bytes<T>(tcm, N), stream>>>(
+  rwkv6_scan_kernel<T, R, STATES>
+      <<<grid, NT, smem_bytes<T>(tcm, N), stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), w, u, s0, static_cast<T*>(y), s_out, H, Tn,
-      tcm);
+      static_cast<const T*>(v), w, u, s0, static_cast<T*>(y), s_out, s_steps,
+      H, Tn, tcm);
   return cudaGetLastError();
 }
 
@@ -253,11 +278,15 @@ cudaError_t launch(const void* r, const void* k, const void* v,
 template <typename T>
 cudaError_t by_rows(const void* r, const void* k, const void* v,
                     const float* w, const float* u, const float* s0, void* y,
-                    float* s_out, int B, int H, int Tn, int N,
+                    float* s_out, float* s_steps, int B, int H, int Tn, int N,
                     cudaStream_t st) {
 #define RWKV_N(n)                                                        \
   case n:                                                                \
-    return launch<T, n / G>(r, k, v, w, u, s0, y, s_out, B, H, Tn, st);
+    return s_steps != nullptr                                            \
+               ? launch<T, n / G, true>(r, k, v, w, u, s0, y, s_out,     \
+                                        s_steps, B, H, Tn, st)           \
+               : launch<T, n / G, false>(r, k, v, w, u, s0, y, s_out,    \
+                                         nullptr, B, H, Tn, st);
   switch (N) {
     RWKV_N(8) RWKV_N(16) RWKV_N(24) RWKV_N(32)
     RWKV_N(40) RWKV_N(48) RWKV_N(56) RWKV_N(64)
@@ -270,27 +299,31 @@ cudaError_t by_rows(const void* r, const void* k, const void* v,
 
 // Returns the cudaError_t of the launch (0 = success). r, k, v, y:
 // (B, H, T, N) of one dtype; w (B, H, T, N), u (H, N), s0 (B, H, N, N) or
-// null and s_out (B, H, N, N) float32. All contiguous and 16-byte aligned,
-// checked by the Python wrapper; B * H > 0 and 0 < N <= 64, N % 8 == 0.
+// null, s_out (B, H, N, N) and s_steps (B, H, T, N, N) or null float32.
+// All contiguous and 16-byte aligned, checked by the Python wrapper; B * H
+// > 0 and 0 < N <= 64, N % 8 == 0.
 extern "C" int rwkv6_scan(const void* r, const void* k, const void* v,
                           const void* w, const void* u, const void* s0,
-                          void* y, void* s_out, int dtype, int B, int H,
-                          int T, int N, void* stream) {
+                          void* y, void* s_out, void* s_steps, int dtype,
+                          int B, int H, int T, int N, void* stream) {
   if (B <= 0 || H <= 0 || T < 0 || N <= 0 || N > MAX_N || N % 8 != 0)
     return cudaErrorInvalidValue;
   const float* wf = static_cast<const float*>(w);
   const float* uf = static_cast<const float*>(u);
   const float* s0f = static_cast<const float*>(s0);
   float* so = static_cast<float*>(s_out);
+  float* ss = static_cast<float*>(s_steps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case rt::F32:
-      return by_rows<float>(r, k, v, wf, uf, s0f, y, so, B, H, T, N, st);
+      return by_rows<float>(r, k, v, wf, uf, s0f, y, so, ss, B, H, T, N,
+                            st);
     case rt::BF16:
-      return by_rows<__nv_bfloat16>(r, k, v, wf, uf, s0f, y, so, B, H, T, N,
-                                    st);
+      return by_rows<__nv_bfloat16>(r, k, v, wf, uf, s0f, y, so, ss, B, H, T,
+                                    N, st);
     case rt::F16:
-      return by_rows<__half>(r, k, v, wf, uf, s0f, y, so, B, H, T, N, st);
+      return by_rows<__half>(r, k, v, wf, uf, s0f, y, so, ss, B, H, T, N,
+                             st);
   }
   return cudaErrorInvalidValue;
 }

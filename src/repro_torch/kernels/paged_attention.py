@@ -82,14 +82,19 @@ def _counters(device, n):
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
-                    k_scale=None, v_scale=None):
+                    k_scale=None, v_scale=None, window: int = 0):
     """q: (B, H, hd); k_pool/v_pool: (N, bs, KV, hd); block_tables: (B, M)
     int32; ctx_lens: (B,) int32 valid-token counts (0 => zeros); k_scale /
     v_scale (optional): (N, bs, KV) float32 tables of an int8 / fp8-e4m3
-    pool. Returns (B, H, hd) in q's dtype."""
+    pool; window: 0, or row b attends only to its tokens ctx_b - window
+    .. ctx_b - 1 (local attention). Returns (B, H, hd) in q's dtype."""
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"paged_attention: window {window} < 0")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                       ctx_lens, k_scale, v_scale)
+                                       ctx_lens, k_scale, v_scale,
+                                       window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale)
@@ -115,7 +120,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
                  out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
                  build.DTYPE_CODES[q.dtype],
                  build.DTYPE_CODES[k_pool.dtype], B, H, KV, hd, bs, M,
-                 hd ** -0.5, build.stream())
+                 window, hd ** -0.5, build.stream())
     build.check_launch("paged_attention", err)
     paged_attention.launches += 1
     return out

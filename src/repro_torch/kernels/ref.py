@@ -39,21 +39,24 @@ def _gather_pool(pool, scale, tables):
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens,
-                        k_scale=None, v_scale=None):
+                        k_scale=None, v_scale=None, window: int = 0):
     """Single-token GQA decode through a paged KV cache.
 
     q: (B, H, hd); k_pool/v_pool: (N, bs, KV, hd); block_tables: (B, M)
     int32; ctx_lens: (B,) int32 valid tokens (0 => zeros); k_scale /
-    v_scale (optional): (N, bs, KV) float32 tables of a quantized pool.
+    v_scale (optional): (N, bs, KV) float32 tables of a quantized pool;
+    window > 0 keeps row b's tokens ctx_b - window .. ctx_b - 1 only.
     Returns (B, H, hd) in q's dtype."""
     B, H, hd = q.shape
     KV = k_pool.shape[2]
     k = _gather_pool(k_pool, k_scale, block_tables)      # (B, KV, S, hd)
     v = _gather_pool(v_pool, v_scale, block_tables)
     qf = q.float().reshape(B, KV, H // KV, hd)
-    valid = (torch.arange(k.shape[2], device=q.device)[None, :]
-             < ctx_lens[:, None])[:, None, None, :]       # (B, 1, 1, S)
-    o = _masked_attention(qf, k, v, valid, hd ** -0.5)
+    t = torch.arange(k.shape[2], device=q.device)[None, :]
+    valid = t < ctx_lens[:, None]
+    if window > 0:
+        valid = valid & (t >= ctx_lens[:, None] - window)
+    o = _masked_attention(qf, k, v, valid[:, None, None, :], hd ** -0.5)
     return o.reshape(B, H, hd).to(q.dtype)
 
 
@@ -118,13 +121,16 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
 # ----------------------------------------------------------------------------
 
 def paged_attention_split_ref(q, k_pool, v_pool, block_tables, ctx_lens,
-                              k_scale=None, v_scale=None, *, chunk: int):
+                              k_scale=None, v_scale=None, *, chunk: int,
+                              window: int = 0):
     """paged_attention as csrc/paged_attention.cu splits it: each row's
     first ctx tokens in chunks of `chunk`, each chunk's unnormalised
     (m, l, acc) on its own, merged in split order; a row with one chunk
-    is acc / l. Rows are computed one by one on shapes fixed by their own
-    ctx, so a row's bits cannot depend on the rest of the batch. Float32
-    math; returns (B, H, hd) in q's dtype."""
+    is acc / l. With window > 0 the chunks stay aligned to token 0, those
+    that end at or below ctx - window are left out, and the first live
+    one starts at ctx - window. Rows are computed one by one on shapes
+    fixed by their own ctx, so a row's bits cannot depend on the rest of
+    the batch. Float32 math; returns (B, H, hd) in q's dtype."""
     B, H, hd = q.shape
     KV = k_pool.shape[2]
     k = _gather_pool(k_pool, k_scale, block_tables)      # (B, KV, S, hd)
@@ -133,15 +139,18 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_tables, ctx_lens,
     out = torch.zeros(B, KV, H // KV, hd, device=q.device)
     for b in range(B):
         ctx = min(int(ctx_lens[b]), k.shape[2])
+        lo = max(0, ctx - window) if window > 0 else 0
         parts = []
         for c0 in range(0, ctx, chunk):
-            kc, vc = k[b, :, c0:c0 + chunk], v[b, :, c0:c0 + chunk]
-            s = torch.einsum("kgh,ksh->kgs", qf[b], kc[:, :ctx - c0]) \
-                * hd ** -0.5
+            if c0 + chunk <= lo:
+                continue
+            a, e = max(c0, lo), min(c0 + chunk, ctx)
+            kc, vc = k[b, :, a:e], v[b, :, a:e]
+            s = torch.einsum("kgh,ksh->kgs", qf[b], kc) * hd ** -0.5
             m = s.amax(-1, keepdim=True)
             p = torch.exp(s - m)
             parts.append((m, p.sum(-1, keepdim=True),
-                          torch.einsum("kgs,ksh->kgh", p, vc[:, :ctx - c0])))
+                          torch.einsum("kgs,ksh->kgh", p, vc)))
         if len(parts) == 1:
             m, l, acc = parts[0]
             out[b] = acc / l.clamp_min(1e-30)
@@ -309,7 +318,7 @@ def rglru_scan_ref(a, x, h0=None):
     return h_seq.to(x.dtype), h
 
 
-def rwkv6_scan_ref(r, k, v, w, u, s0=None):
+def rwkv6_scan_ref(r, k, v, w, u, s0=None, return_states=False):
     """RWKV6 recurrence with a float32 (N, N) state per (batch, head):
 
         y_t = r_t (S_{t-1} + diag(u) k_t^T v_t),  S_t = diag(w_t) S_{t-1}
@@ -318,17 +327,24 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
     r, k, v: (B, H, T, N) of one float dtype; w: (B, H, T, N) float32 decays;
     u: (H, N) float32 bonus; s0: (B, H, N, N) float32 or None (zeros). In
     float32, each step in this order, as the kernel computes it. Returns (y
-    (B, H, T, N) in r's dtype, S_T (B, H, N, N) float32)."""
+    (B, H, T, N) in r's dtype, S_T (B, H, N, N) float32), and with
+    return_states also S_steps (B, H, T, N, N) float32, the state after
+    each step (S_steps[:, :, t] = S_t)."""
     B, H, T, N = r.shape
     S = (torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
          if s0 is None else s0.float())
     rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
     uf = u.float()[None, :, :, None]
-    ys = []
+    ys, states = [], []
     for t in range(T):
         kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
         ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], S + uf * kv))
         S = wf[:, :, t, :, None] * S + kv
+        states.append(S)
     y = (torch.stack(ys, dim=2) if ys
          else torch.empty(B, H, 0, N, device=r.device))
+    if return_states:
+        steps = (torch.stack(states, dim=2) if states
+                 else torch.empty(B, H, 0, N, N, device=r.device))
+        return y.to(r.dtype), S, steps
     return y.to(r.dtype), S

@@ -11,10 +11,14 @@ multiple of 8 and 16-byte aligned r, k, v and w. Any other head dim up to
 64, or an input that is not so aligned, is first copied by `pad_head_dim`
 into fresh buffers whose head dim is the next multiple of 8 (zeros in the
 padded key rows add exact zeros at the end of y's chain and keep their
-state rows zero), and y and S_T are sliced back. `ref.rwkv6_scan_ref` is
-its plain twin; `ref.rwkv6_scan_split_ref` sums y in the kernel's order.
+state rows zero), and y and S_T are sliced back. With return_states the
+kernel also writes the state after every step (the speculative verify's
+rollback points), bit-equal to S_T of the call cut to that step.
+`ref.rwkv6_scan_ref` is its plain twin; `ref.rwkv6_scan_split_ref` sums y
+in the kernel's order.
 A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises.
-`rwkv6_scan.launches` counts kernel launches.
+`rwkv6_scan.launches` counts kernel launches, `rwkv6_scan.state_launches`
+those made with return_states.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ def pad_head_dim(r, k, v, w, u, s0=None):
             None if s0 is None else pad(s0, 0, axes=2))
 
 
-def rwkv6_scan(r, k, v, w, u, s0=None):
+def rwkv6_scan(r, k, v, w, u, s0=None, return_states=False):
     """y_t = r_t (S_{t-1} + diag(u) k_t^T v_t), S_t = diag(w_t) S_{t-1} +
     k_t^T v_t per (batch, head), float32 state.
 
@@ -55,9 +59,11 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     contiguous, N up to 64 (a head dim that is not a multiple of 8, or
     r, k, v or w not 16-byte aligned, costs one padded copy of each
     input; see pad_head_dim). Returns (y (B, H, T, N) in r's dtype, S_T
-    (B, H, N, N) float32)."""
+    (B, H, N, N) float32), and with return_states also S_steps (B, H, T,
+    N, N) float32, the state after each step. y and S_T do not depend on
+    the flag."""
     if r.device.type == "cpu":
-        return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+        return ref.rwkv6_scan_ref(r, k, v, w, u, s0, return_states)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
@@ -87,8 +93,11 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
         if not t.is_contiguous():
             raise ValueError("rwkv6_scan: inputs must be contiguous")
     if B * H == 0:
-        return torch.empty_like(r), torch.empty(
-            B, H, N, N, dtype=torch.float32, device=r.device)
+        out = (torch.empty_like(r), torch.empty(
+            B, H, N, N, dtype=torch.float32, device=r.device))
+        return out + ((torch.empty(B, H, T, N, N, dtype=torch.float32,
+                                   device=r.device),)
+                      if return_states else ())
     # chosen from the shape and the pointers, before any launch
     padded = N % 8 or any(t.data_ptr() % 16 for t in (r, k, v, w))
     if padded:
@@ -96,16 +105,23 @@ def rwkv6_scan(r, k, v, w, u, s0=None):
     P = r.shape[-1]
     y = torch.empty_like(r)
     s_out = torch.empty(B, H, P, P, dtype=torch.float32, device=r.device)
+    s_steps = (torch.empty(B, H, T, P, P, dtype=torch.float32,
+                           device=r.device) if return_states else None)
     fn = build.load("rwkv6_scan")
     with torch.cuda.device(r.device):
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), build.ptr(s0), y.data_ptr(), s_out.data_ptr(),
-                 build.DTYPE_CODES[r.dtype], B, H, T, P, build.stream())
+                 build.ptr(s_steps), build.DTYPE_CODES[r.dtype], B, H, T, P,
+                 build.stream())
     build.check_launch("rwkv6_scan", err)
     rwkv6_scan.launches += 1
+    rwkv6_scan.state_launches += return_states
+    out = (y, s_out) + ((s_steps,) if return_states else ())
     if padded:
-        return y[..., :N].contiguous(), s_out[..., :N, :N].contiguous()
-    return y, s_out
+        out = (y[..., :N],) + tuple(s[..., :N, :N] for s in out[1:])
+        return tuple(t.contiguous() for t in out)
+    return out
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.state_launches = 0   # of them, with return_states

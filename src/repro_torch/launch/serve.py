@@ -14,19 +14,22 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
     # the recurrent archs, recurrentgemma-2b (RG-LRU + local attention) and
-    # rwkv6-3b (RWKV6), through the fixed-batch generate() path:
+    # rwkv6-3b (RWKV6), through the engine (slot-indexed recurrent state;
+    # the prefix cache stays off for them) or the fixed-batch generate():
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch recurrentgemma-2b --mode naive --device cpu
+        --arch recurrentgemma-2b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-3b --full-width --workload repetitive --speculate 4
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch rwkv6-3b --full-width --mode naive
 
 The CLI serves the `.reduced()` config (like the JAX CLI) through the
-single-replica engine; `--full-width` serves the published config. The
-engine takes attention-only archs: for recurrentgemma-2b and rwkv6-3b
-`--mode engine` raises NotImplementedError (the hybrid engine slice) and
-`--mode naive` runs them. The router, autoscaler and SLO flags, sampled
-decoding and the quantized / host-tier KV options belong to later slices
-and stop the CLI with an error naming them.
+single-replica engine (`--mode engine`, the default) or generate()'s
+fixed batch (`--mode naive`); `--full-width` serves the published config.
+The engine serves smollm-135m, recurrentgemma-2b and rwkv6-3b (and the
+other attention-only archs). The router, autoscaler and SLO flags,
+sampled decoding and the quantized / host-tier KV options belong to later
+slices and stop the CLI with an error naming them.
 
 `generate()` is the reference path: it primes a dense KV cache one token
 at a time and decodes a fixed batch in lockstep; the engine's greedy

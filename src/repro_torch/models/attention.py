@@ -15,9 +15,10 @@ their plain twins on CPU tensors):
   paged_prefill_attention_block   -> kernels.paged_prefill
 
 Caches and pools are updated in place (the JAX runner donates them).
-The dense path's local-attention `window` runs through the flash kernel;
-quantized (int8 / fp8) pools, the paged decode `window` and the dense
-path's bidirectional `prefix_len` on CUDA belong to later slices and raise.
+A local-attention `window` runs through every kernel (the dense path's
+flash, the paged decode's and the paged prefill's); quantized (int8 /
+fp8) pools and the dense path's bidirectional `prefix_len` on CUDA belong
+to later slices and raise.
 """
 from __future__ import annotations
 
@@ -233,12 +234,10 @@ def paged_decode_attention_block(params, x, cache, positions, block_tables,
 
     The current token's K/V is scattered into (table[b, p // bs], p % bs),
     then the kernel attends over ctx = positions + 1 tokens through the
-    table. Returns (out, cache)."""
+    table, the last `window` of them when window > 0 (the pools keep the
+    whole history; the mask bounds the receptive field, as in the JAX
+    block). Returns (out, cache)."""
     _no_quant(cache)
-    if window > 0:
-        raise NotImplementedError(
-            "paged decode with a sliding window: the paged_attention kernel "
-            "has no window yet (a later slice)")
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                    positions[:, None], cfg.rope_theta)
@@ -250,5 +249,6 @@ def paged_decode_attention_block(params, x, cache, positions, block_tables,
     cache["k"].index_put_((blk, off), k[:, 0])
     cache["v"].index_put_((blk, off), v[:, 0])
     o = paged_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
-                        block_tables, (positions + 1).to(torch.int32))
+                        block_tables, (positions + 1).to(torch.int32),
+                        window=window)
     return (o.reshape(B, 1, -1) @ params["wo"]).to(x.dtype), cache

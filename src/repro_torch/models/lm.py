@@ -15,12 +15,18 @@ Entry points match the JAX module: init_params, cast_params, forward,
 prefill, init_decode_state, decode_step, prefill_paged, decode_step_paged,
 decode_verify_paged and commit_decode_state. Attention layers ("attn",
 "attn_local"), RG-LRU layers ("rec", recurrentgemma) and RWKV6 layers
-("rwkv", rwkv6) are ported; the paged entry points (the serving engine)
-take attention-only patterns, and "rec" / "rwkv" there raise until the
-hybrid engine slice. "moe" blocks and the vision / audio frontends raise
-NotImplementedError until their slice. Decode state (dense caches, paged
-pools, recurrent state) is updated in place, and every function that takes
-a state returns the same object.
+("rwkv", rwkv6) are ported, on every path. In the paged state (the serving
+engine's) attention layers hold block pools and recurrent layers
+slot-indexed state, (num_slots, ...) per leaf. "moe" blocks and the vision
+/ audio frontends raise NotImplementedError until their slice. Decode
+state (dense caches, paged pools, recurrent state) is updated in place,
+and every function that takes a state returns the same object.
+
+One difference from the JAX module: decode_step_paged takes `active`, the
+lanes the scheduler put in the step. The JAX step advances every slot's
+recurrent state, so a lane that sits the step out in the middle of a
+chunked prefill (token 0 at position 0) has its carried state overwritten
+before its next chunk resumes from it; here such a lane keeps its state.
 """
 from __future__ import annotations
 
@@ -49,21 +55,6 @@ def _check_supported(cfg: ModelConfig) -> None:
                 f"MoE-and-frontends slice)")
         if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(kind)
-
-
-def _check_paged(cfg: ModelConfig) -> None:
-    """The paged entry points take attention-only patterns: recurrent slot
-    state in the runner and the verify snapshots come with the hybrid
-    engine slice."""
-    _check_supported(cfg)
-    rec = set(RECURRENT_KINDS) & set(cfg.prefix_pattern + cfg.block_pattern)
-    if rec:
-        raise NotImplementedError(
-            f"{cfg.name}: the paged serving path (engine) for recurrent "
-            f"{sorted(rec)} blocks is not ported yet (the hybrid engine "
-            f"slice: recurrent slot state in the runner, return_states "
-            f"snapshots); "
-            f"use lm.decode_step / generate()")
 
 
 def _layers(tree, cfg: ModelConfig) -> Iterator[Tuple[str, dict]]:
@@ -162,18 +153,62 @@ def _mlp_residual(p, x, cfg: ModelConfig):
                    cfg.mlp_kind)
 
 
-def _rwkv_layer(p, h, cfg: ModelConfig, state=None, lengths=None):
-    """One RWKV6 layer (time mix, then channel mix, each residual). state:
-    {"tmix": {"shift", "S"}, "cmix": shift} or None (zeros). Returns (h,
-    new state)."""
-    o, st_t = recurrent.rwkv_seq(
-        p["tmix"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
-        None if state is None else state["tmix"], lengths=lengths)
-    h = h + o
-    o, shift = recurrent.rwkv_channel_mix(
-        p["cmix"], rms_norm(h, p["norm2"], cfg.norm_eps),
-        None if state is None else state["cmix"], lengths=lengths)
-    return h + o, {"tmix": st_t, "cmix": shift}
+def _recurrent_layer(kind: str, p, h, cfg: ModelConfig, state=None,
+                     lengths=None, return_states: bool = False):
+    """One recurrent layer in sequence form, residuals included: RWKV6
+    (time mix, then channel mix) or RG-LRU (the recurrent block, then the
+    MLP). state: the layer's {"tmix": {"shift", "S"}, "cmix"} or {"rec":
+    {"h", "conv"}}, or None (zeros). Returns (h, new state), and with
+    return_states also the (S+1, B, ...) snapshots in the state's tree."""
+    def sub(st, key):
+        return None if st is None else st[key]
+
+    if kind == "rwkv":
+        t = recurrent.rwkv_seq(
+            p["tmix"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
+            sub(state, "tmix"), lengths=lengths, return_states=return_states)
+        h = h + t[0]
+        c = recurrent.rwkv_channel_mix(
+            p["cmix"], rms_norm(h, p["norm2"], cfg.norm_eps),
+            sub(state, "cmix"), lengths=lengths, return_states=return_states)
+        out = (h + c[0], {"tmix": t[1], "cmix": c[1]})
+        return out + ({"tmix": t[2], "cmix": c[2]},) if return_states \
+            else out
+    r = recurrent.rglru_block_seq(
+        p["rec"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
+        sub(state, "rec"), lengths=lengths, return_states=return_states)
+    out = (_mlp_residual(p, h + r[0], cfg), {"rec": r[1]})
+    return out + ({"rec": r[2]},) if return_states else out
+
+
+def _map(fn, tree, *rest):
+    """fn over the leaves of nested dicts of tensors (and of `rest`, trees
+    of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _leaves(tree):
+    """The tensors of nested dicts, depth first."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _write_state(st, new, active=None):
+    """Copy a recurrent layer's new state into its state `st` in place;
+    with `active` ((B,) bool), only the lanes where it is true."""
+    def put(s, n):
+        if active is not None:
+            m = active.reshape((-1,) + (1,) * (s.dim() - 1))
+            n = torch.where(m, n.to(s.dtype), s)
+        s.copy_(n)
+
+    _map(put, st, new)
 
 
 # ----------------------------------------------------------------------------
@@ -189,18 +224,10 @@ def _run_blocks_seq(params, cfg: ModelConfig, h, positions,
     (attention needs no mask: trailing pads are causally invisible)."""
     kvs: List = []
     for kind, p in _layers(params, cfg):
-        if kind == "rwkv":
-            h, st = _rwkv_layer(p, h, cfg, lengths=lengths)
+        if kind in RECURRENT_KINDS:
+            h, st = _recurrent_layer(kind, p, h, cfg, lengths=lengths)
             if collect_kv:
                 kvs.append(st)
-            continue
-        if kind == "rec":
-            o, st = recurrent.rglru_block_seq(
-                p["rec"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
-                lengths=lengths)
-            if collect_kv:
-                kvs.append({"rec": st})
-            h = _mlp_residual(p, h + o, cfg)
             continue
         o = attention.attention_block(
             p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), positions, cfg,
@@ -274,27 +301,35 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     dev = torch.device(device)
 
     def one(kind):
-        if kind == "rwkv":
-            hd = cfg.head_dim
-            return {"tmix": {"shift": torch.zeros(batch, cfg.d_model,
-                                                  dtype=cfg.act_dtype,
-                                                  device=dev),
-                             "S": torch.zeros(batch, cfg.n_heads, hd, hd,
-                                              dtype=torch.float32,
-                                              device=dev)},
-                    "cmix": torch.zeros(batch, cfg.d_model,
-                                        dtype=cfg.act_dtype, device=dev)}
-        if kind == "rec":
-            return {"rec": {
-                "h": torch.zeros(batch, cfg.rnn_width, dtype=torch.float32,
-                                 device=dev),
-                "conv": torch.zeros(batch, cfg.conv_width - 1, cfg.rnn_width,
-                                    dtype=cfg.act_dtype, device=dev)}}
+        if kind in RECURRENT_KINDS:
+            return recurrent_state(cfg, kind, batch, dev)
         n = min(cfg.window, max_len) if kind == "attn_local" else max_len
         return attention.init_kv_cache(batch, n, cfg.n_kv_heads,
                                        cfg.head_dim, cfg.act_dtype, dev)
 
     return _to_tree(cfg, [one(kind) for kind in layer_kinds(cfg)])
+
+
+def recurrent_state(cfg: ModelConfig, kind: str, batch: int, device):
+    """A recurrent layer's zero state for `batch` rows (decode rows, or
+    the engine's slots): RWKV6 {"tmix": {"shift": (B, D), "S": (B, H, hd,
+    hd) float32}, "cmix": (B, D)}, RG-LRU {"rec": {"h": (B, rnn_width)
+    float32, "conv": (B, conv_width - 1, rnn_width)}}, the rest in the
+    activation dtype."""
+    def z(*shape, dtype=cfg.act_dtype):
+        return torch.zeros(*shape, dtype=dtype, device=device)
+
+    if kind == "rwkv":
+        hd = cfg.head_dim
+        return {"tmix": {"shift": z(batch, cfg.d_model),
+                         "S": z(batch, cfg.n_heads, hd, hd,
+                                dtype=torch.float32)},
+                "cmix": z(batch, cfg.d_model)}
+    if kind == "rec":
+        return {"rec": {"h": z(batch, cfg.rnn_width, dtype=torch.float32),
+                        "conv": z(batch, cfg.conv_width - 1,
+                                  cfg.rnn_width)}}
+    raise ValueError(kind)
 
 
 def _clone(tree):
@@ -333,15 +368,9 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos: int):
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
     for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
-        if kind == "rwkv":
-            h, new = _rwkv_layer(p, h, cfg, st)
+        if kind in RECURRENT_KINDS:
+            h, new = _recurrent_layer(kind, p, h, cfg, st)
             st.update(new)
-            continue
-        if kind == "rec":
-            o, st["rec"] = recurrent.rglru_block_seq(
-                p["rec"], rms_norm(h, p["norm1"], cfg.norm_eps), cfg,
-                st["rec"])
-            h = _mlp_residual(p, h + o, cfg)
             continue
         o, _ = attention.decode_attention_block(
             p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, pos, cfg,
@@ -355,15 +384,16 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos: int):
 # Paged paths (continuous-batching serving)
 # ----------------------------------------------------------------------------
 
-def _prefill_layers(params, cfg: ModelConfig, state, h, positions,
-                    block_tables, starts, lengths, cached_lens):
-    for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
-        o, _ = attention.paged_prefill_attention_block(
-            p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, positions,
-            block_tables, starts, lengths, cached_lens, cfg,
-            window=_window(cfg, kind))
-        h = _mlp_residual(p, h + o, cfg)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+def _attn_layer_paged(p, kind, h, st, cfg: ModelConfig, positions,
+                      block_tables, starts, lengths, cached_lens):
+    """One attention layer of a suffix prefill or verify, residuals
+    included: attends to the cached prefix through the block table and
+    scatters the suffix K/V into the pools."""
+    o, _ = attention.paged_prefill_attention_block(
+        p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, positions,
+        block_tables, starts, lengths, cached_lens, cfg,
+        window=_window(cfg, kind))
+    return _mlp_residual(p, h + o, cfg)
 
 
 def prefill_paged(params, cfg: ModelConfig, state, tokens, lengths,
@@ -373,18 +403,39 @@ def prefill_paged(params, cfg: ModelConfig, state, tokens, lengths,
     tokens: (N, Ls) — row n holds the prompt SUFFIX from
     min(cached_lens[n], lengths[n] - 1), right-padded; lengths /
     cached_lens: (N,) int32; block_tables: (N, max_blocks) int32; slots:
-    (N,) decode-slot per row (used by recurrent layers only, so unused
-    here, as is `resume`). Returns (last-token logits (N, V), state)."""
-    _check_paged(cfg)
+    (N,) decode slot per row. Attention layers attend to the cached prefix
+    and scatter the suffix K/V into the pools. Recurrent layers run the
+    length-masked sequence form over the suffix and scatter each row's
+    final state to its slot (a slot >= num_slots, a padding row's, drops);
+    from zeros, or with resume=True (a chunked prefill's later chunk) from
+    the state the row's slot holds. Returns (last-token logits (N, V),
+    state)."""
+    _check_supported(cfg)
     params = cast_params(params, cfg)
     N, Ls = tokens.shape
     starts = torch.minimum(cached_lens, (lengths - 1).clamp_min(0))
     positions = (starts[:, None]
                  + torch.arange(Ls, dtype=torch.int32,
                                 device=tokens.device)[None, :])
-    h = _prefill_layers(params, cfg, state, _embed(params, cfg, tokens),
-                        positions, block_tables, starts, lengths,
-                        cached_lens)
+    h = _embed(params, cfg, tokens)
+    rec = [st for kind, st in _layers(state, cfg) if kind in RECURRENT_KINDS]
+    if rec:
+        # rows whose slot is a real one (once for all layers: the boolean
+        # index syncs with the device)
+        num_slots = next(_leaves(rec[0])).shape[0]
+        keep = slots < num_slots
+        src, dst = keep.nonzero()[:, 0], slots[keep].long()
+        gather = slots.clamp(0, num_slots - 1).long()
+    for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
+        if kind not in RECURRENT_KINDS:
+            h = _attn_layer_paged(p, kind, h, st, cfg, positions,
+                                  block_tables, starts, lengths, cached_lens)
+            continue
+        init = _map(lambda s: s[gather], st) if resume else None
+        h, fin = _recurrent_layer(kind, p, h, cfg, init,
+                                  lengths=lengths - starts)
+        _map(lambda s, f: s.index_put_((dst,), f[src].to(s.dtype)), st, fin)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     idx = (lengths - 1 - starts).clamp(0, Ls - 1).long()
     last = h[torch.arange(N, device=h.device), idx]
     return _head(params, cfg, last), state
@@ -395,42 +446,69 @@ def decode_verify_paged(params, cfg: ModelConfig, state, tokens, positions,
     """Batched K-token verify forward through the paged cache. tokens:
     (B, T) draft chains right-padded; positions: (B,) position of each
     chain's first token; counts: (B,) true chain lengths (0 = the lane
-    sits out). Attention reuses the suffix-prefill path (starts =
-    cached = positions, lengths = positions + counts). Returns (logits
-    (B, T, V), state, snapshots) — snapshots mirror the state tree with
-    None for every (attention) layer."""
-    _check_paged(cfg)
+    sits out). Attention reuses the suffix-prefill path (starts = cached
+    = positions, lengths = positions + counts) and scatters the chain's
+    K/V. Recurrent layers run from the live slot state, frozen past
+    counts, and do not advance it. Returns (logits (B, T, V), state,
+    snapshots): snapshots mirror the state tree with None for attention
+    layers and, for recurrent ones, (T+1, B, ...) stacks whose index t is
+    the state after t chain tokens (commit_decode_state takes them)."""
+    _check_supported(cfg)
     params = cast_params(params, cfg)
     B, T = tokens.shape
     pos_grid = (positions[:, None]
                 + torch.arange(T, dtype=torch.int32,
                                device=tokens.device)[None, :])
-    h = _prefill_layers(params, cfg, state, _embed(params, cfg, tokens),
-                        pos_grid, block_tables, positions,
-                        positions + counts, positions)
-    snaps = {"prefix": [None] * len(cfg.prefix_pattern),
-             "blocks": {f"p{pi}": None
-                        for pi in range(cfg.pattern_len)}}
-    return _head(params, cfg, h), state, snaps
+    h = _embed(params, cfg, tokens)
+    snaps = []
+    for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
+        if kind not in RECURRENT_KINDS:
+            h = _attn_layer_paged(p, kind, h, st, cfg, pos_grid,
+                                  block_tables, positions,
+                                  positions + counts, positions)
+            snaps.append(None)
+            continue
+        h, _, snap = _recurrent_layer(kind, p, h, cfg, st, lengths=counts,
+                                      return_states=True)
+        snaps.append(snap)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _head(params, cfg, h), state, _to_tree(cfg, snaps)
 
 
 def commit_decode_state(cfg: ModelConfig, state, snapshots, idx):
-    """Commit recurrent slot state after a verify step. Attention state
-    needs no commit (positions are the rollback), so with attention-only
-    layers this returns `state` unchanged."""
-    _check_paged(cfg)
+    """Commit recurrent slot state after a verify step: lane b takes
+    snapshot idx[b] (a + 1 for an accepted draft prefix of a tokens, 0 to
+    keep the pre-verify state, as for lanes that sat the verify out).
+    Attention state needs no commit (positions are the rollback). Updates
+    `state` in place and returns it."""
+    _check_supported(cfg)
+    for (_, st), (_, snap) in zip(_layers(state, cfg),
+                                  _layers(snapshots, cfg)):
+        if snap is None:
+            continue
+        i = idx.long().to(next(iter(_leaves(snap))).device)
+        lanes = torch.arange(i.shape[0], device=i.device)
+        _map(lambda s, sn: s.copy_(sn[i, lanes]), st, snap)
     return state
 
 
 def decode_step_paged(params, cfg: ModelConfig, state, tokens, positions,
-                      block_tables):
+                      block_tables, active=None):
     """One decode iteration for a slot batch. tokens / positions: (B,)
-    int32; block_tables: (B, max_blocks) int32. Returns (logits (B, V),
-    state)."""
-    _check_paged(cfg)
+    int32; block_tables: (B, max_blocks) int32; active: (B,) bool, the
+    lanes in the step, or None (all). Attention layers decode through the
+    pools (a lane that sits out writes to the null block its table row
+    points at); recurrent layers take the dense one-token step, and write
+    their new state only where `active` is true, so a lane that sits out
+    keeps its state. Returns (logits (B, V), state)."""
+    _check_supported(cfg)
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
     for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
+        if kind in RECURRENT_KINDS:
+            h, new = _recurrent_layer(kind, p, h, cfg, st)
+            _write_state(st, new, active)
+            continue
         o, _ = attention.paged_decode_attention_block(
             p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, positions,
             block_tables, cfg, window=_window(cfg, kind))

@@ -3,6 +3,9 @@ RWKV6 ("Finch") and RG-LRU (RecurrentGemma).
 
 Both run in sequence form: lm.forward and lm.prefill run them over the
 prompt, and each decode step runs them with S = 1 from the carried state.
+The serving engine's speculative verify runs them over a draft chain with
+return_states=True, which also returns the state after every step (index
+0 the input state), the snapshots a rejected draft rolls back to.
 The RWKV6 time mix's recurrence goes through the `rwkv6_scan` kernel
 wrapper and the RG-LRU block's through `rglru_scan` (each the CUDA kernel on
 CUDA tensors, its plain twin on CPU tensors).
@@ -13,9 +16,6 @@ float32, the (H, hd, hd) state is float32, the group norm runs in float32
 and is cast back. RWKV6 fidelity notes as in the JAX module: data-dependent
 decay through a LoRA on the token-shifted input and the per-head bonus u;
 one learned static token-shift mix per projection.
-
-Not ported yet: the per-step `return_states` snapshots that the engine's
-speculative verify rolls back to (the hybrid engine slice).
 """
 from __future__ import annotations
 
@@ -26,11 +26,6 @@ from repro_torch.kernels import rglru_scan, rwkv6_scan
 from repro_torch.models.layers import init_dense
 
 _RG_C = 8.0
-
-
-def _not_ported(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (the "
-                              f"{slice_name} slice)")
 
 
 # ----------------------------------------------------------------------------
@@ -106,6 +101,12 @@ def _valid(lengths, S, device):
     return torch.arange(S, device=device)[None, :] < lengths[:, None]
 
 
+def _shift_snapshots(shift, x):
+    """(S + 1, B, D): the token-shift state after t tokens, t = 0 .. S (the
+    input state, then each token)."""
+    return torch.cat([shift[None].to(x.dtype), x.transpose(0, 1)], dim=0)
+
+
 def rwkv_seq(params, x, cfg, state=None, lengths=None,
              return_states=False):
     """RWKV6 time mix, sequence form. x: (B, S, D); state: {"shift": (B, D)
@@ -115,10 +116,13 @@ def rwkv_seq(params, x, cfg, state=None, lengths=None,
     lengths: optional (B,) true lengths of right-padded rows: padded steps
     leave the recurrence untouched (k zeroed, decay 1) and the shift state
     is each row's true last token, so the final state equals an unpadded
-    per-row run's."""
-    if return_states:
-        _not_ported("rwkv_seq(return_states=True), the per-step snapshots "
-                    "of speculative verify,", "hybrid engine")
+    per-row run's.
+
+    return_states=True also returns snapshots {"shift": (S+1, B, D), "S":
+    (S+1, B, H, hd, hd) float32}, index t the state after t tokens (0: the
+    input state), as the JAX module's; the S steps come from the scan
+    kernel's per-step output. Entries past a row's length are not a state
+    of that row."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     if state is None:
@@ -131,15 +135,24 @@ def rwkv_seq(params, x, cfg, state=None, lengths=None,
         valid = _valid(lengths, S, x.device)[..., None, None]
         k = k * valid.to(k.dtype)
         w = torch.where(valid, w, torch.ones_like(w))
-    y, S_fin = rwkv6_scan(*(t.transpose(1, 2).contiguous()
-                            for t in (r, k, v, w)),
-                          params["bonus_u"].float().contiguous(),
-                          state["S"].float().contiguous())
+    s0 = state["S"].float().contiguous()
+    args = tuple(t.transpose(1, 2).contiguous() for t in (r, k, v, w)) + (
+        params["bonus_u"].float().contiguous(), s0)
+    if return_states:
+        y, S_fin, steps = rwkv6_scan(*args, return_states=True)
+    else:
+        y, S_fin = rwkv6_scan(*args)
     y = y.transpose(1, 2).reshape(B, S, H * hd)
     y = _rwkv_group_norm(y, params["ln_scale"], H, hd) * g
     out = y @ params["w_o"]
     shift = x[:, -1] if lengths is None else _last_valid(x, lengths)
-    return out, {"shift": shift, "S": S_fin}
+    new_state = {"shift": shift, "S": S_fin}
+    if return_states:
+        snaps = {"shift": _shift_snapshots(state["shift"], x),
+                 "S": torch.cat([s0[None], steps.permute(2, 0, 1, 3, 4)],
+                                dim=0)}
+        return out, new_state, snaps
+    return out, new_state
 
 
 def rwkv_step(params, x, cfg, state):
@@ -160,10 +173,8 @@ def rwkv_channel_mix(params, x, shift_state=None, lengths=None,
                      return_states=False):
     """RWKV channel mix (relu^2). x: (B, S, D); shift_state: (B, D) or None
     (zeros). Returns (y, last token); with `lengths` the shift state is
-    each row's true last token."""
-    if return_states:
-        _not_ported("rwkv_channel_mix(return_states=True), the per-step "
-                    "snapshots of speculative verify,", "hybrid engine")
+    each row's true last token. return_states=True also returns the
+    (S+1, B, D) shift snapshots (index t: the state after t tokens)."""
     B, S, D = x.shape
     if shift_state is None:
         shift_state = torch.zeros(B, D, dtype=x.dtype, device=x.device)
@@ -173,6 +184,8 @@ def rwkv_channel_mix(params, x, shift_state=None, lengths=None,
     y = torch.sigmoid(_shift_mix(x, x_prev, mix[1]) @ params["w_r"]) \
         * (k @ params["w_v"])
     shift = x[:, -1] if lengths is None else _last_valid(x, lengths)
+    if return_states:
+        return y, shift, _shift_snapshots(shift_state, x)
     return y, shift
 
 
@@ -250,10 +263,13 @@ def rglru_block_seq(params, x, cfg, state=None, lengths=None,
 
     lengths: optional (B,) true lengths of right-padded rows: padded steps
     freeze the recurrence (a = 1, gated input 0) so the final state equals
-    an unpadded per-row run's. Returns (out (B, S, D), new state)."""
-    if return_states:
-        _not_ported("rglru_block_seq(return_states=True), the per-step "
-                    "snapshots of speculative verify,", "hybrid engine")
+    an unpadded per-row run's. Returns (out (B, S, D), new state).
+
+    return_states=True also returns snapshots {"h": (S+1, B, rd) float32,
+    "conv": (S+1, B, W-1, rd)}, index t the state after t tokens (0: the
+    input state), as the JAX module's: h from the scan's float32 per-step
+    output, conv the W - 1 inputs ending at token t of the [state | x]
+    stream. Entries past a row's length are not a state of that row."""
     B, S, D = x.shape
     rd = params["w_in_rec"].shape[1]
     W = params["conv_w"].shape[0]
@@ -264,16 +280,22 @@ def rglru_block_seq(params, x, cfg, state=None, lengths=None,
                                      device=x.device)}
     branch = x @ params["w_in_rec"]
     gate = F.gelu(x @ params["w_in_gate"], approximate="tanh")
-    branch, conv_state = _causal_conv1d(branch, params["conv_w"],
-                                        params["conv_b"], state["conv"],
-                                        lengths=lengths)
+    branch, conv_state, conv_xp = _causal_conv1d(
+        branch, params["conv_w"], params["conv_b"], state["conv"],
+        lengths=lengths, return_history=True)
     a, gx = _rglru_gates(params, branch)
     if lengths is not None:
         valid = _valid(lengths, S, x.device)[..., None]
         a = torch.where(valid, a, torch.ones_like(a))
         gx = torch.where(valid, gx, torch.zeros_like(gx))
-    hs, h_fin = rglru_scan(a.contiguous(), gx.contiguous(),
-                           state["h"].float().contiguous())
+    h0 = state["h"].float().contiguous()
+    hs, h_fin = rglru_scan(a.contiguous(), gx.contiguous(), h0)
     y = hs.to(x.dtype) * gate
     out = y @ params["w_out"]
-    return out, {"h": h_fin, "conv": conv_state}
+    new_state = {"h": h_fin, "conv": conv_state}
+    if return_states:
+        # a and gx are float32, so hs is the scan's float32 h of each step
+        snaps = {"h": torch.cat([h0[None], hs.transpose(0, 1)], dim=0),
+                 "conv": conv_xp.unfold(1, W - 1, 1).permute(1, 0, 3, 2)}
+        return out, new_state, snaps
+    return out, new_state

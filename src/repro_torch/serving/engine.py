@@ -51,10 +51,19 @@ engine auto-disables it there (requesting it explicitly raises).
 Bucketed prefill works for every architecture: right-padded rows are
 length-masked (see models/lm.py) so recurrent final states stay exact.
 
-PyTorch port: a copy of `repro.serving.engine` against the torch runner.
-`ServingEngine` gains `device=` (default CUDA; without a GPU it raises
-unless device="cpu" is given). Ported in this slice: greedy requests over
-attention-only architectures with kv_dtype "fp16"; sampled requests, the
+PyTorch port: a copy of `repro.serving.engine` against the torch runner,
+with two differences:
+  * `ServingEngine` gains `device=` (default CUDA; without a GPU it raises
+    unless device="cpu" is given);
+  * `step()` hands the decode batch's active lanes to `runner.decode`.
+    The JAX step advances every slot's recurrent state, so a lane that
+    sits a decode step out mid-way through a chunked prefill (the
+    scheduler gives it token 0 at position 0) resumes its next chunk from
+    a corrupted state and leaves generate() from its first token; here it
+    keeps its state. Attention-only patterns do not notice: the sit-out
+    lane's write lands in the null block.
+Ported: greedy requests over attention and recurrent (rwkv6-3b,
+recurrentgemma-2b) patterns with kv_dtype "fp16"; sampled requests, the
 quantized pools and the host spill tier raise NotImplementedError.
 """
 from __future__ import annotations
@@ -333,7 +342,7 @@ class ServingEngine:
         if batch is None:
             return
         tokens, positions, active = batch
-        next_tok, lp, alt = self.runner.decode(tokens, positions)
+        next_tok, lp, alt = self.runner.decode(tokens, positions, active)
         self.steps += 1
         self.busy_lane_steps += len(active)
         self.scheduler.consume(active, next_tok, lp, alt)

@@ -7,11 +7,14 @@ blocks, found through its block-table row. Block 0 is the null sink:
 inactive decode slots and padded prefill positions write there, and the
 allocator never hands it out.
 
-Layer-state layout (mirrors models/lm.init_decode_state): attention layers
-hold {"k", "v"}: (num_blocks, block_size, KV, hd) pools in the activation
-dtype, one dict per layer in the unstacked {"prefix", "blocks"} tree. The
-pools are updated in place. Only kv_dtype "fp16" (the activation dtype) is
-ported; the quantized int8 / fp8 pools belong to a later slice.
+Layer-state layout (mirrors models/lm.init_decode_state), one entry per
+layer in the unstacked {"prefix", "blocks"} tree:
+  attention layers   {"k", "v"}: (num_blocks, block_size, KV, hd) pools in
+                     the activation dtype;
+  recurrent layers   slot-indexed dense state, (num_slots, ...) per leaf
+                     (lm.recurrent_state): O(num_slots), never paged.
+Everything is updated in place. Only kv_dtype "fp16" (the activation
+dtype) is ported; the quantized int8 / fp8 pools belong to a later slice.
 """
 from __future__ import annotations
 
@@ -42,16 +45,20 @@ def pool_dtype(cfg: ModelConfig, kv_dtype: str = "fp16") -> torch.dtype:
 
 def init_paged_state(cfg: ModelConfig, num_slots: int, num_blocks: int,
                      block_size: int, kv_dtype: str = "fp16", *, device):
-    """Paged decode state: zeroed pools for every attention layer, in the
-    lm state tree. `num_slots` sizes recurrent slot state, which the
-    attention-only layers of this slice do not have."""
+    """Paged decode state in the lm state tree: zeroed pools for every
+    attention layer, zeroed (num_slots, ...) state for every recurrent
+    one."""
     dt = pool_dtype(cfg, kv_dtype)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
-    lm._check_paged(cfg)
-    return lm._to_tree(cfg, [
-        {"k": torch.zeros(shape, dtype=dt, device=device),
-         "v": torch.zeros(shape, dtype=dt, device=device)}
-        for _ in lm.layer_kinds(cfg)])
+    lm._check_supported(cfg)
+
+    def one(kind):
+        if kind not in ATTN_KINDS:
+            return lm.recurrent_state(cfg, kind, num_slots, device)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    return lm._to_tree(cfg, [one(kind) for kind in lm.layer_kinds(cfg)])
 
 
 def _n_attn_layers(cfg: ModelConfig) -> int:
@@ -75,9 +82,33 @@ def block_bytes(cfg: ModelConfig, block_size: int,
 
 def copy_block(cfg: ModelConfig, state, src: int, dst: int):
     """Copy physical block `src` into `dst` in every attention pool, in
-    place — the copy-on-write primitive (see serving/scheduler.py)."""
+    place — the copy-on-write primitive (see serving/scheduler.py).
+    Recurrent slot state is per slot, never shared, and is untouched."""
     for kind, st in lm._layers(state, cfg):
         if kind in ATTN_KINDS:
             for a in st.values():
                 a[dst] = a[src]
+    return state
+
+
+def load_prefill(cfg: ModelConfig, state, cache, slot: int, table_row,
+                 block_size: int):
+    """Scatter one sequence's prefill cache (lm.prefill at batch 1) into
+    the paged state, in place: attention K/V of prompt position p lands in
+    block table_row[p // block_size] at offset p % block_size, each
+    recurrent layer's final state at index `slot`. The engine fuses
+    prefill and this scatter in lm.prefill_paged; this standalone loader
+    is the oracle that path is tested against, and the way to seed paged
+    state outside the engine. Returns `state`."""
+    table_row = torch.as_tensor(table_row).long()
+    for (kind, st), (_, ca) in zip(lm._layers(state, cfg),
+                                   lm._layers(cache, cfg)):
+        if kind in ATTN_KINDS:
+            pos = torch.arange(ca["k"].shape[1], device=st["k"].device)
+            blk = table_row.to(pos.device)[pos // block_size]
+            for name in ("k", "v"):
+                st[name][blk, pos % block_size] = ca[name][0].to(
+                    st[name].dtype)
+            continue
+        lm._map(lambda s, c: s.__setitem__(slot, c[0].to(s.dtype)), st, ca)
     return state

@@ -17,10 +17,22 @@ per shape here; `prefill_shapes` / `verify_shapes` and the telemetry's
 `first_dispatch` flag still record the distinct shapes. Capturing CUDA
 graphs per bucket is a later change.
 
-Pools are updated in place (the JAX runner donates them). Ported for
-this slice: greedy decoding with kv_dtype "fp16". Sampled lanes, the
-quantized pools and the host spill tier (`fetch_block` /
-`upload_blocks`) raise NotImplementedError until their slice.
+Speculative verify: `verify()` keeps the recurrent layers' per-step
+snapshots, and `commit()` restores each lane's recurrent slot state at its
+accepted length from them (attention needs no commit: stale K/V past the
+accepted point is position-masked until overwritten).
+
+One difference from the JAX runner: `decode()` takes the scheduler's
+active lanes and hands them to `lm.decode_step_paged`, so a lane that
+sits the step out (mid-way through a chunked prefill) keeps its recurrent
+state. The JAX step advances every slot's state, and a chunked prompt's
+next chunk then resumes from the corrupted state.
+
+Pools and slot state are updated in place (the JAX runner donates them).
+Ported: greedy decoding with kv_dtype "fp16", for attention and recurrent
+(rwkv / rec) patterns. Sampled lanes, the quantized pools and the host
+spill tier (`fetch_block` / `upload_blocks`) raise NotImplementedError
+until their slice.
 """
 from __future__ import annotations
 
@@ -146,6 +158,7 @@ class ModelRunner:
 
         self.prefill_shapes: set = set()     # distinct (width, Ls) dispatched
         self.verify_shapes: set = set()      # distinct chain buckets T
+        self._snaps = None                   # pending recurrent snapshots
         self.reset_stats()
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -298,18 +311,26 @@ class ModelRunner:
         return out
 
     @torch.inference_mode()
-    def decode(self, tokens: np.ndarray, positions: np.ndarray):
+    def decode(self, tokens: np.ndarray, positions: np.ndarray,
+               active: Optional[Sequence[int]] = None):
         """One batched greedy decode step over all lanes. tokens /
-        positions: (num_slots,) int32 host arrays. Returns ((num_slots,)
-        int32 next tokens, (num_slots,) float32 chosen logprobs, alt)."""
+        positions: (num_slots,) int32 host arrays; active: the lanes in
+        the step (the scheduler's), or None for all. Lanes outside it keep
+        their recurrent state. Returns ((num_slots,) int32 next tokens,
+        (num_slots,) float32 chosen logprobs, alt)."""
         obs = self._obs
         t0 = self._now() if obs.enabled else 0.0
         if self.any_sampled:
             _sampled_not_ported()
         want_alt = self.any_alt
+        mask = None
+        if active is not None:
+            lanes = np.zeros(self.num_slots, bool)
+            lanes[list(active)] = True
+            mask = self._dev(lanes)
         logits, self.state = lm.decode_step_paged(
             self.params, self.cfg, self.state, self._dev(tokens),
-            self._dev(positions), self._tables_device())
+            self._dev(positions), self._tables_device(), active=mask)
         tok, lp = sampling.greedy_tokens(logits)
         out = self._host_out(tok, lp, logits if want_alt else None)
         if obs.enabled:
@@ -330,7 +351,8 @@ class ModelRunner:
         out). Returns (emitted tokens (num_slots, T) int32, accept counts
         (num_slots,) int32, chosen logprobs (num_slots, T) float32, alt)
         — greedy lanes emit the model argmax at every position and accept
-        the longest agreeing draft prefix."""
+        the longest agreeing draft prefix. Recurrent snapshots are held
+        until the matching `commit`."""
         T = tokens.shape[1]
         obs = self._obs
         t0 = self._now() if obs.enabled else 0.0
@@ -343,7 +365,7 @@ class ModelRunner:
         want_alt = self.any_alt
         chain = self._dev(tokens)
         counts_dev = self._dev(counts)
-        logits, self.state, _ = lm.decode_verify_paged(
+        logits, self.state, self._snaps = lm.decode_verify_paged(
             self.params, self.cfg, self.state, chain, self._dev(positions),
             counts_dev, self._tables_device())
         emit, accept, lp = sampling.greedy_verify_tokens(logits, chain,
@@ -366,10 +388,16 @@ class ModelRunner:
             self._verify_variants.add(variant)
         return out
 
+    @torch.inference_mode()
     def commit(self, idx: np.ndarray) -> None:
         """Commit per-lane recurrent state at `idx` accepted chain tokens
-        after a `verify` — a no-op for the attention-only architectures
-        of this slice, whose rollback is entirely positional."""
+        (0 = keep the pre-verify state) from the snapshots of the last
+        `verify`, then drop them. Must follow every `verify`; a no-op for
+        attention-only patterns, whose rollback is entirely positional."""
+        if self._snaps is not None:
+            self.state = lm.commit_decode_state(self.cfg, self.state,
+                                                self._snaps, self._dev(idx))
+        self._snaps = None
 
     @torch.inference_mode()
     def copy_block(self, src: int, dst: int) -> None:

@@ -14,7 +14,6 @@ from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
-from repro_torch.serving import kv_cache as tkv  # noqa: E402
 
 ALL_ARCHS = list(jconfigs.ARCHS)
 MODEL_ARCHS = jconfigs.list_archs()
@@ -99,19 +98,16 @@ def test_full_width_smollm_count_and_dtypes():
     assert cfg.act_dtype == torch.bfloat16 and cfg.p_dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b",
-                                  "grok-1-314b", "paligemma-3b",
+@pytest.mark.parametrize("arch", ["grok-1-314b", "paligemma-3b",
                                   "musicgen-medium"])
 def test_unported_archs_raise(arch):
-    """Each arch's unported path raises: the whole model, or for
-    recurrentgemma-2b and rwkv6-3b (whose lm and generate() paths are
-    ported) the paged engine state."""
+    """Each arch whose model is not ported (MoE, the vision and audio
+    frontends) raises. recurrentgemma-2b and rwkv6-3b run every path,
+    the paged engine's included (tests/test_torch_lm.py,
+    tests/test_torch_engine.py)."""
     cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
-        if arch in ("recurrentgemma-2b", "rwkv6-3b"):
-            tkv.init_paged_state(cfg, 2, 8, 4, device="cpu")
-        else:
-            tlm.init_params(0, cfg, device="cpu")
+        tlm.init_params(0, cfg, device="cpu")
 
 
 def _leaves(tree, path=()):

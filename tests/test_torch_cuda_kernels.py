@@ -551,22 +551,28 @@ def _paged_batch(rng, dtype, dev, hd, heads, bs, ctx):
     (256, (10, 1), 2048, [2048, 1, 700, 1500, 128, 0]),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_attention_batch_invariant(cuda, hd, heads, bs, ctx, dtype):
+@pytest.mark.parametrize("window", [0, 300])
+def test_paged_attention_batch_invariant(cuda, hd, heads, bs, ctx, dtype,
+                                         window):
     """A row's output bits do not depend on the batch: alone, in the
-    batch, and in the batch with the other rows' contexts changed."""
+    batch, and in the batch with the other rows' contexts changed; with
+    and without a window (which leaves out whole splits and, in the first
+    live one, the rows below it)."""
     rng = np.random.default_rng(hd + bs)
     q, kp, vp, bt, cl = _paged_batch(rng, dtype, cuda, hd, heads, bs, ctx)
-    full = paged_attention(q, kp, vp, bt, cl)
+    full = paged_attention(q, kp, vp, bt, cl, window=window)
     for b in range(len(ctx)):
-        alone = paged_attention(q[b:b + 1], kp, vp, bt[b:b + 1], cl[b:b + 1])
+        alone = paged_attention(q[b:b + 1], kp, vp, bt[b:b + 1], cl[b:b + 1],
+                                window=window)
         torch.testing.assert_close(alone[0], full[b], atol=0, rtol=0)
         moved = cl.roll(1)                # every other row's ctx changed
         moved[b] = cl[b]
-        others = paged_attention(q, kp, vp, bt, moved)
+        others = paged_attention(q, kp, vp, bt, moved, window=window)
         torch.testing.assert_close(others[b], full[b], atol=0, rtol=0)
     torch.testing.assert_close(full.float(), ref.paged_attention_ref(
-        q, kp, vp, bt, cl).float(), atol=2e-5 if dtype == torch.float32
-        else 2e-2, rtol=2e-5 if dtype == torch.float32 else 2e-2)
+        q, kp, vp, bt, cl, window=window).float(),
+        atol=2e-5 if dtype == torch.float32 else 2e-2,
+        rtol=2e-5 if dtype == torch.float32 else 2e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -773,3 +779,88 @@ def test_rwkv6_scan_bit_equal_to_split_emulation(cuda, shape, dtype,
     _, want_s = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
     torch.testing.assert_close(got_s, want_s, atol=0, rtol=0)
+
+
+# ----------------------------------------------------------------------------
+# the serving engine's arms of two kernels: paged decode with a sliding
+# window (recurrentgemma-2b's attn_local layers over their paged history)
+# and rwkv6_scan's per-step states (speculative verify's rollback points)
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [48, 200, 2048])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_attention_window_matches_twin(cuda, window, dtype, tol):
+    """recurrentgemma-2b's decode shape (10 query heads over 1 KV head, hd
+    256) through an engine pool of 16-token blocks, contexts on both sides
+    of the window and of the 128-token splits: within the kernel tolerance
+    of the windowed twin; rows with ctx <= window bit-equal to the call
+    without a window."""
+    rng = np.random.default_rng(window)
+    ctx = [0, 1, window - 1, window, window + 1, window + 127, window + 129,
+           3000]
+    B, bs, Mw = len(ctx), 16, 3000 // 16 + 1
+    N = B * Mw + 1
+    q = _rand(rng, B, 10, 256, dtype=dtype, dev=cuda)
+    kp, vp = (_rand(rng, N, bs, 1, 256, dtype=dtype, dev=cuda)
+              for _ in range(2))
+    bt = torch.from_numpy((1 + rng.permutation(B * Mw)).reshape(B, Mw)
+                          .astype(np.int32)).to(cuda)
+    cl = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    before = paged_attention.launches
+    got = paged_attention(q, kp, vp, bt, cl, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = ref.paged_attention_ref(q, kp, vp, bt, cl, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.all(got[0] == 0)                       # ctx == 0
+    plain = paged_attention(q, kp, vp, bt, cl)
+    inside = cl <= window
+    torch.testing.assert_close(got[inside], plain[inside], atol=0, rtol=0)
+    # a window wider than every row is no window at all
+    wide = paged_attention(q, kp, vp, bt, cl, window=4096)
+    torch.testing.assert_close(wide, plain, atol=0, rtol=0)
+
+
+def _rwkv_inputs(rng, shape, dtype, dev, with_s0):
+    B, H, T, N = shape
+    r, k, v = (_rand(rng, *shape, dev=dev).mul(0.5).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(_rand(rng, *shape, dev=dev) - 1))
+    u = _rand(rng, H, N, dev=dev) * 0.1
+    s0 = _rand(rng, B, H, N, N, dev=dev) if with_s0 else None
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("shape", [(4, 40, 8, 64), (4, 40, 1, 64),
+                                   (2, 4, 5, 12), (2, 3, 40, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_scan_states_bit_equal(cuda, shape, dtype, with_s0):
+    """return_states=True: one launch; y and S_T bit-equal to the call
+    without the flag; S_steps bit-equal to the twin's, each S_steps[:, :,
+    t] to S_T of the call cut to t + 1 steps and to t + 1 single-step
+    launches chained through s0 (the engine's decode steps); aligned (N =
+    64, 16) and padded (N = 12)."""
+    B, H, T, N = shape
+    rng = np.random.default_rng(T * N + 7 * with_s0)
+    r, k, v, w, u, s0 = _rwkv_inputs(rng, shape, dtype, cuda, with_s0)
+    before = rwkv6_scan.launches
+    y, s_fin, steps = rwkv6_scan(r, k, v, w, u, s0, return_states=True)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches == before + 1
+    assert steps.shape == (B, H, T, N, N) and steps.dtype == torch.float32
+    y0, s0_fin = rwkv6_scan(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y0, atol=0, rtol=0)
+    torch.testing.assert_close(s_fin, s0_fin, atol=0, rtol=0)
+    _, _, want = ref.rwkv6_scan_ref(r, k, v, w, u, s0, return_states=True)
+    torch.testing.assert_close(steps, want, atol=0, rtol=0)
+    torch.testing.assert_close(steps[:, :, -1], s_fin, atol=0, rtol=0)
+    s = s0
+    for t in range(T):
+        cut = [x[:, :, :t + 1].contiguous() for x in (r, k, v, w)]
+        _, s_cut = rwkv6_scan(*cut, u, s0)
+        torch.testing.assert_close(steps[:, :, t], s_cut, atol=0, rtol=0)
+        one = [x[:, :, t:t + 1].contiguous() for x in (r, k, v, w)]
+        _, s = rwkv6_scan(*one, u, s)
+        torch.testing.assert_close(steps[:, :, t], s, atol=0, rtol=0)

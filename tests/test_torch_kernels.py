@@ -31,6 +31,7 @@ from repro_torch.kernels import rglru_scan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.build import FLASH_KEY_TILE, PAGED_CHUNK  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import pad_head_dim  # noqa: E402
+from repro_torch.kernels import rwkv6_scan  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -148,6 +149,77 @@ def test_paged_attention_split_emulation(bs, M, ctx):
             args[0][b:b + 1], args[1], args[2], args[3][b:b + 1],
             args[4][b:b + 1], chunk=PAGED_CHUNK)
         torch.testing.assert_close(alone[0], got[b], atol=0, rtol=0)
+
+
+# The window (recurrentgemma-2b's attn_local layers decode through the paged
+# pools, which keep every token): the kernel's split keeps its chunks
+# aligned to token 0, leaves out those that end at or below ctx - window
+# and starts the first live one at ctx - window. Float32 within 1e-6 of the
+# windowed twin, a row's bits the same alone as in the batch, and with ctx
+# <= window the unwindowed call's bits.
+@pytest.mark.parametrize("bs,M,ctx,window", [
+    (16, 24, (0, 1, 16, 47, 48, 49, 176, 200, 384), 48),
+    (16, 24, (0, 1, 127, 128, 129, 255, 300, 384), 128),
+    (2048, 1, (1, 0, 129, 700, 1024, 2048, 1500), 300),
+])
+def test_paged_attention_window_split_emulation(bs, M, ctx, window):
+    B, H, KV, hd = len(ctx), 10, 1, 32
+    q, kp, vp, bt, cl = _decode_case(bs + window, B, H, KV, hd, bs, M, ctx)
+    if bs == 2048:
+        kp, vp, bt = kp[:B], vp[:B], np.arange(B, dtype=np.int32)[:, None]
+    args = (_t(q), _t(kp), _t(vp), _t(bt), _t(cl))
+    got = ref.paged_attention_split_ref(*args, chunk=PAGED_CHUNK,
+                                        window=window)
+    torch.testing.assert_close(
+        got, ref.paged_attention_ref(*args, window=window), atol=1e-6,
+        rtol=1e-6)
+    plain = ref.paged_attention_split_ref(*args, chunk=PAGED_CHUNK)
+    inside = cl <= window
+    torch.testing.assert_close(got[inside], plain[inside], atol=0, rtol=0)
+    assert np.all(got.numpy()[cl == 0] == 0.0)
+    for b in range(B):
+        alone = ref.paged_attention_split_ref(
+            args[0][b:b + 1], args[1], args[2], args[3][b:b + 1],
+            args[4][b:b + 1], chunk=PAGED_CHUNK, window=window)
+        torch.testing.assert_close(alone[0], got[b], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("window", [0, 5, 16])
+def test_paged_decode_block_window_matches_jax(window):
+    """The port's paged decode block (the wrapper, so the twin, on the
+    CPU) against the JAX oracle paged_decode_attention_block, windowed as
+    recurrentgemma-2b's attn_local layers run it: 10 query heads over 1 KV
+    head, ragged positions on both sides of the window, within 2e-5."""
+    from repro import configs as jconfigs
+    from repro.models import attention as jattn
+    from repro_torch import configs as tconfigs
+    from repro_torch.models import attention as tattn
+    kw = dict(n_heads=10, n_kv_heads=1, head_dim=16)
+    jcfg = jconfigs.get_config("recurrentgemma-2b").reduced(**kw)
+    tcfg = tconfigs.get_config("recurrentgemma-2b").reduced(**kw)
+    rng = np.random.default_rng(40 + window)
+    D, H, hd = jcfg.d_model, 10, 16
+    params = {n: _rand(rng, D, c) * D ** -0.5
+              for n, c in (("wq", H * hd), ("wk", hd), ("wv", hd))}
+    params["wo"] = _rand(rng, H * hd, D) * (H * hd) ** -0.5
+    B, bs, M = 4, 4, 8
+    N = B * M + 1
+    pool = {"k": _rand(rng, N, bs, 1, hd), "v": _rand(rng, N, bs, 1, hd)}
+    bt = (1 + rng.permutation(B * M)).reshape(B, M).astype(np.int32)
+    pos = np.asarray([0, 4, 17, 31], np.int32)
+    x = _rand(rng, B, 1, D)
+    want, jcache = jattn.paged_decode_attention_block(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        {k: jnp.asarray(v) for k, v in pool.items()}, jnp.asarray(pos),
+        jnp.asarray(bt), jcfg, window=window)
+    tcache = {k: _t(v.copy()) for k, v in pool.items()}
+    got, tcache = tattn.paged_decode_attention_block(
+        {k: _t(v) for k, v in params.items()}, _t(x), tcache, _t(pos),
+        _t(bt), tcfg, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tcache[name].numpy()[1:],
+                                   np.asarray(jcache[name])[1:], **TOL)
 
 
 # ----------------------------------------------------------------------------
@@ -429,6 +501,43 @@ def test_rwkv6_split_emulation(shape, dtype, with_s0):
         assert bool((diff <= 1e-5 * (1 + want.abs())).all())
     else:
         assert _bf16_ulps(got, want) <= _TOL_ULPS
+
+
+# The speculative verify's rollback points: rwkv6_scan(return_states=True)
+# also returns the state after each step. In the twin (and the kernel,
+# tests/test_torch_cuda_kernels.py) S_steps[:, :, t] is exactly S_T of the
+# call cut to t + 1 steps and of t + 1 single steps chained through s0,
+# and the flag moves neither y nor S_T.
+@pytest.mark.parametrize("shape", [(4, 40, 8, 64), (2, 4, 5, 12),
+                                   (1, 3, 1, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv6_twin_states_equal_cut_runs(shape, dtype, with_s0):
+    B, H, T, N = shape
+    rng = np.random.default_rng(T * N + 3 * with_s0)
+    td = getattr(torch, dtype)
+    r, k, v = (_t(_rand(rng, *shape) * 0.5).to(td) for _ in range(3))
+    w = torch.exp(-torch.exp(_t(_rand(rng, *shape)) - 1))
+    u = _t(_rand(rng, H, N)) * 0.1
+    s0 = _t(_rand(rng, B, H, N, N)) if with_s0 else None
+    before = rwkv6_scan.launches
+    y, s_fin, steps = rwkv6_scan(r, k, v, w, u, s0, return_states=True)
+    assert rwkv6_scan.launches == before          # the twin on the CPU
+    assert steps.shape == (B, H, T, N, N) and steps.dtype == torch.float32
+    y0, s_fin0 = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y0, atol=0, rtol=0)
+    torch.testing.assert_close(s_fin, s_fin0, atol=0, rtol=0)
+    s = s0
+    for t in range(T):
+        cut = [x[:, :, :t + 1] for x in (r, k, v, w)]
+        _, s_cut = ref.rwkv6_scan_ref(*cut, u, s0)
+        torch.testing.assert_close(steps[:, :, t], s_cut, atol=0, rtol=0)
+        _, s = ref.rwkv6_scan_ref(*(x[:, :, t:t + 1] for x in (r, k, v, w)),
+                                  u, s)
+        torch.testing.assert_close(steps[:, :, t], s, atol=0, rtol=0)
+    empty = ref.rwkv6_scan_ref(*(x[:, :, :0] for x in (r, k, v, w)), u, s0,
+                               return_states=True)
+    assert empty[2].shape == (B, H, 0, N, N)
 
 
 @pytest.mark.parametrize("T", [1, 3])

@@ -268,13 +268,17 @@ def test_recurrentgemma_generate_tokens_match_jax(seed):
 
 
 def test_recurrentgemma_paged_paths_raise():
-    """The engine (paged) path for rec blocks waits for its slice."""
+    """The engine (paged) path runs rec blocks (test_recurrent_paged_paths
+    _match_jax); what still raises there is what no architecture has yet:
+    quantized pools. The prefix cache is refused for a recurrent pattern,
+    whose state is per slot, not per block."""
     _, _, tcfg, tparams = _models(RG)
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        tkv.init_paged_state(tcfg, 2, 8, 4, device="cpu")
-    z = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        tlm.decode_step_paged(tparams, tcfg, {}, z[0], z[0], z)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        tkv.init_paged_state(tcfg, 2, 8, 4, kv_dtype="int8", device="cpu")
+    from repro_torch.serving.engine import ServingEngine
+    with pytest.raises(ValueError, match="prefix caching"):
+        ServingEngine(tparams, tcfg, num_slots=2, block_size=4,
+                      max_seq_len=32, prefix_cache=True, device="cpu")
 
 
 # ----------------------------------------------------------------------------
@@ -344,10 +348,200 @@ def test_rwkv_generate_tokens_match_jax(seed):
 
 
 def test_rwkv_paged_paths_raise():
-    """The engine (paged) path for rwkv blocks waits for its slice."""
+    """The engine (paged) path runs rwkv blocks (test_recurrent_paged_paths
+    _match_jax); what still raises there is what no architecture has yet:
+    quantized pools. The prefix cache is refused for a recurrent pattern,
+    whose state is per slot, not per block."""
     _, _, tcfg, tparams = _models(RW)
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        tkv.init_paged_state(tcfg, 2, 8, 4, device="cpu")
-    z = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        tlm.decode_step_paged(tparams, tcfg, {}, z[0], z[0], z)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        tkv.init_paged_state(tcfg, 2, 8, 4, kv_dtype="fp8", device="cpu")
+    from repro_torch.serving.engine import ServingEngine
+    with pytest.raises(ValueError, match="prefix caching"):
+        ServingEngine(tparams, tcfg, num_slots=2, block_size=4,
+                      max_seq_len=32, prefix_cache=True, device="cpu")
+
+
+# ----------------------------------------------------------------------------
+# the paged entry points of the serving engine for both recurrent archs:
+# slot-indexed recurrent state beside the block pools
+# ----------------------------------------------------------------------------
+
+def _flat(tree, path=()):
+    """(key path, leaf) of a layer's state, whatever the dicts' key
+    order (the JAX trees come back with sorted keys)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _jsnaps(snaps, cfg):
+    """JAX verify snapshots (scanned blocks stacked on n_super, None for
+    attention layers) in the port's per-layer layout."""
+    def conv(t, s=None):
+        if isinstance(t, dict):
+            return {k: conv(v, s) for k, v in t.items()}
+        a = np.asarray(t)
+        return torch.from_numpy(np.array(a if s is None else a[s]))
+
+    return {"prefix": [None if t is None else conv(t)
+                       for t in snaps["prefix"]],
+            "blocks": {k: [None if t is None else conv(t, s)
+                           for s in range(cfg.n_super)]
+                       for k, t in snaps["blocks"].items()}}
+
+
+def _states_close(tstate, jstate, cfg, tol):
+    """Every layer of two paged states: recurrent leaves (all slots) at
+    `tol`, pools at 1e-4 with the null block (a sink for padding writes)
+    dropped."""
+    jstate = convert.from_jax(jax.device_get(jstate), cfg)
+    for i, ((kind, t), (_, j)) in enumerate(zip(tlm._layers(tstate, cfg),
+                                                tlm._layers(jstate, cfg))):
+        jl = dict(_flat(j))
+        for path, leaf in _flat(t):
+            want = _np(jl[path])
+            got = _np(leaf)
+            if kind in tkv.ATTN_KINDS:
+                got, want, k = got[1:], want[1:], TOL
+            else:
+                k = tol
+            np.testing.assert_allclose(got, want, err_msg=f"{i} {path}",
+                                       **k)
+
+
+@pytest.mark.parametrize("arch", [RG, RW])
+def test_recurrent_paged_paths_match_jax(arch):
+    """prefill_paged (fresh, with a padding row whose slot drops, and a
+    20-token prompt in two chunks, the second with resume=True),
+    decode_step_paged, decode_verify_paged and commit_decode_state at
+    index 0, 1 and each lane's chain length, against the JAX package on
+    the same converted params: logits within 1e-4, rwkv states within
+    1e-5, recurrentgemma's within 1e-4 (the deviation the dense prefill
+    test records), pools within 1e-4; the snapshots too, up to each lane's
+    chain length."""
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    tol = dict(atol=1e-5, rtol=1e-5) if arch == RW else TOL
+    rng = np.random.default_rng(50)
+    S, bs, M, nb = 4, 4, 8, 40
+    tables = np.zeros((S, M), np.int32)
+    tables[0], tables[1], tables[2] = (np.arange(1, 9), np.arange(9, 17),
+                                       np.arange(17, 25))
+    jstate = jkv.init_paged_state(jcfg, S, nb, bs)
+    tstate = tkv.init_paged_state(tcfg, S, nb, bs, device="cpu")
+    long = rng.integers(0, jcfg.vocab_size, 20).astype(np.int32)
+
+    def prefill(toks, lengths, cached, rows, slots, resume=False):
+        nonlocal jstate
+        args = [np.asarray(a, np.int32) for a in
+                (toks, lengths, cached, tables[rows], slots)]
+        jlast, jstate = jlm.prefill_paged(
+            jparams, jcfg, jstate, *(jnp.asarray(a) for a in args),
+            resume=resume)
+        tlast, _ = tlm.prefill_paged(
+            tparams, tcfg, tstate, *(torch.from_numpy(a) for a in args),
+            resume=resume)
+        real = args[1] > 0
+        np.testing.assert_allclose(_np(tlast)[real], _np(jlast)[real], **TOL)
+        _states_close(tstate, jstate, tcfg, tol)
+
+    # fresh: slot 0 (13 tokens), slot 2 (9 tokens), a padding row
+    p0, p2 = (rng.integers(0, jcfg.vocab_size, n).astype(np.int32)
+              for n in (13, 9))
+    toks = np.zeros((3, 16), np.int32)
+    toks[0, :13], toks[1, :9] = p0, p2
+    prefill(toks, [13, 9, 0], [0, 0, 0], [0, 2, 3], [0, 2, S])
+    # slot 1's 20-token prompt in two chunks of 8 and 12
+    prefill(np.pad(long[:8], (0, 8))[None], [8], [0], [1], [1])
+    prefill(np.pad(long[8:], (0, 4))[None], [20], [8], [1], [1],
+            resume=True)
+
+    # one decode step of every lane (slot 3 empty: null table, position 0)
+    tokens = np.asarray([5, 7, 11, 0], np.int32)
+    positions = np.asarray([13, 20, 9, 0], np.int32)
+    dargs = [tokens, positions, tables]
+    jlog, jstate = jlm.decode_step_paged(jparams, jcfg, jstate,
+                                         *(jnp.asarray(a) for a in dargs))
+    tlog, _ = tlm.decode_step_paged(tparams, tcfg, tstate,
+                                    *(torch.from_numpy(a) for a in dargs))
+    np.testing.assert_allclose(_np(tlog), _np(jlog), **TOL)
+    _states_close(tstate, jstate, tcfg, tol)
+
+    # a verify of chains of 3, 2, 4 and 0 tokens
+    chain = rng.integers(0, jcfg.vocab_size, (S, 4)).astype(np.int32)
+    counts = np.asarray([3, 2, 4, 0], np.int32)
+    vargs = [chain, positions + 1, counts, tables]
+    jv, jstate, jsn = jlm.decode_verify_paged(
+        jparams, jcfg, jstate, *(jnp.asarray(a) for a in vargs))
+    tv, _, tsn = tlm.decode_verify_paged(
+        tparams, tcfg, tstate, *(torch.from_numpy(a) for a in vargs))
+    for b in range(S):
+        np.testing.assert_allclose(_np(tv)[b, :counts[b]],
+                                   _np(jv)[b, :counts[b]], **TOL)
+    _states_close(tstate, jstate, tcfg, tol)   # recurrent state not moved
+    jsn_t = _jsnaps(jsn, tcfg)
+    for (kind, t), (_, j) in zip(tlm._layers(tsn, tcfg),
+                                 tlm._layers(jsn_t, tcfg)):
+        assert (t is None) == (kind in tkv.ATTN_KINDS) == (j is None)
+        if t is None:
+            continue
+        jl = dict(_flat(j))
+        for path, leaf in _flat(t):
+            assert leaf.shape[:2] == (5, S)
+            for b in range(S):
+                np.testing.assert_allclose(
+                    _np(leaf)[:counts[b] + 1, b],
+                    _np(jl[path])[:counts[b] + 1, b], err_msg=str(path),
+                    **tol)
+
+    for idx in ([0, 0, 0, 0], [1, 1, 1, 0], list(counts)):
+        idx = np.asarray(idx, np.int32)
+        tcopy = _clone_state(tstate)
+        jc = jlm.commit_decode_state(jcfg, jstate, jsn, jnp.asarray(idx))
+        tc = tlm.commit_decode_state(tcfg, tcopy, tsn, torch.from_numpy(idx))
+        assert tc is tcopy
+        _states_close(tc, jc, tcfg, tol)
+
+
+def _clone_state(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_state(v) for v in tree]
+    return tree.clone()
+
+
+@pytest.mark.parametrize("arch", [RG, RW])
+def test_decode_step_paged_inactive_lanes_keep_state(arch):
+    """active: a lane outside it keeps its recurrent state bit for bit
+    (the chunked-prefill lane that sits a decode step out), and the lanes
+    in it take exactly the state of a step with every lane active."""
+    _, _, tcfg, tparams = _models(arch)
+    S, bs, nb = 3, 4, 16
+    state = tkv.init_paged_state(tcfg, S, nb, bs, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    for _, st in tlm._layers(state, tcfg):
+        for _, leaf in _flat(st):
+            leaf.copy_(torch.randn(leaf.shape, generator=g).to(leaf.dtype)
+                       * 0.1)
+    tables = torch.zeros(S, 4, dtype=torch.int32)
+    tables[0], tables[2] = torch.arange(1, 5), torch.arange(5, 9)
+    tokens = torch.tensor([3, 0, 9], dtype=torch.int32)
+    positions = torch.tensor([6, 0, 2], dtype=torch.int32)
+    before = _clone_state(state)
+    everyone = _clone_state(state)
+    tlm.decode_step_paged(tparams, tcfg, everyone, tokens, positions, tables)
+    active = torch.tensor([True, False, True])
+    tlm.decode_step_paged(tparams, tcfg, state, tokens, positions, tables,
+                          active=active)
+    for (kind, st), (_, b4), (_, ev) in zip(tlm._layers(state, tcfg),
+                                            tlm._layers(before, tcfg),
+                                            tlm._layers(everyone, tcfg)):
+        if kind in tkv.ATTN_KINDS:
+            continue
+        for (path, got), (_, old), (_, new) in zip(_flat(st), _flat(b4),
+                                                   _flat(ev)):
+            assert torch.equal(got[1], old[1]), path
+            assert torch.equal(got[[0, 2]], new[[0, 2]]), path
+            assert not torch.equal(new[1], old[1]), path

@@ -161,24 +161,142 @@ def test_rglru_block_runs_its_scan_through_the_wrapper(monkeypatch):
 
 
 def test_unported_recurrent_paths_raise():
-    """The per-step snapshots of speculative verify wait for the engine
-    slices; the RWKV6 time mix, which raised before its slice, now runs
-    and equals the JAX package's."""
+    """No recurrent path is left unported: the per-step snapshots run
+    (test_*_snapshots_match_jax hold them to the JAX package). What still
+    raises is a tensor on a device the scan wrappers have no route for:
+    they refuse it rather than fall back to the twin, with and without
+    the snapshots. The RWKV6 time mix equals the JAX package's."""
     _, tcfg = _cfgs()
     _, tp = _params(5)
-    x = _t(_x(12, 1, 3, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        trec.rglru_block_seq(tp, x, tcfg, return_states=True)
+    x = _x(12, 1, 3, tcfg.d_model)
+    meta = {k: v.to("meta") for k, v in tp.items()}
+    for snaps in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            trec.rglru_block_seq(meta, _t(x).to("meta"), tcfg,
+                                 return_states=snaps)
     jcfg, tcfg = _rwkv_cfgs()
     jp, tp = _rwkv_params(5)
     x = _x(12, 1, 3, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        trec.rwkv_seq(tp["tmix"], _t(x), tcfg, return_states=True)
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        trec.rwkv_channel_mix(tp["cmix"], _t(x), return_states=True)
+    meta = {k: v.to("meta") for k, v in tp["tmix"].items()}
+    for snaps in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            trec.rwkv_seq(meta, _t(x).to("meta"), tcfg, return_states=snaps)
     want, _ = jrec.rwkv_seq(jp["tmix"], jnp.asarray(x), jcfg)
     got, _ = trec.rwkv_seq(tp["tmix"], _t(x), tcfg)
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+# The speculative verify's snapshots: (S+1, B, ...) stacks, index t the
+# state after t tokens (0: the input state), against the JAX module's
+# return_states=True, with and without `lengths` and a carried state,
+# within 1e-5. Entries past a row's length are junk in the JAX package
+# (the verify never gathers them) and are compared only up to it.
+
+def _snap_close(got, want, lengths, B):
+    """got / want: (S+1, B, ...) stacks; rows compared at t <= length."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    for b in range(B):
+        n = got.shape[0] if lengths is None else lengths[b] + 1
+        np.testing.assert_allclose(got[:n, b], want[:n, b], **TOL)
+
+
+@pytest.mark.parametrize("lengths", [None, (8, 3)])
+@pytest.mark.parametrize("carry", [False, True])
+def test_rglru_snapshots_match_jax(lengths, carry):
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(3)
+    x = _x(17, 2, 8, jcfg.d_model)
+    state = None
+    if carry:
+        state = {"h": _x(18, 2, jcfg.rnn_width),
+                 "conv": _x(19, 2, jcfg.conv_width - 1, jcfg.rnn_width)}
+    ln = None if lengths is None else np.asarray(lengths, np.int32)
+    jo, js, jsn = jrec.rglru_block_seq(
+        jp, jnp.asarray(x), jcfg,
+        None if state is None else {k: jnp.asarray(v)
+                                    for k, v in state.items()},
+        lengths=None if ln is None else jnp.asarray(ln), return_states=True)
+    to, ts, tsn = trec.rglru_block_seq(
+        tp, _t(x), tcfg,
+        None if state is None else {k: _t(v) for k, v in state.items()},
+        lengths=None if ln is None else _t(ln), return_states=True)
+    np.testing.assert_allclose(_np(to), _np(jo), **TOL)
+    assert tsn["h"].dtype == torch.float32
+    assert tsn["h"].shape == (9, 2, jcfg.rnn_width)
+    assert tsn["conv"].shape == (9, 2, jcfg.conv_width - 1, jcfg.rnn_width)
+    for name in ("h", "conv"):
+        np.testing.assert_allclose(_np(ts[name]), _np(js[name]), **TOL)
+        _snap_close(tsn[name], jsn[name], lengths, 2)
+    # the state at a row's length is the final state
+    for b in range(2):
+        n = 8 if lengths is None else lengths[b]
+        for name in ("h", "conv"):
+            torch.testing.assert_close(tsn[name][n, b], ts[name][b],
+                                       atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("lengths", [None, (8, 3)])
+@pytest.mark.parametrize("carry", [False, True])
+def test_rwkv_snapshots_match_jax(lengths, carry):
+    """The time mix's {"shift", "S"} and the channel mix's shift."""
+    jcfg, tcfg = _rwkv_cfgs()
+    jp, tp = _rwkv_params(3)
+    x = _x(21, 2, 8, jcfg.d_model)
+    state = _rwkv_state(22, jcfg) if carry else None
+    shift = _x(23, 2, jcfg.d_model) if carry else None
+    ln = None if lengths is None else np.asarray(lengths, np.int32)
+    jl = None if ln is None else jnp.asarray(ln)
+    tl = None if ln is None else _t(ln)
+    jo, js, jsn = jrec.rwkv_seq(
+        jp["tmix"], jnp.asarray(x), jcfg,
+        None if state is None else {k: jnp.asarray(v)
+                                    for k, v in state.items()},
+        lengths=jl, return_states=True)
+    to, ts, tsn = trec.rwkv_seq(
+        tp["tmix"], _t(x), tcfg,
+        None if state is None else {k: _t(v) for k, v in state.items()},
+        lengths=tl, return_states=True)
+    np.testing.assert_allclose(_np(to), _np(jo), **TOL)
+    assert tsn["S"].dtype == torch.float32
+    assert tsn["S"].shape == (9, 2, jcfg.n_heads, jcfg.head_dim,
+                              jcfg.head_dim)
+    for name in ("shift", "S"):
+        np.testing.assert_allclose(_np(ts[name]), _np(js[name]), **TOL)
+        _snap_close(tsn[name], jsn[name], lengths, 2)
+    for b in range(2):
+        n = 8 if lengths is None else lengths[b]
+        for name in ("shift", "S"):
+            torch.testing.assert_close(tsn[name][n, b], ts[name][b],
+                                       atol=0, rtol=0)
+    jo, js, jsn = jrec.rwkv_channel_mix(
+        jp["cmix"], jnp.asarray(x),
+        None if shift is None else jnp.asarray(shift), lengths=jl,
+        return_states=True)
+    to, ts, tsn = trec.rwkv_channel_mix(
+        tp["cmix"], _t(x), None if shift is None else _t(shift), lengths=tl,
+        return_states=True)
+    np.testing.assert_allclose(_np(to), _np(jo), **TOL)
+    np.testing.assert_array_equal(_np(ts), _np(js))
+    _snap_close(tsn, jsn, lengths, 2)
+
+
+def test_rwkv_snapshots_come_from_one_scan_launch(monkeypatch):
+    """The S snapshots are the scan's per-step output, one call with
+    return_states=True, not a second pass."""
+    _, tcfg = _rwkv_cfgs()
+    _, tp = _rwkv_params(4)
+    calls = []
+    real = trec.rwkv6_scan
+
+    def spy(*a, **kw):
+        calls.append(kw.get("return_states", False))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(trec, "rwkv6_scan", spy)
+    trec.rwkv_seq(tp["tmix"], _t(_x(24, 2, 5, tcfg.d_model)), tcfg,
+                  return_states=True)
+    assert calls == [True]
 
 
 # ----------------------------------------------------------------------------
