@@ -41,7 +41,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              alone to its batch row); and flash, paged_prefill and paged
              decode on bf16 views one element off a 16-byte boundary
              (copied before their TMA reads), bit-equal to the aligned
-             call;
+             call; paged decode with window 2048 at hd 256, group 10 over
+             int8 and fp8 engine pools (quantized as the engine lands
+             K/V; each row alone bit-equal to its batch row), and
+             paged_prefill over engine-quantized int8 / fp8 pools at the
+             4 x 128 admission and a verify of 8 x 5, timed against the
+             bytes of 1-byte pools plus their f32 scales;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
@@ -54,6 +59,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              speculate=4 with partial scripted drafts (equal accepted
              counts);
      small_rwkv  the same for the reduced float32 rwkv6-3b (4 heads of 16);
+     small_sampled  sampled decoding on the reduced float32 smollm: the
+             engine on the card against the engine on the CPU over the
+             mixed greedy / top-k / top-p batch at speculate 0 and 4
+             (tokens equal up to a divergence where the CPU's draw margin
+             is <= 1e-3; the share of draws under it printed), each
+             sampled request alone equal to its batched tokens, the
+             tiny-vocab marginal of verify_tokens (total variation < 0.03,
+             accept rate within 0.02 of q(d)), position keys and accept
+             uniforms on the card bit-equal to the CPU's;
      serve_cli_default  `python -m repro_torch.launch.serve` with its
              defaults (the engine on the reduced smollm) exits 0 on the card;
   4. forward full-width smollm-135m lm.forward on 2 x 256 tokens: finite
@@ -62,7 +76,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
              weights) through ServingEngine: synthetic, shared-prefix
              (prefix cache hits) and repetitive (speculate=4) streams;
              every completion checked against generate() under the margin
-             rule; the paged kernels launched;
+             rule; the paged kernels launched; then a sampled stream
+             (temperature 0.8, top-k 50, top-p 0.95, speculate 4;
+             tokens/s, launches per dispatch);
+     engine_quant  the same model with float32 weights on activation-dtype,
+             int8 and fp8 pools, 4 requests (prompts 64-160, 16 new) on
+             the card against the same engine on the CPU (worker
+             processes), tokens under the float32 margin rule; then bf16
+             on bf16 / int8 / fp8 pools over the synthetic stream:
+             tokens/s, TTFT, TPOT, every block returned, cache_bytes ==
+             paged_bytes, per-token agreement with the bf16 pools
+             (printed); every paged launch of a quantized run on the
+             kernels' int8 / fp8 arm;
+     engine_tiered  bf16 and int8 pools with the host spill tier on and
+             off over 16 rotating tenants' shared-prefix stream (8 slots,
+             a slots-only pool): revivals >= 1, every revived block
+             bit-equal to its host copy, promotion widths on the bucket
+             grid, tokens equal to the device-only run's up to a
+             divergence inside the bf16 margin rule;
   6. core    the paper core on paper-lsq (d = 64, m = 8 machines, b = 128,
              T = 8): MP-DSVRG, MP-DANE (exact) and minibatch-prox (exact)
              on the card against the same runs on the CPU over the same
@@ -120,10 +151,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              d = 2^20, one profiled MP-DANE SAGA round at the quickstart's
              widths and profiled rwkv6-3b and recurrentgemma decode steps,
              through generate()'s lm.decode_step and through the engine
-             (4 lanes; device busy vs wall, top kernels).
+             (4 lanes; device busy vs wall, top kernels); the smollm
+             engine's decode step is profiled greedy and sampled.
 Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8
 and the engine phases (their forwards, generate() and engine runs) and
-read just after, so the launches reported are the main paths' own. The last lines are the card's name and
+read just after, so the launches reported are the main paths' own; the
+paged kernels also count their launches over int8 / fp8 pools. The last lines are the card's name and
 power limit, the kernels JSON line and {"ok": true, "device": {...}}.
 `--record PATH` also writes the full record (per-stream telemetry, every
 divergence, the profiles) as JSON. It needs a CUDA device and the repo's
@@ -140,6 +173,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -593,6 +627,39 @@ def phase_kernels(dev):
                        lambda a=w_args: ref.paged_attention_ref(
                            *a, window=win), None),
                  bound_ms=w_bound[0], bound_by=w_bound[1])
+    # the same windowed decode over int8 / fp8 engine pools, quantized as
+    # the engine lands K/V (attention.quantize_kv): window and scales
+    # together, as the quantized recurrentgemma-2b engine runs them; the
+    # bound reads each window token's 1-byte K and V and their f32 scales
+    from repro_torch.models.attention import quantize_kv
+    wq_arms = []
+    for name, qdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        (kq, ksc), (vq, vsc) = (quantize_kv(p_, qdt) for p_ in w_args[1:3])
+        wqa = (w_args[0], kq, vq, w_args[3], w_args[4])
+        qkw = dict(k_scale=ksc, v_scale=vsc, window=win)
+        got = paged_attention(*wqa, **qkw)
+        arm(arms, f"paged_attention window={win} hd256 group10 engine "
+                  f"pools {name} bf16", got,
+            ref.paged_attention_ref(*wqa, ksc, vsc, window=win))
+        for b_ in range(len(wctx)):
+            alone = paged_attention(wqa[0][b_:b_ + 1], kq, vq,
+                                    wqa[3][b_:b_ + 1], wqa[4][b_:b_ + 1],
+                                    **qkw)
+            if not torch.equal(alone[0], got[b_]):
+                raise AssertionError(f"paged_attention window={win} {name}: "
+                                     f"row {b_} alone differs from its batch "
+                                     f"row")
+        qb = _bound_ms(2 * _nbytes(wqa[0]) + _nbytes(wqa[3], wqa[4])
+                       + 2 * w_tok * (256 + 4), 4 * 10 * 256 * w_tok)
+        wq_arms.append(dict(
+            label=f"hd256 group10 B=6, window {win}, engine pools {name} "
+                  f"with f32 scales, ctx {'/'.join(map(str, wctx))}",
+            _fns=(lambda a=wqa, k=qkw: paged_attention(*a, **k),
+                  lambda a=wqa, k=qkw: ref.paged_attention_ref(
+                      *a, k["k_scale"], k["v_scale"], window=win), None),
+            bound_ms=qb[0], bound_by=qb[1]))
+    print(f"[kernels] paged_attention window={win} over int8 / fp8 engine "
+          f"pools: each row alone equals its batch row bit for bit ok")
     # q and both pools as views off a 16-byte boundary (the pools are
     # copied whole before the TMA row gathers)
     pa_unaligned = unaligned_arm("paged_attention B=8 bf16", paged_attention,
@@ -606,7 +673,7 @@ def phase_kernels(dev):
               lambda a=args: ref.paged_attention_ref(*a), None),
         bound_ms=bound, bound_by=by,
         shape=dict(B=B, H=H, KV=KV, hd=hd, bs=bs, M=M, ctx=ctx.tolist()),
-        _extra=[rg_arm, w_arm, pa_unaligned], **worst(arms)))
+        _extra=[rg_arm, w_arm, *wq_arms, pa_unaligned], **worst(arms)))
 
     # -- paged_prefill, at each shape the engine gives it: an admission of
     # 4 x 128 (a fresh prompt, a cached prefix, a long cached prefix and a
@@ -626,18 +693,19 @@ def phase_kernels(dev):
                 rn(n * m + 1, bs_, KV, hd, dt=dt), tables_for(n, m), st,
                 st + i32(counts))
 
-    def prefill_bound(c):
+    def prefill_bound(c, scales=False):
         """Bytes: q in and out, the suffix K/V, the index tensors and each
-        cached token's K and V once; pairs: each real query sees starts
-        pool keys plus i + 1 suffix keys (window 0)."""
+        cached token's K and V once (with its two f32 scales per KV head
+        for an int8 / fp8 pool); pairs: each real query sees starts pool
+        keys plus i + 1 suffix keys (window 0)."""
         q_, ks_, vs_, kp_, _, tb_, st_, ln_ = c
         h_, hd_ = q_.shape[2:]
         suf = (ln_ - st_).clamp_min(0).tolist()
         pairs = sum(s_ * t_ + s_ * (s_ + 1) // 2
                     for s_, t_ in zip(suf, st_.tolist()))
         nbytes = (2 * _nbytes(q_) + _nbytes(ks_, vs_, tb_, st_, ln_)
-                  + 2 * int(st_.sum()) * ks_.shape[2] * hd_
-                  * kp_.element_size())
+                  + 2 * int(st_.sum()) * ks_.shape[2]
+                  * (hd_ * kp_.element_size() + 4 * scales))
         return _bound_ms(nbytes, 4 * h_ * hd_ * pairs)
 
     def prefill_blocks(c):
@@ -651,7 +719,7 @@ def phase_kernels(dev):
         return n_ * kv_ * -(-ls_ // rows)
 
     def prefill_timed(label, c, **kw):
-        b_ = prefill_bound(c)
+        b_ = prefill_bound(c, scales="k_scale" in kw)
         return dict(label=label, blocks=prefill_blocks(c),
                     _fns=(lambda a=c: paged_prefill_attention(*a, **kw),
                           lambda a=c: ref.paged_prefill_ref(*a, **kw), None),
@@ -720,6 +788,24 @@ def phase_kernels(dev):
         arm(arms, f"paged_prefill 4x128 {name} pool (CUDA cores)",
             paged_prefill_attention(*c, k_scale=sc[0], v_scale=sc[1]),
             ref.paged_prefill_ref(*c, *sc))
+    # the engine's int8 / fp8 admission and verify on pools quantized as
+    # the engine lands them (bf16 q and suffix, the CUDA-core kernel),
+    # timed against the bytes of 1-byte pools plus their f32 scales
+    from repro_torch.models.attention import quantize_kv
+    vc = prefill_case(verify, [0, 1, 2, 5, 5, 3, 5, 0], 5)
+    for name, qdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        for what, c in (("4x128", args), ("verify 8x5", vc)):
+            (kq, ksc), (vq, vsc) = (quantize_kv(p_, qdt) for p_ in c[3:5])
+            cq = (*c[:3], kq, vq, *c[5:])
+            qkw = dict(k_scale=ksc, v_scale=vsc)
+            arm(arms, f"paged_prefill {what} engine-quantized {name} pool "
+                      f"bf16", paged_prefill_attention(*cq, **qkw),
+                ref.paged_prefill_ref(*cq, ksc, vsc))
+            where = ("4 x 128, cached 0/48/200" if what == "4x128"
+                     else "verify 8 x 5 over contexts <= 500")
+            pp_extra.append(prefill_timed(
+                f"{where}, engine-quantized {name} pool with f32 scales, "
+                f"bf16 (the CUDA-core kernel)", cq, **qkw))
     bound, by = prefill_bound(args)
     # the admission with q, the suffix and both pools off a 16-byte
     # boundary: the wrapper copies all five before the TMA reads
@@ -1713,7 +1799,6 @@ def phase_engine_recurrent(master, params, cfg, dev, tag):
         free0 = eng.allocator.num_free
         reqs = _full_width_stream(V, logprobs)
         kernels.reset_launch_counts()
-        rwkv6_scan.state_launches = 0
         done = sorted(eng.run(reqs), key=lambda c: c.rid)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
@@ -1965,14 +2050,56 @@ def phase_engine(params, cfg, dev):
                                  f"paged kernels")
         if extra.get("speculate") and verifies == 0:
             raise AssertionError(f"{name}: no verify dispatch")
+    # the sampled stream (temperature 0.8, top-k 50, top-p 0.95) on the
+    # speculate=4 engine: every request completes, the paged kernels launch
+    # per dispatch as in the greedy streams, and the sampler ran
+    from repro_torch.serving.sampling import SamplingParams
+    eng = engines[4]
+    free0 = eng.allocator.num_free
+    sreqs = repetitive_requests(8, vocab_size=V, period=6,
+                                prompt_len=(48, 96), max_new=(32, 32), seed=3,
+                                sampling=SamplingParams(temperature=0.8,
+                                                        top_k=50, top_p=0.95,
+                                                        seed=5))
+    kernels.reset_launch_counts()
+    sdone = eng.run(sreqs)
+    torch.cuda.synchronize()
+    scounts = kernels.launch_counts()
+    sstats = summarize(sdone, eng.wall_time, eng)
+    sverifies = sstats["speculation"]["verify_dispatches"]
+    swant = {"paged_prefill": cfg.n_layers * (sstats["prefill"]["dispatches"]
+                                              + sverifies),
+             "paged_attention": cfg.n_layers * (eng.steps - sverifies),
+             "flash_attention": 0, "svrg_update": 0, "rglru_scan": 0,
+             "rwkv6_scan": 0}
+    sstats.update(launches=scounts, decode_or_verify_steps=eng.steps,
+                  sampled_dispatches=eng.runner.sampled_dispatches)
+    print(f"[engine] sampled_speculate4 (temperature 0.8, top-k 50, top-p "
+          f"0.95): {sstats['requests']} requests, "
+          f"{sstats['generated_tokens']} tokens, {sstats['tokens_per_s']} "
+          f"tokens/s, ttft p50 {sstats['ttft_p50_ms']} ms, tpot p50 "
+          f"{sstats['tpot_p50_ms']} ms; {sverifies} verify, "
+          f"{eng.steps - sverifies} decode dispatches, "
+          f"{eng.runner.sampled_dispatches} of them sampled; proposed "
+          f"{sstats['speculation']['proposed_tokens']}, accepted "
+          f"{sstats['speculation']['accepted_tokens']}; launches {scounts}")
+    if (scounts != swant or len(sdone) != len(sreqs)
+            or eng.allocator.num_free != free0
+            or eng.runner.sampled_dispatches == 0
+            or any(len(c.tokens) != 32 for c in sdone)):
+        raise AssertionError(f"sampled stream: launches {scounts} (expected "
+                             f"{swant}), {len(sdone)} of {len(sreqs)} "
+                             f"completed, {eng.runner.sampled_dispatches} "
+                             f"sampled dispatches")
     launches = {k: sum(st["launches"][k] for _, _, _, st in results)
-                for k in results[0][3]["launches"]}
+                + scounts[k] for k in results[0][3]["launches"]}
     steps = sum(st["decode_or_verify_steps"] for _, _, _, st in results)
     prefills = sum(st["prefill"]["dispatches"] for _, _, _, st in results)
     print(f"[engine] all streams: launches {launches}; {steps} decode/verify "
           f"steps, {prefills} prefill dispatches")
     record = {"launches": launches, "steps": steps,
-              "prefill_dispatches": prefills, "streams": {}}
+              "prefill_dispatches": prefills, "streams": {},
+              "sampled_speculate4": sstats}
     gaps = []
     for name, reqs, done, stats in results:
         if len(done) != len(reqs):
@@ -2569,16 +2696,483 @@ def phase_core(dev):
     return record, profile_core
 
 
-def profile_decode(eng, vocab, n_steps=10):
+# ----------------------------------------------------------------------------
+# sampled decoding and the quantized / tiered KV pools
+# ----------------------------------------------------------------------------
+
+def _sampled_mix(vocab, repetitive=False):
+    """tests/test_sampling.py:_mixed_requests: greedy, top-k 32, top-p 0.9
+    and explicit temperature-0 lanes in one batch (repetitive prompts so
+    that n-gram drafts verify under speculation)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.sampling import SamplingParams
+    rng = np.random.default_rng(5)
+    if repetitive:
+        pat = rng.integers(0, vocab, 5).astype(np.int32)
+        prompts = [np.tile(pat, 4)[:16] for _ in range(4)]
+    else:
+        prompts = [rng.integers(0, vocab, 9).astype(np.int32)
+                   for _ in range(4)]
+    return [Request(rid=0, prompt=prompts[0], max_new_tokens=8),
+            Request(rid=1, prompt=prompts[1], sampling=SamplingParams(
+                temperature=0.8, top_k=32, seed=11, max_new_tokens=9)),
+            Request(rid=2, prompt=prompts[2], sampling=SamplingParams(
+                temperature=1.2, top_p=0.9, seed=7, max_new_tokens=6)),
+            Request(rid=3, prompt=prompts[3], sampling=SamplingParams(
+                temperature=0.0, max_new_tokens=7))]
+
+
+def _draw_margins(params, cfg, req, tokens):
+    """Per emitted token of a completion on the CPU, how near its draw came
+    to another outcome: the top-2 gap of warped logits plus the draw's
+    Gumbel noise (the raw logits' gap for a greedy lane), and the distance
+    of the accept uniform from q(token) (a speculative accept turns on
+    u < q). Logits are the model's on prompt + tokens, teacher-forced."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.models import lm
+    from repro_torch.serving import sampling
+    sp = req.sampling or sampling.GREEDY
+    P, n = len(req.prompt), len(tokens)
+    seq = torch.from_numpy(np.concatenate([req.prompt, tokens[:-1]])
+                           .astype(np.int64))[None]
+    logits, _ = lm.forward(params, cfg, {"tokens": seq})
+    logits = logits[0, P - 1:P - 1 + n].float()
+    if sp.greedy:
+        top = torch.topk(logits, 2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).numpy()
+    pos = torch.arange(P - 1, P - 1 + n, dtype=torch.int32)
+    f = lambda v, dt: torch.full((n,), v, dtype=dt)   # noqa: E731
+    warped = sampling.warp_logits(logits, f(sp.temperature, torch.float32),
+                                  f(sp.top_k, torch.int32),
+                                  f(sp.top_p, torch.float32))
+    seeds = f(sampling.seed32(sp.seed), torch.int32)
+    noisy = warped + prng.gumbel(sampling._keys(seeds, pos,
+                                                sampling.TAG_SAMPLE),
+                                 (logits.shape[-1],))
+    top = torch.topk(noisy, 2, dim=-1).values
+    gap = (top[:, 0] - top[:, 1]).numpy()
+    u = prng.uniform(sampling._keys(seeds, pos, sampling.TAG_ACCEPT))
+    q = torch.softmax(warped, -1).gather(
+        -1, torch.from_numpy(tokens.astype(np.int64))[:, None])[:, 0]
+    return np.minimum(gap, (u - q).abs().numpy())
+
+
+def phase_small_sampled(dev):
+    """Sampled decoding on the card: (a) the reduced float32 smollm's
+    engine on the card against the same engine on the CPU over the mixed
+    greedy / top-k / top-p batch at speculate 0 and 4: tokens equal up to
+    a divergence, which may come only where the CPU's draw margin
+    (_draw_margins) is <= MARGIN_BOUND_F32, with the share of draws under
+    it printed; (b) each sampled request alone on the card gives its
+    batched tokens; (c) the tiny-vocab marginal of verify_tokens on the
+    card (total variation < 0.03, accept rate within 0.02 of q(d), over
+    16384 seeds); (d) position keys and accept uniforms drawn on the card
+    bit-equal to the CPU's."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.device import to_device
+    from repro_torch.models import lm
+    from repro_torch.serving import sampling
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("smollm-135m").reduced()
+    params = lm.init_params(0, cfg, device="cpu")
+    cuda_params = to_device(params, dev)
+    V = cfg.vocab_size
+    rec = {}
+    for spec in (0, 4):
+        got = {}
+        for where, p_ in (("cpu", params), ("cuda", cuda_params)):
+            eng = ServingEngine(p_, cfg, num_slots=4, block_size=4,
+                                max_seq_len=32, speculate=spec,
+                                device="cpu" if where == "cpu" else dev)
+            done = sorted(eng.run(_sampled_mix(V, bool(spec))),
+                          key=lambda c: c.rid)
+            got[where] = (done, eng.runner.sampled_dispatches,
+                          eng.scheduler.proposed_tokens, eng)
+        reqs = _sampled_mix(V, bool(spec))
+        exact, within, margins = 0, [], []
+        for r, c_cpu, c_gpu in zip(reqs, got["cpu"][0], got["cuda"][0]):
+            m = _draw_margins(params, cfg, r, c_cpu.tokens)
+            margins.extend(m.tolist())
+            i = _first_divergence(c_gpu.tokens, c_cpu.tokens)
+            if i is None:
+                exact += 1
+                continue
+            gap = float(m[i]) if i < len(m) else float("inf")
+            within.append({"rid": r.rid, "at": i, "margin": gap})
+            if gap > MARGIN_BOUND_F32:
+                raise AssertionError(
+                    f"small_sampled speculate={spec}: request {r.rid} "
+                    f"leaves the CPU engine at token {i} where the draw "
+                    f"margin is {gap:.5f} > {MARGIN_BOUND_F32}")
+        margins = np.asarray(margins)
+        under = float((margins <= MARGIN_BOUND_F32).mean())
+        if got["cuda"][1] == 0 or (spec and got["cuda"][2] == 0):
+            raise AssertionError(f"small_sampled speculate={spec}: no "
+                                 f"sampled dispatch or no draft proposed")
+        eng = got["cuda"][3]
+        solo_ok = True
+        for rid in (1, 2):
+            solo = eng.run([dataclasses.replace(reqs[rid])])[0]
+            solo_ok &= bool(np.array_equal(solo.tokens,
+                                           got["cuda"][0][rid].tokens))
+        if not solo_ok:
+            raise AssertionError(f"small_sampled speculate={spec}: a "
+                                 f"sampled request alone differs from its "
+                                 f"batched tokens on the card")
+        rec[f"speculate{spec}"] = {
+            "exact": exact, "requests": len(reqs), "diverged_within_bound":
+            within, "draws": int(margins.size),
+            "share_of_draws_under_bound": under,
+            "sampled_dispatches": got["cuda"][1],
+            "proposed": got["cuda"][2], "alone_equals_batched": solo_ok}
+        print(f"[small_sampled] speculate={spec}: card vs CPU {exact}/"
+              f"{len(reqs)} exact, divergences within the draw margin "
+              f"{MARGIN_BOUND_F32}: {[(d['rid'], d['at']) for d in within]}; "
+              f"{under:.4f} of {margins.size} draws under the bound; "
+              f"{got['cuda'][1]} sampled dispatches, {got['cuda'][2]} "
+              f"drafts proposed; each sampled request alone equals its "
+              f"batched tokens ok")
+    # the tiny-vocab marginal (tests/test_sampling.py's limits)
+    Vt, temp, n = 8, 0.9, 16384
+    row = torch.randn(Vt, generator=torch.Generator().manual_seed(3))
+    q = torch.softmax(row / temp, -1).numpy()
+    marg = {}
+    for label, d, topk in (("inside", int(np.argsort(q)[Vt // 2]), 0),
+                           ("outside top-3", int(np.argsort(q)[0]), 3)):
+        logits = row.to(dev)[None, None].expand(n, 2, Vt)
+        chain = torch.tensor([[1, d]], dtype=torch.int32,
+                             device=dev).expand(n, 2)
+        full = lambda v, dt: torch.full((n,), v, dtype=dt,  # noqa: E731
+                                        device=dev)
+        emit, acc, _ = sampling.verify_tokens(
+            logits, chain, full(2, torch.int32), full(13, torch.int32),
+            full(temp, torch.float32), full(topk, torch.int32),
+            full(1.0, torch.float32),
+            torch.arange(n, dtype=torch.int32, device=dev))
+        wq = torch.softmax(sampling.warp_logits(
+            row[None], torch.tensor([temp]), torch.tensor([topk]),
+            torch.tensor([1.0]))[0], -1).numpy()
+        freq = np.bincount(emit[:, 0].cpu().numpy(), minlength=Vt) / n
+        tv = 0.5 * float(np.abs(freq - wq).sum())
+        rate = float(acc.cpu().numpy().astype(bool).mean())
+        marg[label] = {"total_variation": tv, "accept_rate": rate,
+                       "q_draft": float(wq[d])}
+        print(f"[small_sampled] tiny-vocab marginal, draft {label}: total "
+              f"variation {tv:.4f} (< 0.03), accept rate {rate:.4f} vs "
+              f"q(d) {wq[d]:.4f} (within 0.02)")
+        if not (tv < 0.03 and abs(rate - wq[d]) < 0.02):
+            raise AssertionError(f"small_sampled: tiny-vocab marginal "
+                                 f"{label} off: {marg[label]}")
+    rec["tiny_vocab_marginal"] = marg
+    # keys and uniforms on the card bit-equal to the CPU's
+    seeds = torch.tensor([0, 1, -1, -2**31, 2**31 - 1, 77], dtype=torch.int32)
+    pos = torch.arange(0, 6000, 7, dtype=torch.int32)
+    sg, pg = torch.broadcast_tensors(seeds[:, None], pos[None])
+    for tag in (sampling.TAG_SAMPLE, sampling.TAG_ACCEPT):
+        kc = sampling._keys(sg, pg, tag)
+        kg = sampling._keys(sg.to(dev), pg.to(dev), tag)
+        if not torch.equal(kg.cpu(), kc) or not torch.equal(
+                prng.uniform(kg).cpu(), prng.uniform(kc)):
+            raise AssertionError(f"small_sampled: keys or uniforms on the "
+                                 f"card differ from the CPU's (tag {tag})")
+    k8 = sampling._keys(sg, pg, sampling.TAG_SAMPLE).reshape(-1, 2)[:8]
+    gc, gg = (prng.gumbel(k8.to(d_), (4096,)) for d_ in ("cpu", dev))
+    rec["gumbel_card_vs_cpu_max_abs"] = float((gg.cpu() - gc).abs().max())
+    print(f"[small_sampled] {kc.shape[0] * kc.shape[1]} position keys and "
+          f"accept uniforms on the card bit-equal to the CPU's ok; Gumbel "
+          f"noise card vs CPU max abs {rec['gumbel_card_vs_cpu_max_abs']:.3g}")
+    return rec
+
+
+def _quant_requests(vocab):
+    """engine_quant's float32 stream: 4 prompts of 64-160 tokens, 16 new
+    tokens each, logprobs 2 (the top-2 gap of every emitted position)."""
+    from repro_torch.serving.engine import synthetic_requests
+    from repro_torch.serving.sampling import SamplingParams
+    return synthetic_requests(4, vocab_size=vocab, prompt_len=(64, 160),
+                              max_new=(16, 16), seed=4,
+                              sampling=SamplingParams(logprobs=2))
+
+
+QUANT_KW = dict(num_slots=4, block_size=16, max_seq_len=192)
+
+
+def _quant_cpu_engine(kv_dtype, cfg):
+    """engine_quant's float32 engine on the CPU, in a worker process: the
+    params of `cfg` drawn from seed 0 on the CPU, as the card's copy.
+    {rid: (tokens, top-2 logprob gaps)}."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServingEngine
+    torch.set_num_threads(2)
+    params = lm.init_params(0, cfg, device="cpu")
+    eng = ServingEngine(params, cfg, kv_dtype=kv_dtype, device="cpu",
+                        **QUANT_KW)
+    done = eng.run(_quant_requests(cfg.vocab_size))
+    return {c.rid: (c.tokens, c.top_logprobs[:, 0] - c.top_logprobs[:, 1])
+            for c in done}
+
+
+def _check_quant_launches(tag, eng, stats, counts, arms, kv_dtype, n_attn):
+    """The per-dispatch launch formula of an attention-only engine run,
+    and every paged launch on the quantized arm for an int8 / fp8 pool
+    (none for an activation-dtype pool)."""
+    prefills = stats["prefill"]["dispatches"]
+    verifies = (stats.get("speculation") or {}).get("verify_dispatches", 0)
+    want = {"paged_prefill": n_attn * (prefills + verifies),
+            "paged_attention": n_attn * (eng.steps - verifies)}
+    quant = kv_dtype != "fp16"
+    want_arms = {"paged_prefill_quant": want["paged_prefill"] * quant,
+                 "paged_attention_quant": want["paged_attention"] * quant}
+    got = {k: counts[k] for k in want}
+    got_arms = {k: arms[k] for k in want_arms}
+    if got != want or got_arms != want_arms or 0 in got.values():
+        raise AssertionError(f"{tag}: launches {got} / quantized arms "
+                             f"{got_arms}, expected {want} / {want_arms}")
+    return {**got, **got_arms}
+
+
+def phase_engine_quant(params, cfg, dev):
+    """int8 / fp8 KV pools through the engine on full-width smollm-135m.
+    float32: activation-dtype, int8 and fp8 pools on the card against the
+    same engine on the CPU (worker processes) over _quant_requests, tokens
+    under the float32 margin rule (the CPU run's top-2 gap at a
+    divergence <= MARGIN_BOUND_F32): the quantized kernel arms held to
+    their twins end to end. bf16: the engine phase's synthetic stream on
+    bf16, int8 and fp8 pools: tokens/s, TTFT, TPOT, every block returned,
+    cache_bytes == paged_bytes, per-token agreement with the bf16 pools
+    (printed, not gated). Every run's launches follow the per-dispatch
+    formula, the quantized runs' all on the quantized arms."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.device import to_device
+    from repro_torch.models import lm
+    from repro_torch.serving import kv_cache
+    from repro_torch.serving.engine import (ServingEngine, summarize,
+                                            synthetic_requests)
+    V = cfg.vocab_size
+    n_attn = cfg.n_layers
+    kvs = ("fp16", "int8", "fp8")
+    rec = {"float32": {}, "bf16": {}}
+    totals = {"paged_prefill": 0, "paged_attention": 0}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_runs = {kv: pool.submit(_quant_cpu_engine, kv, cfg32)
+                    for kv in kvs}
+        master = to_device(lm.init_params(0, cfg32, device="cpu"), dev)
+        card = {}
+        for kv in kvs:
+            eng = ServingEngine(master, cfg32, kv_dtype=kv, device=dev,
+                                **QUANT_KW)
+            kernels.reset_launch_counts()
+            done = eng.run(_quant_requests(V))
+            torch.cuda.synchronize()
+            stats = summarize(done, eng.wall_time, eng)
+            card[kv] = ({c.rid: c.tokens for c in done}, _check_quant_launches(
+                f"engine_quant float32 {kv}", eng, stats,
+                kernels.launch_counts(), kernels.arm_launch_counts(), kv,
+                n_attn))
+            del eng
+        del master
+        torch.cuda.empty_cache()
+        cpu = {kv: f.result() for kv, f in cpu_runs.items()}
+    for kv in kvs:
+        toks, launches = card[kv]
+        refs = {rid: (t, g) for rid, (t, g) in cpu[kv].items()}
+        rule = _margin_rule([SimpleNamespace(rid=rid, tokens=t)
+                             for rid, t in toks.items()], refs,
+                            MARGIN_BOUND_F32, f"engine_quant float32 {kv}")
+        for k in totals:
+            totals[k] += launches[k]
+        rec["float32"][kv] = {"vs_cpu": rule, "launches": launches}
+        print(f"[engine_quant] float32 {kv} pools, card vs CPU: "
+              f"{rule['exact']}/{rule['requests']} exact; divergences within "
+              f"the bound {MARGIN_BOUND_F32}: "
+              f"{[(d['rid'], d['at'], d['margin']) for d in rule['diverged_within_bound']]}; "
+              f"launches {launches}")
+    kw = dict(num_slots=8, block_size=16, max_seq_len=512, prefix_cache=True,
+              device=dev)
+    base = None
+    for kv in kvs:
+        eng = ServingEngine(params, cfg, kv_dtype=kv, **kw)
+        eng.run(synthetic_requests(2, vocab_size=V, prompt_len=(20, 40),
+                                   max_new=(4, 4), seed=9))   # warm-up
+        eng.reset_prefix_cache()
+        torch.cuda.synchronize()
+        free0 = eng.allocator.num_free
+        reqs = synthetic_requests(16, vocab_size=V, prompt_len=(32, 256),
+                                  max_new=(32, 32), seed=0)
+        kernels.reset_launch_counts()
+        done = sorted(eng.run(reqs), key=lambda c: c.rid)
+        torch.cuda.synchronize()
+        stats = summarize(done, eng.wall_time, eng)
+        launches = _check_quant_launches(
+            f"engine_quant bf16 {kv}", eng, stats, kernels.launch_counts(),
+            kernels.arm_launch_counts(), kv, n_attn)
+        for k in totals:
+            totals[k] += launches[k]
+        want_bytes = kv_cache.paged_bytes(cfg, eng.allocator.num_blocks,
+                                          eng.block_size, kv)
+        if (len(done) != len(reqs) or eng.allocator.num_free != free0
+                or eng.cache_bytes != want_bytes
+                or stats["kv"]["device_pool_bytes"] != want_bytes):
+            raise AssertionError(f"engine_quant bf16 {kv}: {len(done)} of "
+                                 f"{len(reqs)} completed, "
+                                 f"{free0 - eng.allocator.num_free} blocks "
+                                 f"not returned, cache_bytes "
+                                 f"{eng.cache_bytes} vs {want_bytes}")
+        toks = [c.tokens for c in done]
+        if base is None:
+            base = toks
+        agree = float(np.mean(np.concatenate([a == b for a, b in
+                                              zip(toks, base)])))
+        rec["bf16"][kv] = {"stats": stats, "launches": launches,
+                           "token_agreement_with_bf16_pools": agree,
+                           "cache_bytes": eng.cache_bytes}
+        print(f"[engine_quant] bf16 {kv} pools: {stats['tokens_per_s']} "
+              f"tokens/s, ttft p50 {stats['ttft_p50_ms']} ms p99 "
+              f"{stats['ttft_p99_ms']} ms, tpot p50 {stats['tpot_p50_ms']} "
+              f"ms; pool {eng.cache_bytes} bytes; per-token agreement with "
+              f"the bf16 pools {agree:.4f}; launches {launches}; every block "
+              f"returned ok")
+        del eng
+        torch.cuda.empty_cache()
+    return rec, totals
+
+
+def _tiered_requests(vocab):
+    """tests/test_kv_quant.py:_tiered_reqs scaled from 2 slots to the engine
+    phase's 8: 16 rotating tenants (4 per 2 slots) with 48-token system
+    prompts, 32 requests, suffixes of 8-16 and 4-8 new tokens, against a
+    slots-only pool (1 + 8 x 6 blocks of 16), so an admission evicts other
+    tenants' chains and only revival finds a tenant's prefix again."""
+    from repro_torch.serving.engine import shared_prefix_requests
+    from repro_torch.serving.sampling import SamplingParams
+    return shared_prefix_requests(32, vocab_size=vocab, prefix_len=48,
+                                  suffix_len=(8, 16), max_new=(4, 8),
+                                  n_prefixes=16, seed=0,
+                                  sampling=SamplingParams(logprobs=2))
+
+
+def phase_engine_tiered(params, cfg, dev):
+    """The host spill tier on full-width smollm-135m, bf16 and int8 pools:
+    _tiered_requests with host_cache_blocks 64 and 0. Revivals >= 1;
+    every revived block's payload read back from the pools bit-equal to
+    the host copy uploaded (the round trip exact); promotion widths on
+    promote_buckets; every block returned. Tokens: equal to the
+    device-only run's up to a divergence, which may come only where that
+    run's top-2 gap is <= MARGIN_BOUND (a revived prefix is attended as
+    pool tiles, a recomputed one as suffix tiles: another bf16 rounding
+    order); the exact count is printed."""
+    from repro_torch import kernels
+    from repro_torch.serving import kv_cache
+    from repro_torch.serving.bucketing import pick_bucket
+    from repro_torch.serving.engine import ServingEngine, summarize
+    V = cfg.vocab_size
+    kw = dict(num_slots=8, block_size=16, max_seq_len=96, prefix_cache=True,
+              num_blocks=1 + 8 * 6, device=dev)
+    rec, totals = {}, {"paged_prefill": 0, "paged_attention": 0}
+    for kv in ("fp16", "int8"):
+        runs = {}
+        for tier in (64, 0):
+            eng = ServingEngine(params, cfg, kv_dtype=kv,
+                                host_cache_blocks=tier, **kw)
+            checked = [0]
+            if tier:
+                store = eng.allocator._store
+
+                def verified(ids, payloads, store=store, eng=eng,
+                             checked=checked):
+                    store(ids, payloads)
+                    for b, pl in zip(ids, payloads):
+                        back = kv_cache.gather_blocks(
+                            cfg, eng.runner.state,
+                            torch.tensor([b], device=dev), device="cpu")
+                        for (_, x), (_, y) in zip(
+                                kv_cache.lm._layers(back, cfg),
+                                kv_cache.lm._layers(pl, cfg)):
+                            for n_ in x:
+                                if not torch.equal(
+                                        x[n_].view(torch.uint8),
+                                        y[n_].view(torch.uint8)):
+                                    raise AssertionError(
+                                        f"engine_tiered {kv}: block {b}'s "
+                                        f"{n_} differs from its host copy "
+                                        f"after revival")
+                        checked[0] += 1
+
+                eng.allocator._store = verified
+            free0 = eng.allocator.num_free
+            kernels.reset_launch_counts()
+            done = sorted(eng.run(_tiered_requests(V)), key=lambda c: c.rid)
+            torch.cuda.synchronize()
+            stats = summarize(done, eng.wall_time, eng)
+            launches = _check_quant_launches(
+                f"engine_tiered {kv} host {tier}", eng, stats,
+                kernels.launch_counts(), kernels.arm_launch_counts(), kv,
+                cfg.n_layers)
+            for k in totals:
+                totals[k] += launches[k]
+            if len(done) != 32 or eng.allocator.num_free != free0:
+                raise AssertionError(f"engine_tiered {kv} host {tier}: "
+                                     f"{len(done)} of 32 completed or blocks "
+                                     f"not returned")
+            runs[tier] = (done, eng, stats, checked[0], launches)
+        done, eng, stats, checked, launches = runs[64]
+        alloc, runner = eng.allocator, eng.runner
+        shapes, buckets = runner.promote_shapes, runner.promote_buckets
+        if (alloc.host_revivals < 1 or checked != alloc.host_revivals
+                or not shapes or not shapes <= set(buckets)
+                or any(w != pick_bucket(w, buckets) for w in shapes)):
+            raise AssertionError(f"engine_tiered {kv}: revivals "
+                                 f"{alloc.host_revivals} ({checked} checked),"
+                                 f" promotion widths {sorted(shapes)} on "
+                                 f"{buckets}")
+        off = runs[0][0]
+        refs = {c.rid: (c.tokens, c.top_logprobs[:, 0] - c.top_logprobs[:, 1])
+                for c in off}
+        rule = _margin_rule(done, refs, MARGIN_BOUND,
+                            f"engine_tiered {kv} host tier on vs off")
+        rec[kv] = {"vs_device_only": rule, "stats": stats,
+                   "device_only_stats": runs[0][2],
+                   "revivals": alloc.host_revivals,
+                   "demotions": alloc.host_demotions,
+                   "revived_blocks_checked": checked,
+                   "promote_shapes": sorted(shapes), "launches": launches}
+        print(f"[engine_tiered] {kv}: host tier on vs off {rule['exact']}/"
+              f"{rule['requests']} exact, divergences within the bound "
+              f"{MARGIN_BOUND}: "
+              f"{[(d['rid'], d['at'], round(d['margin'], 4)) for d in rule['diverged_within_bound']]}; "
+              f"{alloc.host_demotions} demotions, {alloc.host_revivals} "
+              f"revivals ({checked} revived blocks bit-equal to their host "
+              f"copies), cached tokens {stats['prefill']['cached_tokens']} "
+              f"vs {runs[0][2]['prefill']['cached_tokens']} device-only; "
+              f"promotion widths {sorted(shapes)} on {buckets}; "
+              f"{stats['tokens_per_s']} vs {runs[0][2]['tokens_per_s']} "
+              f"tokens/s")
+    return rec, totals
+
+
+
+def profile_decode(eng, vocab, n_steps=10, sampling=None):
     """Where one decode step's time goes: every lane decoding (prompts of
-    128, all admitted first), n_steps engine steps under torch.profiler.
-    Returns wall ms per step, device-busy ms per step (summed kernel
-    time), the idle share and the top kernels by device time."""
+    128, all admitted first), n_steps engine steps under torch.profiler;
+    with `sampling`, every lane sampled with it. Returns wall ms per step,
+    device-busy ms per step (summed kernel time), the idle share and the
+    top kernels by device time."""
     from repro_torch.serving.engine import synthetic_requests
     # room for three profiled windows (_profiled)
     new = 3 * n_steps + 8
     for r in synthetic_requests(eng.num_slots, vocab_size=vocab,
-                                prompt_len=128, max_new=(new, new), seed=5):
+                                prompt_len=128, max_new=(new, new), seed=5,
+                                sampling=sampling):
         eng.submit(r)
     eng.begin_run()
     while eng.stats().queue_depth:     # admit them all
@@ -2609,8 +3203,10 @@ def profile_decode(eng, vocab, n_steps=10):
                             "calls_per_step": e.count / n_steps}
                            for e in top]}
     rec["lanes"] = eng.num_slots
-    print(f"[profile] {eng.cfg.name} engine decode step ({eng.num_slots} "
-          f"lanes): wall {wall:.2f} ms, device busy "
+    rec["sampled"] = sampling is not None
+    print(f"[profile] {eng.cfg.name} engine "
+          f"{'sampled ' if sampling is not None else ''}decode step "
+          f"({eng.num_slots} lanes): wall {wall:.2f} ms, device busy "
           f"{busy:.3f} ms (idle {rec['idle_share']:.1%}), "
           f"{launches:.0f} kernel launches per step")
     for t in rec["top_kernels"]:
@@ -2665,6 +3261,8 @@ def main(argv=None):
     record["small_rwkv"] = phase("small_rwkv", phase_small_recurrent, dev,
                                  get_config("rwkv6-3b").reduced(),
                                  "small_rwkv")
+    record["small_sampled"] = phase("small_sampled", phase_small_sampled,
+                                    dev)
     record["serve_cli_default"] = phase("serve_cli_default",
                                         phase_serve_cli_default)
     cfg = get_config("smollm-135m")
@@ -2672,6 +3270,10 @@ def main(argv=None):
     record["forward"] = phase("forward", phase_forward, params, cfg, dev)
     record["engine"], engine = phase("engine", phase_engine, params, cfg,
                                      dev)
+    record["engine_quant"], quant_launches = phase(
+        "engine_quant", phase_engine_quant, params, cfg, dev)
+    record["engine_tiered"], tiered_launches = phase(
+        "engine_tiered", phase_engine_tiered, params, cfg, dev)
     record["core"], profile_core = phase("core", phase_core, dev)
     record["recurrentgemma"], rg_master, rg_params = phase(
         "recurrentgemma", phase_recurrentgemma, dev)
@@ -2700,6 +3302,10 @@ def main(argv=None):
     phase("timings", phase_timings, kern)
     record["decode_profile"] = phase("decode_profile", profile_decode,
                                      engine, cfg.vocab_size)
+    from repro_torch.serving.sampling import SamplingParams
+    record["sampled_decode_profile"] = phase(
+        "sampled_decode_profile", profile_decode, engine, cfg.vocab_size, 10,
+        SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5))
     record["core_profile"] = phase("core_profile", profile_core)
     rw_cfg = get_config("rwkv6-3b")
     record["rwkv6_decode_profile"] = phase(
@@ -2727,9 +3333,13 @@ def main(argv=None):
                 + rg["forward"]["launches"]["flash_attention"],
                 "paged_attention":
                 record["engine"]["launches"]["paged_attention"]
+                + quant_launches["paged_attention"]
+                + tiered_launches["paged_attention"]
                 + rg["generate"]["launches"]["paged_attention"]
                 + rg_engine["paged_attention"],
                 "paged_prefill": record["engine"]["launches"]["paged_prefill"]
+                + quant_launches["paged_prefill"]
+                + tiered_launches["paged_prefill"]
                 + rg_engine["paged_prefill"],
                 "svrg_update": record["core"]["svrg_update_launches"],
                 "rglru_scan": rg["forward"]["launches"]["rglru_scan"]

@@ -30,6 +30,22 @@ def launch_counts():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+# counts of one arm of a kernel, kept beside its launches
+ARM_COUNTS = {"paged_attention_quant": (paged_attention, "quant_launches"),
+              "paged_prefill_quant": (paged_prefill_attention,
+                                      "quant_launches"),
+              "rwkv6_scan_states": (rwkv6_scan, "state_launches")}
+
+
+def arm_launch_counts():
+    """{arm name: launches of that arm so far}: the quantized-pool arms of
+    the paged kernels and rwkv6_scan with per-step states."""
+    return {name: getattr(fn, attr) for name, (fn, attr)
+            in ARM_COUNTS.items()}
+
+
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn, attr in ARM_COUNTS.values():
+        setattr(fn, attr, 0)

@@ -3,7 +3,9 @@
 The port of `repro/kernels/paged_attention.py` (a Pallas TPU kernel). The
 kernel is `csrc/paged_attention.cu`; `ref.paged_attention_ref` is its
 plain twin. A CPU tensor takes the twin; a CUDA tensor launches the kernel
-or raises. `paged_attention.launches` counts kernel launches. The kernel
+or raises. `paged_attention.launches` counts kernel launches,
+`paged_attention.quant_launches` those of them over int8 / fp8 pools
+(the kernel's dequantizing arm). The kernel
 gathers pool rows with TMA, so a pool view off a 16-byte boundary is
 first copied into a fresh buffer (`build.tma_ready`).
 
@@ -123,7 +125,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
                  window, hd ** -0.5, build.stream())
     build.check_launch("paged_attention", err)
     paged_attention.launches += 1
+    paged_attention.quant_launches += k_scale is not None
     return out
 
 
 paged_attention.launches = 0
+paged_attention.quant_launches = 0   # of them, over int8 / fp8 pools

@@ -12,7 +12,9 @@ float32 q and int8 / fp8 pools run the CUDA-core kernel, since TF32 would
 keep too few bits for float32's 2e-5 and dequantizing into bf16 would add
 a rounding. Neither stands in for the other.
 `ref.paged_prefill_tiled_ref` orders the tensor-core kernel's work on the
-CPU. `paged_prefill_attention.launches` counts kernel launches.
+CPU. `paged_prefill_attention.launches` counts kernel launches,
+`paged_prefill_attention.quant_launches` those of them over int8 / fp8
+pools.
 """
 from __future__ import annotations
 
@@ -127,7 +129,9 @@ def paged_prefill_attention(q, k_suf, v_suf, k_pool, v_pool, block_tables,
                 hd ** -0.5, build.stream())
     build.check_launch("paged_prefill_attention", err)
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.quant_launches += k_scale is not None
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.quant_launches = 0   # of them, over int8 / fp8 pools

@@ -23,17 +23,28 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch rwkv6-3b --full-width --mode naive
 
+    # sampled decoding (per-request threefry streams, JAX's draws) with
+    # stop tokens and top-k logprobs; int8 / fp8 KV pools with the host
+    # spill tier:
+    PYTHONPATH=src python -m repro_torch.launch.serve --temperature 0.8 \
+        --top-k 50 --top-p 0.95 --speculate 4 --logprobs 2 --stop 7
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload \
+        shared-prefix --n-prefixes 4 --kv-dtype int8 --host-cache-blocks 32
+
 The CLI serves the `.reduced()` config (like the JAX CLI) through the
 single-replica engine (`--mode engine`, the default) or generate()'s
 fixed batch (`--mode naive`); `--full-width` serves the published config.
 The engine serves smollm-135m, recurrentgemma-2b and rwkv6-3b (and the
-other attention-only archs). The router, autoscaler and SLO flags,
-sampled decoding and the quantized / host-tier KV options belong to later
-slices and stop the CLI with an error naming them.
+other attention-only archs), greedy or sampled, on activation-dtype or
+int8 / fp8 pools, with or without the host spill tier. The router,
+autoscaler, SLO and flight-recorder flags belong to later slices and stop
+the CLI with an error naming them.
 
 `generate()` is the reference path: it primes a dense KV cache one token
 at a time and decodes a fixed batch in lockstep; the engine's greedy
-output must equal it token for token.
+output must equal it token for token. Sampled, it draws as the JAX
+`generate()` does: one `split` of the key a step, then
+`categorical(sub, logits / temperature)`.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models import lm
@@ -54,6 +66,7 @@ from repro_torch.serving.engine import (ServingEngine, bursty_requests,
                                         repetitive_requests,
                                         shared_prefix_requests, summarize,
                                         synthetic_requests)
+from repro_torch.serving.sampling import SamplingParams
 from repro_torch.serving.observability import (NULL_OBS, Observability,
                                                export_metrics, export_trace,
                                                validate_metrics_dump,
@@ -63,16 +76,15 @@ from repro_torch.serving.observability import (NULL_OBS, Observability,
 @torch.inference_mode()
 def generate(params, cfg, prompts, gen_len: int, *, temperature: float = 0.0,
              seed: int = 0, device=None, return_margins: bool = False):
-    """prompts: (B, P) int (an array, list or tensor). Greedy decode with a dense KV cache primed
-    token by token from the prompt. Returns (B, gen_len) int32 tokens on
-    the device; with return_margins also the (B, gen_len) float32
-    top-1 minus top-2 logit gap of the step that chose each token.
-    Runs on `device` (default CUDA; raises without a GPU unless
-    device="cpu" is given)."""
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampled generate() (temperature > 0) draws with jax.random; "
-            "the PyTorch port decodes greedily until the sampling slice")
+    """prompts: (B, P) int (an array, list or tensor). Decode with a dense
+    KV cache primed token by token from the prompt: greedy, or with
+    temperature > 0 sampled as the JAX `generate()` samples (the first
+    token is the prompt's argmax; each later one splits the key of
+    PRNGKey(seed) and draws categorical(sub, logits / temperature)).
+    Returns (B, gen_len) int32 tokens on the device; with return_margins
+    also the (B, gen_len) float32 top-1 minus top-2 logit gap of the
+    step that chose each token. Runs on `device` (default CUDA; raises
+    without a GPU unless device="cpu" is given)."""
     dev = resolve_device(device)
     params = lm.cast_params(to_device(params, dev), cfg)
     prompts = torch.as_tensor(prompts, device=dev)
@@ -83,10 +95,16 @@ def generate(params, cfg, prompts, gen_len: int, *, temperature: float = 0.0,
         logits, state = lm.decode_step(params, cfg, state, prompts[:, pos],
                                        pos)
     out, margins = [], []
+    key = prng.PRNGKey(seed, device=dev)
     for i in range(gen_len):
         top2 = torch.topk(logits.float(), 2, dim=-1).values
         margins.append(top2[:, 0] - top2[:, 1])
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if temperature > 0 and i > 0:
+            key, sub = prng.split(key)
+            tok = prng.categorical(sub, logits / temperature)
+        else:
+            tok = torch.argmax(logits, dim=-1)
+        tok = tok.to(torch.int32)
         out.append(tok)
         logits, state = lm.decode_step(params, cfg, state, tok, P + i)
     tokens = torch.stack(out, dim=1)
@@ -104,11 +122,23 @@ def _prompt_len_spec(values):
     raise SystemExit("--prompt-len takes one or two ints")
 
 
+def _sampling_from_args(args):
+    """Per-workload SamplingParams from the CLI flags; None (greedy,
+    no stops, no logprobs) when every flag sits at its default."""
+    stop = (tuple(args.stop),) if args.stop else ()
+    if (args.temperature <= 0 and args.top_k == 0 and args.top_p >= 1.0
+            and not stop and args.logprobs == 0):
+        return None
+    return SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p, seed=args.seed, stop=stop,
+                          logprobs=args.logprobs)
+
+
 def _make_workload(args, cfg):
     rate = float("inf") if args.rate <= 0 else args.rate
     plen = _prompt_len_spec(args.prompt_len)
     common = dict(vocab_size=cfg.vocab_size, max_new=tuple(args.max_new),
-                  seed=args.seed)
+                  sampling=_sampling_from_args(args), seed=args.seed)
     if args.workload == "shared-prefix":
         return shared_prefix_requests(
             args.requests, prefix_len=args.prefix_len, suffix_len=plen,
@@ -149,9 +179,6 @@ _LATER = {
     "slo_autoscale": ("SLO layer", bool),
     "deadline_ms": ("SLO layer", lambda v: v is not None),
     "flight_recorder": ("flight recorder", lambda v: v is not None),
-    "temperature": ("sampled decoding", lambda v: v > 0),
-    "kv_dtype": ("quantized KV pools", lambda v: v != "fp16"),
-    "host_cache_blocks": ("host KV spill tier", lambda v: v > 0),
 }
 
 
@@ -167,7 +194,11 @@ def _run_engine(args, cfg, params, device):
         prefill_buckets=args.prefill_buckets,
         prefill_max_batch=args.prefill_batch,
         prefill_chunk=args.prefill_chunk, speculate=args.speculate,
-        draft=args.draft, ngram=args.ngram, obs=obs, device=device)
+        draft=args.draft, ngram=args.ngram, kv_dtype=args.kv_dtype,
+        host_cache_blocks=args.host_cache_blocks,
+        # widen the top-k side output when the CLI asks for more
+        # alternatives than the engine default carries
+        max_logprobs=max(args.logprobs, 8), obs=obs, device=device)
     done = engine.run(reqs)
     stats = summarize(done, engine.wall_time, engine)
     stats["device"] = str(device)
@@ -195,7 +226,8 @@ def _run_naive(args, cfg, params, device):
     rng = np.random.default_rng(args.seed + 1)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, plen))
     t0 = time.perf_counter()
-    tokens = generate(params, cfg, prompts, max(args.max_new), device=device)
+    tokens = generate(params, cfg, prompts, max(args.max_new),
+                      temperature=args.temperature, device=device)
     tokens = tokens.cpu()
     dt = time.perf_counter() - t0
     n_tok = tokens.shape[0] * tokens.shape[1]
@@ -245,6 +277,27 @@ def main(argv=None):
     ap.add_argument("--prefill-batch", type=int, default=4)
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--rate", type=float, default=0.0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 = greedy; "
+                         "each request gets its own PRNG stream)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep only the k highest logits (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = off)")
+    ap.add_argument("--stop", type=int, nargs="+", default=None,
+                    help="stop token sequence: generation ends when the "
+                         "output ends with these ids")
+    ap.add_argument("--logprobs", type=int, default=0,
+                    help="record the chosen token's logprob plus the "
+                         "top-k alternatives per position (0 = off)")
+    ap.add_argument("--kv-dtype", default="fp16",
+                    choices=["fp16", "int8", "fp8"],
+                    help="paged KV pool dtype: fp16 keeps the activation "
+                         "dtype, int8 / fp8 quantize on landing with "
+                         "per-slot, per-head scale tables")
+    ap.add_argument("--host-cache-blocks", type=int, default=0,
+                    help="host-RAM spill tier capacity in KV blocks "
+                         "(0 = off)")
     ap.add_argument("--trace-out", default=None, metavar="PATH")
     ap.add_argument("--metrics-out", default=None, metavar="PATH")
     ap.add_argument("--seed", type=int, default=0)
@@ -257,10 +310,6 @@ def main(argv=None):
     ap.add_argument("--slo-autoscale", action="store_true")
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--flight-recorder", default=None)
-    ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--kv-dtype", default="fp16",
-                    choices=["fp16", "int8", "fp8"])
-    ap.add_argument("--host-cache-blocks", type=int, default=0)
     args = ap.parse_args(argv)
     for flag, (layer, is_set) in _LATER.items():
         if is_set(getattr(args, flag)):

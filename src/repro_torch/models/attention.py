@@ -16,9 +16,12 @@ their plain twins on CPU tensors):
 
 Caches and pools are updated in place (the JAX runner donates them).
 A local-attention `window` runs through every kernel (the dense path's
-flash, the paged decode's and the paged prefill's); quantized (int8 /
-fp8) pools and the dense path's bidirectional `prefix_len` on CUDA belong
-to later slices and raise.
+flash, the paged decode's and the paged prefill's). Quantized (int8 /
+fp8-e4m3) pools carry float32 "k_scale" / "v_scale" tables, one max-abs
+scale per (token slot, KV head); K/V quantize on landing in the pool and
+the kernels dequantize what they read (their int8 / fp8 arms). The dense
+path's bidirectional `prefix_len` on CUDA belongs to a later slice and
+raises.
 """
 from __future__ import annotations
 
@@ -50,11 +53,58 @@ def _qkv(params, x, n_heads, n_kv_heads, head_dim, positions, rope_theta):
     return q, k, v
 
 
-def _no_quant(cache):
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "int8/fp8 KV pools are not wired into the PyTorch port yet "
-            "(a later slice); use kv_dtype='fp16'")
+# ----------------------------------------------------------------------------
+# Quantized paged KV pools (the reference's per-slot quantizer): scales are
+# max-abs over head_dim per (token slot, KV head), so each write quantizes
+# on its own and copying a block's (q, scale) pair is an exact round trip.
+# ----------------------------------------------------------------------------
+
+_POOL_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+
+
+def pool_qmax(dtype) -> float:
+    """Max representable magnitude targeted by quantize_kv for a pool."""
+    return _POOL_QMAX[dtype]
+
+
+def quantize_kv(x, dtype):
+    """x: (..., KV, hd) -> (q: same shape in `dtype`, scale: (..., KV) f32).
+
+    scale = max|x| / qmax over head_dim; q = x / max(scale, 1e-12) (a
+    division, as the reference), rounded half to even and clipped to
+    [-127, 127] for int8; fp8 takes the cast's round to nearest even with
+    no clip (the largest element lands on 448 within an ulp). All-zero
+    slots get scale 0, so dequantize returns exact zeros."""
+    qmax = pool_qmax(dtype)
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / qmax
+    q = xf / torch.clamp(scale, min=1e-12)[..., None]
+    if not dtype.is_floating_point:
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    return q.to(dtype), scale
+
+
+def dequantize_kv(q, scale):
+    """Inverse of quantize_kv: (..., KV, hd) pool values -> float32."""
+    return q.float() * scale[..., None]
+
+
+def pool_bytes(t):
+    """An fp8 pool (or payload) viewed as uint8, so indexing and copies
+    take the byte kernels every device has; other dtypes as they are."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _write_pool(cache, blk, off, k, v):
+    """Scatter K/V rows into the pools at (blk, off), in place; into a
+    quantized pool as (q, scale) pairs."""
+    if "k_scale" in cache:                       # quantize on landing
+        k, sk = quantize_kv(k, cache["k"].dtype)
+        v, sv = quantize_kv(v, cache["v"].dtype)
+        cache["k_scale"].index_put_((blk, off), sk)
+        cache["v_scale"].index_put_((blk, off), sv)
+    pool_bytes(cache["k"]).index_put_((blk, off), pool_bytes(k))
+    pool_bytes(cache["v"]).index_put_((blk, off), pool_bytes(v))
 
 
 def chunked_causal_attention(q, k, v, *, chunk: int = 512, window: int = 0,
@@ -198,9 +248,10 @@ def paged_prefill_attention_block(params, x, cache, positions, block_tables,
     already-cached positions go to the null block 0, where duplicate
     indices make the write order, and nothing else, nondeterministic);
     then the kernel attends. The writes never touch what the kernel reads
-    (pool positions < starts <= cached_lens), so the order is free.
-    Returns (out, cache)."""
-    _no_quant(cache)
+    (pool positions < starts <= cached_lens), so the order is free. A
+    quantized pool takes the suffix quantized; the kernel attends to the
+    raw suffix K/V and the dequantized prefix, as the reference. Returns
+    (out, cache)."""
     N, Ls, D = x.shape
     q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                    positions, cfg.rope_theta)
@@ -212,8 +263,7 @@ def paged_prefill_attention_block(params, x, cache, positions, block_tables,
                        (positions // bs).clamp(0, M - 1).long())
     blk = torch.where(write, blk, torch.zeros_like(blk)).long()
     off = (positions % bs).long()
-    cache["k"].index_put_((blk, off), k)
-    cache["v"].index_put_((blk, off), v)
+    _write_pool(cache, blk, off, k, v)
     o = streamed_paged_attention(q, k, v, cache, block_tables, positions,
                                  starts, lengths,
                                  scale=cfg.head_dim ** -0.5,
@@ -236,8 +286,8 @@ def paged_decode_attention_block(params, x, cache, positions, block_tables,
     then the kernel attends over ctx = positions + 1 tokens through the
     table, the last `window` of them when window > 0 (the pools keep the
     whole history; the mask bounds the receptive field, as in the JAX
-    block). Returns (out, cache)."""
-    _no_quant(cache)
+    block). A quantized pool takes the token quantized, and the kernel
+    reads it back dequantized with the rest. Returns (out, cache)."""
     B = x.shape[0]
     q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                    positions[:, None], cfg.rope_theta)
@@ -246,9 +296,9 @@ def paged_decode_attention_block(params, x, cache, positions, block_tables,
     rows = torch.arange(B, device=x.device)
     blk = block_tables[rows, (positions // bs).clamp(0, M - 1).long()].long()
     off = (positions % bs).long()
-    cache["k"].index_put_((blk, off), k[:, 0])
-    cache["v"].index_put_((blk, off), v[:, 0])
+    _write_pool(cache, blk, off, k[:, 0], v[:, 0])
     o = paged_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                         block_tables, (positions + 1).to(torch.int32),
-                        window=window)
+                        k_scale=cache.get("k_scale"),
+                        v_scale=cache.get("v_scale"), window=window)
     return (o.reshape(B, 1, -1) @ params["wo"]).to(x.dtype), cache

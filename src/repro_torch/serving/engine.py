@@ -62,9 +62,9 @@ with two differences:
     a corrupted state and leaves generate() from its first token; here it
     keeps its state. Attention-only patterns do not notice: the sit-out
     lane's write lands in the null block.
-Ported: greedy requests over attention and recurrent (rwkv6-3b,
-recurrentgemma-2b) patterns with kv_dtype "fp16"; sampled requests, the
-quantized pools and the host spill tier raise NotImplementedError.
+Ported: greedy and sampled requests (speculative sampling included) over
+attention and recurrent (rwkv6-3b, recurrentgemma-2b) patterns, with
+"fp16", "int8" or "fp8" pools and the host spill tier.
 """
 from __future__ import annotations
 
@@ -202,10 +202,6 @@ class ServingEngine:
         self.draft = draft
         self.kv_dtype = kv_dtype
         self.host_cache_blocks = max(0, int(host_cache_blocks))
-        if self.host_cache_blocks:
-            raise NotImplementedError(
-                "host_cache_blocks > 0: the host KV spill tier is not "
-                "ported yet (a later slice)")
         self.obs = obs or NULL_OBS
         if slo_tracker is not None:
             self.slo = slo_tracker

@@ -28,11 +28,18 @@ sits the step out (mid-way through a chunked prefill) keeps its recurrent
 state. The JAX step advances every slot's state, and a chunked prompt's
 next chunk then resumes from the corrupted state.
 
-Pools and slot state are updated in place (the JAX runner donates them).
-Ported: greedy decoding with kv_dtype "fp16", for attention and recurrent
-(rwkv / rec) patterns. Sampled lanes, the quantized pools and the host
-spill tier (`fetch_block` / `upload_blocks`) raise NotImplementedError
-until their slice.
+Per-request sampling configs are DATA: temperature / top-k / top-p / seed
+ride through every dispatch as (num_slots,) tensors, mirrored to the
+device lazily as the block tables are. A dispatch takes the argmax fast
+path unless a live slot samples (`sampled_dispatches` counts the others);
+randomness is position-keyed per request (serving/sampling.py), so the
+runner holds no sampler state.
+
+Pools and slot state are updated in place (the JAX runner donates them),
+in the activation dtype or quantized (kv_dtype "int8" / "fp8", with scale
+tables). The host spill tier moves block payloads through `fetch_block`
+(device -> host, one block) and `upload_blocks` (host -> device, padded to
+a `promote_buckets` width as the JAX runner pads its jitted scatter).
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ from repro_torch.serving import kv_cache, sampling
 from repro_torch.serving.block_manager import NULL_BLOCK
 from repro_torch.serving.bucketing import (chain_buckets, next_pow2,
                                            normalize_buckets, pick_bucket,
-                                           width_buckets)
+                                           pow2_buckets, width_buckets)
 from repro_torch.serving.observability import NULL_OBS, Observability
 from repro_torch.serving.sampling import GREEDY, SamplingParams
 
@@ -77,12 +84,6 @@ class PrefillRow:
     @property
     def suffix_len(self) -> int:
         return len(self.tokens) - self.start
-
-
-def _sampled_not_ported():
-    raise NotImplementedError(
-        "sampled lanes (temperature > 0) need the threefry fold_in draws "
-        "of repro.serving.sampling, ported in a later slice")
 
 
 class ModelRunner:
@@ -150,11 +151,19 @@ class ModelRunner:
         self._tables = np.zeros((num_slots, max_blocks_per_seq), np.int32)
         self._tables_dev = self._dev(self._tables)
         self._tables_dirty = False
-        # per-slot sampling configs (host only: greedy is the only ported
-        # mode, so nothing of them rides to the device)
+        # per-slot sampling configs, the same pattern as the tables: host
+        # arrays of plain data, mirrored to the device lazily
         self._temps = np.zeros(num_slots, np.float32)
-        self._wantk = np.zeros(num_slots, np.int32)
+        self._topks = np.zeros(num_slots, np.int32)
+        self._topps = np.ones(num_slots, np.float32)
+        self._seeds = np.zeros(num_slots, np.int32)
+        self._wantk = np.zeros(num_slots, np.int32)   # requested logprob k
+        self._sampling_dev = None
         self.max_logprobs = max(1, min(max_logprobs, cfg.vocab_size))
+        # host-tier promotions pad to these widths (`promote_shapes`
+        # records the widths dispatched)
+        self.promote_buckets = pow2_buckets(max_blocks_per_seq)
+        self.promote_shapes: set = set()
 
         self.prefill_shapes: set = set()     # distinct (width, Ls) dispatched
         self.verify_shapes: set = set()      # distinct chain buckets T
@@ -199,14 +208,20 @@ class ModelRunner:
     # ------------------------------------------------------------------
 
     def set_sampling(self, slot: int, sp: SamplingParams) -> None:
-        if not sp.greedy:
-            _sampled_not_ported()
         self._temps[slot] = sp.temperature
+        self._topks[slot] = sp.top_k
+        self._topps[slot] = sp.top_p
+        self._seeds[slot] = sampling.seed32(sp.seed)
         self._wantk[slot] = min(sp.logprobs, self.max_logprobs)
+        self._sampling_dev = None
 
     def clear_sampling(self, slot: int) -> None:
         self._temps[slot] = 0.0
+        self._topks[slot] = 0
+        self._topps[slot] = 1.0
+        self._seeds[slot] = 0
         self._wantk[slot] = 0
+        self._sampling_dev = None
 
     @property
     def any_sampled(self) -> bool:
@@ -215,6 +230,12 @@ class ModelRunner:
     @property
     def any_alt(self) -> bool:
         return bool(self._wantk.max() > 0)
+
+    def _sampling_device(self):
+        if self._sampling_dev is None:
+            self._sampling_dev = tuple(self._dev(a) for a in (
+                self._temps, self._topks, self._topps, self._seeds))
+        return self._sampling_dev
 
     # ------------------------------------------------------------------
     # dispatch
@@ -249,17 +270,16 @@ class ModelRunner:
     @torch.inference_mode()
     def prefill(self, rows: List[PrefillRow], *, resume: bool = False,
                 chunk: Optional[Tuple[int, int]] = None):
-        """Run one bucketed batched prefill and take each row's first
-        token (greedy) from its true-last-position logits. Blocks until
-        done (the caller's TTFT clock covers it). Returns ((len(rows),)
-        int32 tokens, (len(rows),) float32 logprobs, alt) where alt is
-        None unless a row asked for logprobs. `resume` / `chunk` as in
-        the JAX runner (chunk is recorded on the trace)."""
+        """Run one bucketed batched prefill and sample each row's first
+        token from its true-last-position logits with the row's own
+        SamplingParams (position-keyed on the last prompt position).
+        Blocks until done (the caller's TTFT clock covers it). Returns
+        ((len(rows),) int32 tokens, (len(rows),) float32 logprobs, alt)
+        where alt is None unless a row asked for logprobs. `resume` /
+        `chunk` as in the JAX runner (chunk is recorded on the trace)."""
         n = len(rows)
         obs = self._obs
         t0 = self._now() if obs.enabled else 0.0
-        if any(not r.sampling.greedy for r in rows):
-            _sampled_not_ported()
         ls = self.suffix_bucket(max(r.suffix_len for r in rows))
         width = pick_bucket(n, self.width_buckets)
         toks = np.zeros((width, ls), np.int32)
@@ -268,6 +288,10 @@ class ModelRunner:
         tables = np.full((width, self.max_blocks_per_seq), NULL_BLOCK,
                          np.int32)
         slots = np.full(width, self.num_slots, np.int32)   # pad rows drop
+        temps = np.zeros(width, np.float32)
+        topks = np.zeros(width, np.int32)
+        topps = np.ones(width, np.float32)
+        seeds = np.zeros(width, np.int32)
         for i, r in enumerate(rows):
             suf = r.tokens[r.start:]
             toks[i, :len(suf)] = suf
@@ -275,6 +299,10 @@ class ModelRunner:
             cached[i] = r.cached_len
             tables[i] = r.table_row
             slots[i] = r.slot
+            temps[i] = r.sampling.temperature
+            topks[i] = r.sampling.top_k
+            topps[i] = r.sampling.top_p
+            seeds[i] = sampling.seed32(r.sampling.seed)
         self.prefill_shapes.add((width, ls))
         self.prefill_dispatches += 1
         self.prefill_padded_tokens += width * ls
@@ -291,11 +319,17 @@ class ModelRunner:
             self.params, self.cfg, self.state, self._dev(toks),
             self._dev(lengths), self._dev(cached), self._dev(tables),
             self._dev(slots), resume=resume)
+        do_sample = bool(temps.max() > 0.0)
         want_alt = any(r.sampling.logprobs for r in rows)
-        tok, lp = sampling.greedy_tokens(last)
+        if do_sample:
+            tok, lp = sampling.sample_tokens(
+                last, self._dev(np.maximum(lengths - 1, 0)),
+                *(self._dev(a) for a in (temps, topks, topps, seeds)))
+        else:
+            tok, lp = sampling.greedy_tokens(last)
         out = self._host_out(tok, lp, last if want_alt else None, n)
         if obs.enabled:
-            variant = (width, ls, False, want_alt, resume)
+            variant = (width, ls, do_sample, want_alt, resume)
             self._c_prefill.inc()
             extra = {}
             if chunk is not None:
@@ -313,63 +347,76 @@ class ModelRunner:
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
                active: Optional[Sequence[int]] = None):
-        """One batched greedy decode step over all lanes. tokens /
-        positions: (num_slots,) int32 host arrays; active: the lanes in
-        the step (the scheduler's), or None for all. Lanes outside it keep
-        their recurrent state. Returns ((num_slots,) int32 next tokens,
+        """One batched decode step over all lanes. tokens / positions:
+        (num_slots,) int32 host arrays; active: the lanes in the step (the
+        scheduler's), or None for all. Lanes outside it keep their
+        recurrent state. Returns ((num_slots,) int32 next tokens,
         (num_slots,) float32 chosen logprobs, alt)."""
         obs = self._obs
         t0 = self._now() if obs.enabled else 0.0
-        if self.any_sampled:
-            _sampled_not_ported()
+        do_sample = self.any_sampled
+        if do_sample:
+            self.sampled_dispatches += 1
         want_alt = self.any_alt
         mask = None
         if active is not None:
             lanes = np.zeros(self.num_slots, bool)
             lanes[list(active)] = True
             mask = self._dev(lanes)
+        pos = self._dev(positions)
         logits, self.state = lm.decode_step_paged(
-            self.params, self.cfg, self.state, self._dev(tokens),
-            self._dev(positions), self._tables_device(), active=mask)
-        tok, lp = sampling.greedy_tokens(logits)
+            self.params, self.cfg, self.state, self._dev(tokens), pos,
+            self._tables_device(), active=mask)
+        if do_sample:
+            tok, lp = sampling.sample_tokens(logits, pos,
+                                             *self._sampling_device())
+        else:
+            tok, lp = sampling.greedy_tokens(logits)
         out = self._host_out(tok, lp, logits if want_alt else None)
         if obs.enabled:
-            variant = (False, want_alt)
+            variant = (do_sample, want_alt)
             self._c_decode.inc()
             obs.step("decode", t0, self._now(), batch=self.num_slots,
                      first_dispatch=variant not in self._decode_variants,
-                     sampled=False)
+                     sampled=do_sample)
             self._decode_variants.add(variant)
         return out
 
     @torch.inference_mode()
     def verify(self, tokens: np.ndarray, positions: np.ndarray,
                counts: np.ndarray):
-        """One batched multi-token greedy verify dispatch. tokens:
-        (num_slots, T) draft chains right-padded to a verify bucket;
-        positions / counts: (num_slots,) int32 (counts 0 = lane sits
-        out). Returns (emitted tokens (num_slots, T) int32, accept counts
-        (num_slots,) int32, chosen logprobs (num_slots, T) float32, alt)
-        — greedy lanes emit the model argmax at every position and accept
-        the longest agreeing draft prefix. Recurrent snapshots are held
-        until the matching `commit`."""
+        """One batched multi-token verify dispatch. tokens: (num_slots,
+        T) draft chains right-padded to a verify bucket; positions /
+        counts: (num_slots,) int32 (counts 0 = lane sits out). Returns
+        (emitted tokens (num_slots, T) int32, accept counts (num_slots,)
+        int32, chosen logprobs (num_slots, T) float32, alt) — greedy
+        lanes emit the model argmax at every position and accept the
+        longest agreeing draft prefix; sampled lanes run Leviathan
+        accept/reject with residual resampling (serving/sampling.py).
+        Recurrent snapshots are held until the matching `commit`."""
         T = tokens.shape[1]
         obs = self._obs
         t0 = self._now() if obs.enabled else 0.0
-        if self.any_sampled:
-            _sampled_not_ported()
         self.verify_shapes.add(T)
         self.verify_dispatches += 1
         self.verify_padded_tokens += tokens.shape[0] * T
         self.verify_chain_tokens += int(counts.sum())
+        do_sample = self.any_sampled
+        if do_sample:
+            self.sampled_dispatches += 1
         want_alt = self.any_alt
         chain = self._dev(tokens)
         counts_dev = self._dev(counts)
+        pos = self._dev(positions)
         logits, self.state, self._snaps = lm.decode_verify_paged(
-            self.params, self.cfg, self.state, chain, self._dev(positions),
-            counts_dev, self._tables_device())
-        emit, accept, lp = sampling.greedy_verify_tokens(logits, chain,
-                                                         counts_dev)
+            self.params, self.cfg, self.state, chain, pos, counts_dev,
+            self._tables_device())
+        if do_sample:
+            emit, accept, lp = sampling.verify_tokens(
+                logits, chain, counts_dev, pos, *self._sampling_device())
+        else:
+            emit, accept, lp = sampling.greedy_verify_tokens(
+                logits, chain, counts_dev)
         alt = None
         if want_alt:
             ids, lps = sampling.top_alternatives(logits, self.max_logprobs)
@@ -377,14 +424,14 @@ class ModelRunner:
         out = (emit.cpu().numpy(), accept.cpu().numpy(), lp.cpu().numpy(),
                alt)
         if obs.enabled:
-            variant = (T, False, want_alt)
+            variant = (T, do_sample, want_alt)
             self._c_verify.inc()
             obs.step("verify", t0, self._now(), batch=tokens.shape[0],
                      bucket=T,
                      first_dispatch=variant not in self._verify_variants,
                      chain_tokens=int(counts.sum()),
                      padded_tokens=tokens.shape[0] * T,
-                     sampled=False)
+                     sampled=do_sample)
             self._verify_variants.add(variant)
         return out
 
@@ -411,10 +458,41 @@ class ModelRunner:
     # host-tier payload movement (BlockAllocator demotion / revival)
     # ------------------------------------------------------------------
 
+    @torch.inference_mode()
     def fetch_block(self, block: int):
-        raise NotImplementedError(
-            "the host KV spill tier is not ported yet (a later slice)")
+        """Device -> host: one block's payload from every attention pool
+        (a kv_cache.gather_blocks tree of (1, ...) CPU tensors; quantized
+        pools include the scale tables verbatim) — the allocator's
+        host-tier demotion callback."""
+        return kv_cache.gather_blocks(
+            self.cfg, self.state,
+            torch.tensor([block], dtype=torch.int64, device=self.device),
+            device="cpu")
 
+    @torch.inference_mode()
     def upload_blocks(self, ids: Sequence[int], payloads: Sequence) -> None:
-        raise NotImplementedError(
-            "the host KV spill tier is not ported yet (a later slice)")
+        """Host -> device: scatter demoted payloads back into the pools at
+        `ids` (the allocator's revival callback). The batch pads to a
+        promote_buckets width, the pad lanes aimed at the reserved null
+        block, as the JAX runner pads its one jitted scatter per width."""
+        n = len(ids)
+        w = pick_bucket(n, self.promote_buckets)
+        self.promote_shapes.add(w)
+        idarr = np.full(w, NULL_BLOCK, np.int64)
+        idarr[:n] = ids
+        layers = [[st for _, st in lm._layers(p, self.cfg)]
+                  for p in payloads]
+
+        def cat(leaves):
+            out = torch.cat(leaves, dim=0)
+            if w > n:
+                out = torch.cat([out, out.new_zeros((w - n,)
+                                                    + out.shape[1:])])
+            return out
+
+        merged = [{name: cat([pl[i][name] for pl in layers])
+                   for name in layers[0][i]}
+                  for i in range(len(layers[0]))]
+        self.state = kv_cache.scatter_blocks(
+            self.cfg, self.state, self._dev(idarr),
+            lm._to_tree(self.cfg, merged))

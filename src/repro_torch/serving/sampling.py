@@ -29,10 +29,12 @@ Greedy lanes (temperature == 0) bypass all of this with a plain argmax
 compare, so greedy output under speculation stays bit-identical to
 `generate()` — the existing gate.
 
-PyTorch port: `SamplingParams`, `resolve` and the greedy helpers are
-ported. The sampled draws (`sample_tokens`, `verify_tokens`) key every
-draw with JAX's threefry `fold_in`; until a later slice ports those bits
-they raise NotImplementedError rather than fall back to greedy.
+PyTorch port: every draw is keyed by `repro_torch.prng`, JAX's
+threefry bit for bit (keys and uniforms), so a request's stream is the
+JAX engine's. The Gumbel noise takes torch's `log`, which may differ
+from XLA's in the last ulp: a token can differ from JAX's only where two
+candidates' warped-logit-plus-noise values tie to within that ulp. All
+helpers are eager torch ops on the logits' device.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 # draw-kind tags folded into the position key so the accept/reject
 # uniform and the (re)sampling categorical at the same position are
@@ -182,6 +186,50 @@ def resolve(sampling: Optional[SamplingParams],
 # torch samplers (batched, config-as-data)
 # ----------------------------------------------------------------------------
 
+def position_key(seed, pos, tag):
+    """The key for one draw: fold the absolute sequence position and the
+    draw-kind tag into the request's stream. Pure in (seed, pos, tag);
+    integer tensors of seeds and positions give a stack of keys."""
+    return prng.fold_in(prng.fold_in(prng.PRNGKey(seed), pos), tag)
+
+
+def _keys(seeds, positions, tag):
+    """Batched position keys; seeds/positions may be (B,) or (B, T).
+    Returns (*positions.shape, 2)."""
+    seeds = torch.broadcast_to(seeds, positions.shape)
+    return position_key(seeds, positions, tag)
+
+
+def warp_logits(logits, temperature, top_k, top_p):
+    """Apply temperature / top-k / top-p to logits (..., V); the scalar
+    params broadcast over the leading dims ((...,)-shaped tensors).
+    softmax(warped) is the target sampling distribution. Masked tokens
+    go to -inf. Greedy rows (temperature 0) are scaled by 1 — callers
+    select argmax for them, the warp result is unused.
+
+    The reference's rules, kept exactly: the k-th value of the descending
+    sort is a threshold `x >= thr`, so ties at it are kept; the nucleus is
+    a prefix of the same sort, the tokens whose cumulative mass before
+    them is < top_p."""
+    V = logits.shape[-1]
+    t = torch.where(temperature > 0, temperature,
+                    torch.ones_like(temperature))[..., None]
+    x = logits / t
+    xs = -torch.sort(-x, dim=-1).values                 # descending
+    k = torch.clamp(torch.where(top_k <= 0, torch.full_like(top_k, V),
+                                top_k), 1, V)
+    k = torch.broadcast_to(k, xs.shape[:-1])
+    kth = torch.gather(xs, -1, (k - 1).long()[..., None])
+    ps = torch.softmax(xs, dim=-1)
+    keep = (torch.cumsum(ps, dim=-1) - ps) < top_p[..., None]
+    inf = torch.tensor(float("inf"), dtype=xs.dtype, device=xs.device)
+    pth = torch.where(keep, xs, inf).amin(dim=-1, keepdim=True)
+    pth = torch.where((top_p >= 1.0)[..., None], -inf, pth)
+    thr = torch.maximum(kth, pth)
+    return torch.where(x >= thr, x, -inf)
+
+
+
 def _chosen_logprob(logits, tokens):
     """Log-probability of `tokens` under the RAW model distribution."""
     lp = torch.log_softmax(logits.float(), dim=-1)
@@ -231,16 +279,73 @@ def greedy_verify_tokens(logits, chain, counts):
 
 
 def sample_tokens(logits, positions, temperature, top_k, top_p, seeds):
-    """Sampled next-token draws: keyed by JAX's threefry fold_in, which
-    the port does not have yet. Raises rather than fall back to greedy."""
-    raise NotImplementedError(
-        "sampled decoding (temperature > 0) needs the threefry fold_in "
-        "draws of repro.serving.sampling, ported in a later slice")
+    """One batched next-token draw with per-lane configs.
+
+    logits (B, V); positions (B,) absolute position of the token each
+    lane just consumed (the key for this draw); temperature/top_p (B,)
+    float, top_k/seeds (B,) int. Greedy lanes take the argmax; sampled
+    lanes draw categorical(fold_in(PRNGKey(seed), pos)) over the warped
+    logits. Returns ((B,) int32 tokens, (B,) float32 chosen logprobs)."""
+    warped = warp_logits(logits, temperature, top_k, top_p)
+    sampled = prng.categorical(_keys(seeds, positions, TAG_SAMPLE), warped)
+    tok = torch.where(temperature > 0, sampled,
+                      torch.argmax(logits, dim=-1)).to(torch.int32)
+    return tok, _chosen_logprob(logits, tok)
 
 
 def verify_tokens(logits, chain, counts, positions, temperature, top_k,
                   top_p, seeds):
-    """Sampled speculative accept/reject: see sample_tokens."""
-    raise NotImplementedError(
-        "sampled speculative verify (temperature > 0) needs the threefry "
-        "fold_in draws of repro.serving.sampling, ported in a later slice")
+    """Accept/reject + emission for one verify dispatch (the sampling
+    half of speculative decoding, deterministic-draft specialization).
+
+    logits (B, T, V): next-token logits after consuming chain token t;
+    chain (B, T): [pending, d_1 .. d_k] right-padded; counts (B,) true
+    chain lengths (0 = lane sits out); positions (B,) absolute position
+    of each chain's first token; temperature/top_k/top_p/seeds (B,).
+
+    Per lane, draft d_{t+1} (checked against logits index t) is:
+      greedy lane   accepted iff argmax(logits[t]) == d_{t+1}
+      sampled lane  accepted with probability q_t(d_{t+1}) where q_t =
+                    softmax(warp(logits[t])) — the Leviathan rule with a
+                    deterministic (probability-one) proposal
+    `accept` is the number of leading accepted drafts; the emitted run
+    is the accepted drafts plus ONE more token at index `accept`:
+      greedy         the model argmax (correction == bonus)
+      sampled, a<k   resampled from q_a with the rejected draft masked
+                     out (the residual distribution)
+      sampled, a==k  the bonus token, a plain draw from q_k
+    Accept uniforms and (re)samples use different key tags. The residual
+    resample and the bonus draw share their key (TAG_SAMPLE at the
+    position), so one Gumbel draw serves both, as the same key gives the
+    same noise in the reference. Where the draft holds all of q's mass
+    the residual is all -inf and its argmax is index 0, as jnp.argmax's;
+    it is never emitted (u < 1 accepts the draft).
+
+    Returns (emit (B, T) int32 — valid at indices 0..accept —,
+    accept (B,) int32, chosen logprobs (B, T) float32)."""
+    B, T = chain.shape
+    tidx = torch.arange(T, dtype=torch.int32, device=chain.device)[None, :]
+    pos = positions[:, None] + tidx                         # (B, T)
+    model_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    draft = _shift_draft(chain)
+    warped = warp_logits(logits, temperature[:, None], top_k[:, None],
+                         top_p[:, None])
+    q_draft = torch.exp(torch.gather(
+        torch.log_softmax(warped, dim=-1), -1,
+        draft.long()[..., None])[..., 0])
+    u = prng.uniform(_keys(seeds[:, None], pos, TAG_ACCEPT))
+    sampled_lane = (temperature > 0)[:, None]
+    accept = _lead_accepts(
+        torch.where(sampled_lane, u < q_draft, model_tok == draft), counts)
+    noise = prng.gumbel(_keys(seeds[:, None], pos, TAG_SAMPLE),
+                        (logits.shape[-1],), warped.dtype)
+    residual = warped.scatter(-1, draft.long()[..., None], float("-inf"))
+    resample = torch.argmax(noise + residual, dim=-1)   # the correction
+    bonus = torch.argmax(noise + warped, dim=-1)        # full-accept bonus
+    full = (accept >= torch.clamp(counts, min=1) - 1)[:, None]
+    emit_sampled = torch.where(tidx < accept[:, None], draft,
+                               torch.where(full, bonus, resample)
+                               .to(torch.int32))
+    emit = torch.where(sampled_lane, emit_sampled,
+                       model_tok).to(torch.int32)
+    return emit, accept, _chosen_logprob(logits, emit)

@@ -7,9 +7,14 @@ port engine must equal the port's generate() exactly. Scripted drafts
 (all accepted, all rejected, the second token of each draft wrong) run
 the recurrent rollback through both engines with equal accepted counts;
 a chunked prefill beside a decoding lane, where the JAX engine leaves
-generate() for the recurrent archs, must equal generate() here."""
+generate() for the recurrent archs, must equal generate() here. Sampled
+requests (the reference's mixed greedy / top-k / top-p batch, with and
+without speculation), int8 / fp8 pools and the host spill tier run
+through both engines with equal tokens and stats; sampled generate()
+equals JAX's; the serve CLI takes the JAX CLI's sampling and KV flags."""
 import dataclasses
 import functools
+import json
 import pathlib
 import shutil
 import subprocess
@@ -22,10 +27,13 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.launch.serve import generate as jgenerate  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.serving import kv_cache as jkv  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
+from repro.serving.sampling import \
+    SamplingParams as JSamplingParams  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -320,19 +328,184 @@ def test_engine_without_device_raises_without_gpu(models):
                                     dict(kv_dtype="fp8"),
                                     dict(host_cache_blocks=4)])
 def test_unported_engine_options_raise(models, kwargs):
-    _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError):
-        TEngine(tparams, tcfg, device="cpu", **KW, **kwargs)
+    """The options that raised before their slice (int8 / fp8 pools, the
+    host spill tier) now serve: the shared-prefix stream through both
+    engines with the option on, tokens and per-step stats equal."""
+    jcfg, jparams, tcfg, tparams = models
+    stream = _stream("shared_prefix", jcfg.vocab_size)
+    jeng = JEngine(jparams, jcfg, **KW, **kwargs)
+    teng = TEngine(tparams, tcfg, device="cpu", **KW, **kwargs)
+    jdone, jstats = _drive(jeng, [JRequest(rid=i, prompt=p, max_new_tokens=m)
+                                  for i, (p, m, _) in enumerate(stream)])
+    tdone, tstats = _drive(teng, [TRequest(rid=i, prompt=p, max_new_tokens=m)
+                                  for i, (p, m, _) in enumerate(stream)])
+    assert tstats == jstats
+    for tc, jc in zip(tdone, jdone):
+        np.testing.assert_array_equal(tc.tokens, jc.tokens)
+    assert teng.cache_bytes == jeng.cache_bytes
+
+
+def _sampled_mix(R, SP, vocab, repetitive=False):
+    """tests/test_sampling.py:_mixed_requests for either package: greedy,
+    top-k, nucleus and explicit temperature-0 lanes in one batch."""
+    rng = np.random.default_rng(5)
+    if repetitive:
+        pat = rng.integers(0, vocab, 5).astype(np.int32)
+        prompts = [np.tile(pat, 4)[:16] for _ in range(4)]
+    else:
+        prompts = [rng.integers(0, vocab, 9).astype(np.int32)
+                   for _ in range(4)]
+    return [R(rid=0, prompt=prompts[0], max_new_tokens=8),
+            R(rid=1, prompt=prompts[1], sampling=SP(
+                temperature=0.8, top_k=32, seed=11, max_new_tokens=9)),
+            R(rid=2, prompt=prompts[2], sampling=SP(
+                temperature=1.2, top_p=0.9, seed=7, max_new_tokens=6)),
+            R(rid=3, prompt=prompts[3], sampling=SP(
+                temperature=0.0, max_new_tokens=7))]
 
 
 def test_sampled_requests_raise_not_fall_back(models):
+    """A sampled request draws (no raise, no greedy fallback): the JAX
+    engine's tokens, which leave the greedy continuation."""
+    jcfg, jparams, tcfg, tparams = models
+    prompt = np.arange(6, dtype=np.int32)
+    sp = dict(temperature=0.8, seed=1, max_new_tokens=8)
+    teng = TEngine(tparams, tcfg, device="cpu", **KW)
+    got = teng.run([TRequest(rid=0, prompt=prompt,
+                             sampling=SamplingParams(**sp))])[0].tokens
+    jeng = JEngine(jparams, jcfg, **KW)
+    want = jeng.run([JRequest(rid=0, prompt=prompt,
+                              sampling=JSamplingParams(**sp))])[0].tokens
+    np.testing.assert_array_equal(got, want)
+    greedy = tserve.generate(tparams, tcfg, prompt[None], 8,
+                             device="cpu").numpy()[0]
+    assert not np.array_equal(got, greedy)
+    assert teng.runner.sampled_dispatches > 0
+
+
+@pytest.mark.parametrize("arch,speculate", [
+    ("smollm-135m", 0), ("smollm-135m", 4), (RG, 0), (RG, 4), (RW, 0)])
+def test_sampled_mixed_batch_matches_jax_engine(arch, speculate):
+    """The reference's mixed greedy / top-k / nucleus / temperature-0
+    batch (repetitive prompts under speculation, so sampled chains
+    verify): tokens and per-step stats equal to the JAX engine's, greedy
+    lanes equal to generate(), and each sampled request run alone (and
+    beside another request) gives its batched tokens."""
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    kw = dict(KW, num_slots=4, speculate=speculate)
+    rep = bool(speculate)
+    jeng = JEngine(jparams, jcfg, **kw)
+    teng = TEngine(tparams, tcfg, device="cpu", **kw)
+    jdone, jstats = _drive(jeng, _sampled_mix(JRequest, JSamplingParams,
+                                              jcfg.vocab_size, rep))
+    reqs = _sampled_mix(TRequest, SamplingParams, tcfg.vocab_size, rep)
+    tdone, tstats = _drive(teng, reqs)
+    assert tstats == jstats
+    for tc, jc in zip(tdone, jdone):
+        np.testing.assert_array_equal(tc.tokens, jc.tokens)
+        np.testing.assert_allclose(tc.logprobs if tc.logprobs is not None
+                                   else 0, jc.logprobs if jc.logprobs
+                                   is not None else 0, atol=1e-4)
+    assert teng.runner.sampled_dispatches == jeng.runner.sampled_dispatches
+    assert teng.runner.sampled_dispatches > 0
+    out = {c.rid: c.tokens for c in tdone}
+    for rid in (0, 3):
+        r = reqs[rid]
+        want = tserve.generate(tparams, tcfg, r.prompt[None],
+                               len(out[rid]), device="cpu").numpy()[0]
+        np.testing.assert_array_equal(out[rid], want)
+    if speculate and arch == "smollm-135m":
+        assert teng.scheduler.proposed_tokens > 0
+    for rid in (1, 2):
+        solo, _ = _drive(teng, [dataclasses.replace(reqs[rid])])
+        np.testing.assert_array_equal(solo[0].tokens, out[rid])
+    pair, _ = _drive(teng, [dataclasses.replace(reqs[2]),
+                            dataclasses.replace(reqs[0])])
+    np.testing.assert_array_equal({c.rid: c.tokens for c in pair}[2], out[2])
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_sampled_generate_matches_jax(seed):
+    """generate(temperature > 0) draws JAX generate()'s tokens: the first
+    token the argmax, each later one categorical(split key, logits / t)."""
+    jcfg, jparams, tcfg, tparams = _models("smollm-135m")
+    prompts = np.random.default_rng(seed).integers(
+        0, jcfg.vocab_size, (3, 7)).astype(np.int32)
+    want = np.asarray(jgenerate(jparams, jcfg, jax.numpy.asarray(prompts),
+                                12, temperature=0.9, seed=seed))
+    got = tserve.generate(tparams, tcfg, prompts, 12, temperature=0.9,
+                          seed=seed, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    greedy = tserve.generate(tparams, tcfg, prompts, 12, device="cpu")
+    assert not np.array_equal(got, greedy.numpy())
+
+
+class _NextTokens:
+    """Proposes generate()'s own next tokens, so every draft of a greedy
+    lane is accepted by construction."""
+
+    def __init__(self, prompt, out):
+        self.full = list(prompt) + list(out)
+        self.n = len(prompt)
+
+    def propose(self, history, k):
+        h = list(history)
+        if self.n <= len(h) <= len(self.full) and h == self.full[:len(h)]:
+            return self.full[len(h):len(h) + k]
+        return []
+
+
+def test_topk_alternative_logprobs_decode_and_verify_paths(models):
+    """Port copy of the reference test of the same name: logprobs=k
+    carries k alternatives per emitted position through plain decode and
+    the verify path, for greedy and sampled lanes, without changing the
+    greedy tokens. The reference's n-gram drafts are never accepted on
+    its random weights, so its `accepted_tokens > 0` fails; here the
+    drafts are generate()'s own next tokens, so acceptance is certain."""
     _, _, tcfg, tparams = models
-    eng = TEngine(tparams, tcfg, device="cpu", **KW)
-    req = TRequest(rid=0, prompt=np.arange(6, dtype=np.int32),
-                   sampling=SamplingParams(temperature=0.8, seed=1,
-                                           max_new_tokens=4))
-    with pytest.raises(NotImplementedError):
-        eng.run([req])
+    rng = np.random.default_rng(5)
+    pat = rng.integers(0, tcfg.vocab_size, 5).astype(np.int32)
+    prompt = np.tile(pat, 4)[:16]
+    greedy = tserve.generate(tparams, tcfg, prompt[None], 8,
+                             device="cpu").numpy()[0]
+    kw = dict(num_slots=2, block_size=4, max_seq_len=32, device="cpu")
+    for speculate in (0, 3):
+        eng = TEngine(tparams, tcfg, speculate=speculate, **kw)
+        if speculate:
+            eng.scheduler._proposers = [_NextTokens(prompt, greedy)] * 2
+        reqs = [TRequest(rid=0, prompt=prompt.copy(),
+                         sampling=SamplingParams(max_new_tokens=8,
+                                                 logprobs=3)),
+                TRequest(rid=1, prompt=prompt.copy(),
+                         sampling=SamplingParams(max_new_tokens=8,
+                                                 temperature=0.9, seed=11,
+                                                 top_k=4, logprobs=2))]
+        done = {c.rid: c for c in eng.run(reqs)}
+        if speculate:
+            assert eng.scheduler.accepted_tokens > 0   # verify path ran
+        g = done[0]
+        assert g.top_ids.shape == (8, 3) and g.top_logprobs.shape == (8, 3)
+        np.testing.assert_array_equal(g.tokens, g.top_ids[:, 0])
+        np.testing.assert_allclose(g.logprobs, g.top_logprobs[:, 0],
+                                   rtol=1e-5)
+        assert (np.diff(g.top_logprobs, axis=1) <= 1e-6).all()
+        np.testing.assert_array_equal(g.tokens, greedy)
+        s = done[1]
+        assert s.top_ids.shape == (8, 2)
+        assert (s.logprobs <= s.top_logprobs[:, 0] + 1e-6).all()
+    eng = TEngine(tparams, tcfg, speculate=3, **kw)
+    eng.scheduler._proposers = [_NextTokens(prompt, greedy)] * 2
+    got_ids, final = [], None
+    for ev in eng.stream([TRequest(rid=0, prompt=prompt.copy(),
+                                   sampling=SamplingParams(
+                                       max_new_tokens=8, logprobs=3))]):
+        if ev.done:
+            final = ev.completion
+        else:
+            assert len(ev.top_ids) == len(ev.tokens)
+            got_ids.extend(ev.top_ids)
+    np.testing.assert_array_equal(np.asarray(got_ids, np.int32),
+                                  final.top_ids)
 
 
 def test_serve_cli_runs_on_cpu(capsys):
@@ -355,10 +528,45 @@ def test_serve_cli_engine_serves_recurrent_archs(arch, capsys):
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--autoscale"],
                                   ["--slo-ttft-ms", "100"],
-                                  ["--temperature", "0.5"]])
-def test_serve_cli_later_slice_flags_stop(flag):
+                                  ["--temperature", "0.5"],
+                                  ["--flight-recorder", "x.json"]])
+def test_serve_cli_later_slice_flags_stop(flag, capsys):
+    """The router, autoscaler, SLO and flight-recorder flags stop the CLI;
+    --temperature, whose slice has landed, serves sampled requests."""
+    if flag[0] == "--temperature":
+        tserve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                     "--prompt-len", "6", "--max-new", "2", "4", *flag])
+        assert '"sampled_requests": 3' in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit, match="not ported"):
         tserve.main(["--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.95",
+     "--speculate", "4", "--workload", "repetitive", "--logprobs", "2",
+     "--stop", "7"],
+    ["--workload", "shared-prefix", "--n-prefixes", "4", "--prompt-len",
+     "8", "16", "--kv-dtype", "int8", "--host-cache-blocks", "32"],
+    ["--kv-dtype", "fp8", "--temperature", "0.7"],
+    ["--mode", "naive", "--temperature", "0.7"]])
+def test_serve_cli_sampling_and_kv_flags(flags, capsys):
+    """The JAX CLI's sampling flags and the quantized / host-tier KV
+    options run on the CPU; the kv block names the pool dtype."""
+    tserve.main(["--device", "cpu", "--requests", "8", "--slots", "2",
+                 "--max-new", "3", "6", *flags])
+    out = capsys.readouterr().out
+    if "naive" in flags:
+        assert "generated (4, 6)" in out
+        return
+    stats = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    kv = flags[flags.index("--kv-dtype") + 1] if "--kv-dtype" in flags \
+        else "fp16"
+    assert stats["kv"]["dtype"] == kv and stats["requests"] == 8
+    if "--host-cache-blocks" in flags:
+        assert stats["kv"]["host_revivals"] >= 1
+    if "--temperature" in flags:
+        assert stats["sampling"]["sampled_requests"] == 8
 
 
 def test_chip_smoke_refuses_without_gpu_or_repo(tmp_path):

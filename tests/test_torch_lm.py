@@ -176,14 +176,21 @@ def test_generate_tokens_match_jax(seed):
 
 
 def test_generate_margins_and_sampling_refusal():
-    _, _, tcfg, tparams = _models()
+    """Margins of the greedy path; sampled generate() is no longer refused:
+    it draws JAX generate()'s tokens (first token the argmax, then one
+    key split a step)."""
+    jcfg, jparams, tcfg, tparams = _models()
     prompts = np.zeros((1, 4), np.int32)
     toks, margins = tgenerate(tparams, tcfg, prompts, 5, device="cpu",
                               return_margins=True)
     assert toks.shape == margins.shape == (1, 5)
     assert (margins >= 0).all()
-    with pytest.raises(NotImplementedError):
-        tgenerate(tparams, tcfg, prompts, 5, device="cpu", temperature=0.7)
+    got = tgenerate(tparams, tcfg, prompts, 5, device="cpu",
+                    temperature=0.7, seed=2)
+    want = jgenerate(jparams, jcfg, jnp.asarray(prompts), 5,
+                     temperature=0.7, seed=2)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    assert int(got[0, 0]) == int(toks[0, 0])
 
 
 # ----------------------------------------------------------------------------
@@ -267,14 +274,37 @@ def test_recurrentgemma_generate_tokens_match_jax(seed):
     np.testing.assert_array_equal(got, want)
 
 
+def _quantized_state_matches_jax(arch, kv_dtype):
+    """init_paged_state with a quantized kv_dtype: per layer the JAX
+    state's leaves, shapes and dtypes (the port's tree is unstacked)."""
+    jcfg, _, tcfg, _ = _models(arch)
+    tst = tkv.init_paged_state(tcfg, 2, 8, 4, kv_dtype=kv_dtype,
+                               device="cpu")
+    jst = jkv.init_paged_state(jcfg, 2, 8, 4, kv_dtype=kv_dtype)
+    jlayers = list(zip(jcfg.prefix_pattern, jst["prefix"]))
+    for s in range(jcfg.n_super):
+        for pi, kind in enumerate(jcfg.block_pattern):
+            jlayers.append((kind, jax.tree.map(lambda x: x[s],
+                                               jst["blocks"][f"p{pi}"])))
+    tlayers = list(tlm._layers(tst, tcfg))
+    assert [k for k, _ in tlayers] == [k for k, _ in jlayers]
+    for (kind, t), (_, j) in zip(tlayers, jlayers):
+        tl, jl = dict(_flat(t)), dict(_flat(j))
+        assert sorted(tl) == sorted(jl), kind
+        for key in tl:
+            assert tuple(tl[key].shape) == tuple(jl[key].shape), key
+            assert str(tl[key].dtype).split(".")[-1] == str(jl[key].dtype)
+        assert ("k_scale" in t) == (kind in tkv.ATTN_KINDS)
+
+
 def test_recurrentgemma_paged_paths_raise():
     """The engine (paged) path runs rec blocks (test_recurrent_paged_paths
-    _match_jax); what still raises there is what no architecture has yet:
-    quantized pools. The prefix cache is refused for a recurrent pattern,
-    whose state is per slot, not per block."""
+    _match_jax), on quantized pools too: int8 paged state laid out as
+    JAX's (scale tables on the attention layers only). The prefix cache
+    is refused for a recurrent pattern, whose state is per slot, not per
+    block."""
     _, _, tcfg, tparams = _models(RG)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tkv.init_paged_state(tcfg, 2, 8, 4, kv_dtype="int8", device="cpu")
+    _quantized_state_matches_jax(RG, "int8")
     from repro_torch.serving.engine import ServingEngine
     with pytest.raises(ValueError, match="prefix caching"):
         ServingEngine(tparams, tcfg, num_slots=2, block_size=4,
@@ -349,12 +379,11 @@ def test_rwkv_generate_tokens_match_jax(seed):
 
 def test_rwkv_paged_paths_raise():
     """The engine (paged) path runs rwkv blocks (test_recurrent_paged_paths
-    _match_jax); what still raises there is what no architecture has yet:
-    quantized pools. The prefix cache is refused for a recurrent pattern,
-    whose state is per slot, not per block."""
+    _match_jax); an fp8 paged state for this attention-free pattern holds
+    no pool at all, as JAX's. The prefix cache is refused for a recurrent
+    pattern, whose state is per slot, not per block."""
     _, _, tcfg, tparams = _models(RW)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tkv.init_paged_state(tcfg, 2, 8, 4, kv_dtype="fp8", device="cpu")
+    _quantized_state_matches_jax(RW, "fp8")
     from repro_torch.serving.engine import ServingEngine
     with pytest.raises(ValueError, match="prefix caching"):
         ServingEngine(tparams, tcfg, num_slots=2, block_size=4,

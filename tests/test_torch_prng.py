@@ -94,3 +94,151 @@ def test_draws_follow_the_key_device():
     key = prng.PRNGKey(3, device="meta")
     assert prng.split(key, 3).device.type == "meta"
     assert prng.randint(key, (4,), 0, 9).device.type == "meta"
+
+
+# ----------------------------------------------------------------------------
+# fold_in, batched PRNGKey, uniform, gumbel, categorical: the draws of the
+# serving sampler (fold_in(fold_in(PRNGKey(seed), position), tag))
+# ----------------------------------------------------------------------------
+
+import jax.numpy as jnp  # noqa: E402
+
+# int32 seeds as the runner carries them (sampling.seed32), negative ones
+# among them
+SEEDS32 = np.asarray([0, 1, 7, -1, -3, -2**31, 2**31 - 1, 123456789],
+                     np.int32)
+POSITIONS = np.asarray([0, 1, 5, 100, 3, 2**20, 31, 4095], np.int32)
+
+
+def _jax_keys(tag):
+    return jax.vmap(lambda s, p: jax.random.fold_in(
+        jax.random.fold_in(jax.random.PRNGKey(s), p), tag))(SEEDS32,
+                                                             POSITIONS)
+
+
+def _torch_keys(tag):
+    keys = prng.PRNGKey(torch.from_numpy(SEEDS32))
+    return prng.fold_in(prng.fold_in(keys, torch.from_numpy(POSITIONS)), tag)
+
+
+@pytest.mark.parametrize("seed", SEEDS + [-1, -2**31])
+@pytest.mark.parametrize("data", [0, 1, 17, 2**31 - 1, 2**32 - 1])
+def test_fold_in_matches_jax(seed, data):
+    _eq(prng.fold_in(prng.PRNGKey(seed), data),
+        jax.random.fold_in(jax.random.PRNGKey(seed), data))
+
+
+def test_batched_prng_key_over_int32_seeds_matches_jax():
+    """A tensor of int32 seeds, negative ones included (seed32 of a seed
+    >= 2^31), gives each seed's JAX key."""
+    got = prng.PRNGKey(torch.from_numpy(SEEDS32))
+    assert got.shape == (len(SEEDS32), 2)
+    _eq(got, jax.vmap(jax.random.PRNGKey)(SEEDS32))
+
+
+@pytest.mark.parametrize("tag", [0, 1])
+def test_position_keys_fold_position_then_tag(tag):
+    """The sampler's keys: fold_in of the position, then of the tag, in
+    that order, over a stack of keys; a position folded per key."""
+    _eq(_torch_keys(tag), _jax_keys(tag))
+    swapped = prng.fold_in(prng.fold_in(prng.PRNGKey(
+        torch.from_numpy(SEEDS32)), tag), torch.from_numpy(POSITIONS))
+    assert not torch.equal(swapped, _torch_keys(tag))
+
+
+@pytest.mark.parametrize("width,dtype", [(8, jnp.uint8), (16, jnp.uint16)])
+def test_narrow_random_bits_match_jax(width, dtype):
+    for seed in SEEDS:
+        _eq(prng.random_bits(prng.PRNGKey(seed), width, (3, 50)),
+            np.asarray(jax.random.bits(jax.random.PRNGKey(seed), (3, 50),
+                                       dtype)).astype(np.int64))
+
+
+DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
+          (torch.float16, jnp.float16)]
+
+
+def _bits(x):
+    """The bit patterns of a float tensor / array, as int64."""
+    if isinstance(x, torch.Tensor):
+        itype = torch.int32 if x.element_size() == 4 else torch.int16
+        return x.view(itype).numpy().astype(np.int64)
+    x = np.asarray(x)
+    return x.view(np.int32 if x.itemsize == 4 else np.int16).astype(np.int64)
+
+
+@pytest.mark.parametrize("tdt,jdt", DTYPES)
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (0.1, 3.0), (-2.0, 0.5)])
+def test_uniform_bits_match_jax(tdt, jdt, lo, hi):
+    """uniform's bits, per key of a stack and for one key over a grid,
+    for float32, bf16 (8 random bits) and float16."""
+    got = prng.uniform(_torch_keys(1), (300,), tdt, lo, hi)
+    want = jax.vmap(lambda k: jax.random.uniform(k, (300,), jdt, lo, hi))(
+        _jax_keys(1))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    got = prng.uniform(prng.PRNGKey(9), (4, 33), tdt, lo, hi)
+    want = jax.random.uniform(jax.random.PRNGKey(9), (4, 33), jdt, lo, hi)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert float(got.min()) >= lo and float(got.max()) < hi
+
+
+def test_scalar_uniform_per_key_matches_jax():
+    """The accept uniforms of verify_tokens: one float32 per key."""
+    np.testing.assert_array_equal(
+        _bits(prng.uniform(_torch_keys(1))),
+        _bits(jax.vmap(jax.random.uniform)(_jax_keys(1))))
+
+
+@pytest.mark.parametrize("tdt,jdt", DTYPES)
+def test_gumbel_matches_jax(tdt, jdt):
+    """gumbel is -log(-log(u)) of uniform(tiny, 1), whose bits equal JAX's
+    (checked below). torch's log and XLA's may differ in the last place,
+    and near 0 the outer log magnifies that: float32 values within one
+    eps of max(|JAX's|, 1), float16 (on no model's path) within 8, the
+    share of bit-equal values printed. bf16 is bit-equal."""
+    got = prng.gumbel(_torch_keys(0), (2000,), tdt)
+    want = jax.vmap(lambda k: jax.random.gumbel(k, (2000,), jdt))(
+        _jax_keys(0))
+    g, w = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    err = np.abs(g - w) / (torch.finfo(tdt).eps * np.maximum(np.abs(w), 1))
+    print(f"gumbel {tdt}: {np.mean(g == w):.4f} of values bit-equal, "
+          f"max {err.max():.2f} eps")
+    assert err.max() <= {torch.float32: 1, torch.float16: 8,
+                         torch.bfloat16: 0}[tdt]
+    u = prng.uniform(_torch_keys(0), (2000,), tdt, torch.finfo(tdt).tiny)
+    np.testing.assert_array_equal(
+        _bits(u), _bits(jax.vmap(lambda k: jax.random.uniform(
+            k, (2000,), jdt, float(jnp.finfo(jdt).tiny)))(_jax_keys(0))))
+
+
+# categorical: tokens equal wherever JAX's draw leads its runner-up by more
+# than this (the noise may differ from JAX's in the last ulp)
+UNIT_MARGIN = 1e-5
+
+
+def _top2_gap(x):
+    top = np.sort(np.asarray(x, np.float32), axis=-1)
+    return top[..., -1] - top[..., -2]
+
+
+@pytest.mark.parametrize("V", [8, 256, 5000])
+def test_categorical_matches_jax_under_the_margin(V):
+    """Per-key rows (the engine's draws) and one key over a batch (the
+    JAX generate()'s): the argmax of logits + gumbel equal to JAX's
+    wherever JAX's top-2 gap of that sum exceeds UNIT_MARGIN."""
+    logits = np.random.default_rng(V).standard_normal(
+        (len(SEEDS32), V)).astype(np.float32) * 2
+    got = prng.categorical(_torch_keys(0), torch.from_numpy(logits))
+    want = jax.vmap(jax.random.categorical)(_jax_keys(0), logits)
+    noisy = logits + np.asarray(jax.vmap(
+        lambda k: jax.random.gumbel(k, (V,)))(_jax_keys(0)))
+    clear = _top2_gap(noisy) > UNIT_MARGIN
+    print(f"categorical V={V}: {np.mean(~clear):.4f} of draws under the "
+          f"margin")
+    np.testing.assert_array_equal(got.numpy()[clear], np.asarray(want)[clear])
+    key = jax.random.PRNGKey(5)
+    got = prng.categorical(prng.PRNGKey(5), torch.from_numpy(logits))
+    want = jax.random.categorical(key, logits)
+    noisy = logits + np.asarray(jax.random.gumbel(key, logits.shape))
+    clear = _top2_gap(noisy) > UNIT_MARGIN
+    np.testing.assert_array_equal(got.numpy()[clear], np.asarray(want)[clear])
