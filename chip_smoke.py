@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. build   the six CUDA kernels from src/repro_torch/kernels/csrc/
+  1. build   the seven CUDA kernels from src/repro_torch/kernels/csrc/
              (one nvcc per source, all started together); cuobjdump -sass
              must find HGMMA (wgmma) in every bf16 / f16 instantiation of
              the tensor-core flash and paged_prefill kernels;
@@ -46,7 +46,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              K/V; each row alone bit-equal to its batch row), and
              paged_prefill over engine-quantized int8 / fp8 pools at the
              4 x 128 admission and a verify of 8 x 5, timed against the
-             bytes of 1-byte pools plus their f32 scales;
+             bytes of 1-byte pools plus their f32 scales; the flash
+             backward (dq, dk, dv) at smollm's 2 x 9/3 x 512 x 64 in bf16
+             and float32, at 1 x 10/1 x 2304, hd 256, window 2048 and at
+             hd 16 / 80 / 128 (causal, not, window 48), two launches
+             bit-equal, timed beside SDPA's forward + backward;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
@@ -68,13 +72,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              tiny-vocab marginal of verify_tokens (total variation < 0.03,
              accept rate within 0.02 of q(d)), position keys and accept
              uniforms on the card bit-equal to the CPU's;
+     train_small  the reduced float32 smollm's training: three MBProx and
+             three AdamW steps on the card against the same steps on the
+             CPU, then tests/test_system.py's loss-drop run (60 MBProx
+             steps through the train CLI's train()) on the card;
      serve_cli_default  `python -m repro_torch.launch.serve` with its
              defaults (the engine on the reduced smollm) exits 0 on the card;
   4. forward full-width smollm-135m lm.forward on 2 x 256 tokens: finite
              logits, the flash kernel launched;
   5. engine  full-width smollm-135m (30 layers, d_model 576, seeded random
-             weights) through ServingEngine: synthetic, shared-prefix
-             (prefix cache hits) and repetitive (speculate=4) streams;
+             weights) through ServingEngine: synthetic (16 prompts of
+             16-96 tokens), shared-prefix (a 64-token prefix, prefix cache
+             hits) and repetitive (speculate=4) streams, 16 new tokens;
              every completion checked against generate() under the margin
              rule; the paged kernels launched; then a sampled stream
              (temperature 0.8, top-k 50, top-p 0.95, speculate 4;
@@ -94,6 +103,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bit-equal to its host copy, promotion widths on the bucket
              grid, tokens equal to the device-only run's up to a
              divergence inside the bf16 margin rule;
+     train   full-width smollm-135m training: float32 card vs CPU (two
+             MBProx and two AdamW steps at 2 x 64), the config's bf16
+             activations over float32 masters at 16 x 512 (20 MBProx and
+             10 AdamW outer steps: tokens/s, ms a step, peak memory, one
+             profiled outer step; the first 5 losses against a float32
+             card run), and the train CLI's checkpoint / resume on the card
+             (the resumed losses against an uninterrupted run, the card's
+             checkpoint restored on the CPU bit for bit);
   6. core    the paper core on paper-lsq (d = 64, m = 8 machines, b = 128,
              T = 8): MP-DSVRG, MP-DANE (exact) and minibatch-prox (exact)
              on the card against the same runs on the CPU over the same
@@ -106,7 +123,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              solvers and the baselines, each on the card and (in worker
              processes) on the CPU over the same data: MP-DANE with SAGA
              and prox-SVRG at the quickstart's widths (the plan's K, R,
-             kappa), Figure 3's arm (d = 32, m = 4, b = 64 / 256 / 1024,
+             kappa; the first 2 of its 8 outer steps), Figure 3's arm (d = 32, m = 4, b = 64 / 256 / 1024,
              SAGA, K = 1 / 4) and App. E's (logistic, b = 512, prox-SVRG,
              K = 4) beside minibatch SGD, and the five baselines at the
              JAX tests' sizes; iterates within 1e-5, equal ledgers and
@@ -125,7 +142,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              tokens and one of 2300 (admitted in 2048-token chunks while
              the others decode; decoding past the 2048 window), 16 new
              tokens each: float32 (every completion under the float32
-             margin rule against float32 generate()), float32 at
+             margin rule against float32 greedy decode from lm.prefill's
+             cache, which phase 7 holds to generate()), float32 at
              speculate=4 with partial scripted drafts, and bf16 (tokens/s,
              TTFT, TPOT, finite logprobs, every block returned), launches
              counted per dispatch; then the naive serve CLI once;
@@ -143,9 +161,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              the JAX package's own gaps, measured by
              benchmarks/torch_rwkv6_bf16_reference.py);
      serve_cli_rwkv6  the naive serve CLI for rwkv6-3b at full width;
-  9. timings kernel / twin / library device time (torch.profiler; where
-             no profiler window holds every call's kernels, CUDA events
-             around calls queued behind a spin kernel) and
+  9. timings kernel device time (torch.profiler; where no profiler
+             window holds every call's kernels, CUDA events around calls
+             queued behind a spin kernel), twin and library device time
+             (those events first, one profiler window where they cannot
+             be taken) and
              wall time on phase 2's inputs, then one profiled window of
              engine decode steps, one profiled MP-DSVRG outer step at
              d = 2^20, one profiled MP-DANE SAGA round at the quickstart's
@@ -153,8 +173,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              through generate()'s lm.decode_step and through the engine
              (4 lanes; device busy vs wall, top kernels); the smollm
              engine's decode step is profiled greedy and sampled.
-Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8
-and the engine phases (their forwards, generate() and engine runs) and
+Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8,
+train_small, train and the engine phases (their forwards, generate() and engine runs) and
 read just after, so the launches reported are the main paths' own; the
 paged kernels also count their launches over int8 / fp8 pools. The last lines are the card's name and
 power limit, the kernels JSON line and {"ok": true, "device": {...}}.
@@ -205,6 +225,26 @@ MARGIN_BOUND_F32 = 1e-3
 # compute in float32 and round once
 SVRG_TOL_F32 = 1e-6
 SVRG_TOL_ULPS = 1
+# flash_attention_bwd against its twin: float32 dq / dk / dv within 2e-5
+# of the twin's max |grad| (both sum in float32, in other orders); bf16 by
+# the TOL_ULPS rule (both accumulate in float32 and round once); two
+# launches bit-equal (no atomics)
+BWD_TOL_F32 = 2e-5
+# the training phases, card against CPU. Reduced and full-width float32:
+# losses within TRAIN_LOSS_RTOL (relative) and MBProx params within
+# TRAIN_ATOL (its updates are linear in the gradients, whose card / CPU
+# difference is float32 summation noise). AdamW's first update is
+# g / (|g| + 1e-8), so an element whose gradient is near eps turns that
+# noise into a visible share of lr: its params are held to a relative L2
+# difference of TRAIN_ADAM_RL2 of the update and to at most 2 lr a step
+# (a sign flip), with the max printed. The bf16 run's first 5 MBProx
+# losses within TRAIN_BF16_ATOL of a float32 run on the same batches; a
+# resumed run's losses within RESUME_ATOL of an uninterrupted one's.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_ATOL = 1e-5
+TRAIN_ADAM_RL2 = 1e-3
+TRAIN_BF16_ATOL = 0.05
+RESUME_ATOL = 1e-6
 # the core phase's CUDA runs against the same runs on the CPU: float32
 # iterates within 1e-5 absolute, the tolerance tests/test_torch_core.py
 # states for the port against the JAX package
@@ -339,18 +379,31 @@ def _spaced_ms(fn, reps, wall_ms):
     return e0.elapsed_time(e1) / reps
 
 
-def _times(fn, reps=20):
+def _times(fn, reps=20, tries=2):
     """(device ms per call, wall ms per call, how the device time was
-    taken): the kernels' own time from torch.profiler, or where no
-    profiler window held every call's kernels from CUDA events behind a
-    spin kernel ("spaced"), else None; and the host-visible time of
-    back-to-back calls (CUDA events)."""
-    dev = _device_ms(fn, reps)
+    taken): the kernels' own time from torch.profiler (up to `tries`
+    windows), or where no profiler window held every call's kernels from
+    CUDA events behind a spin kernel ("spaced"), else None; and the
+    host-visible time of back-to-back calls (CUDA events)."""
+    dev = _device_ms(fn, reps, tries)
     wall = _time_ms(fn, reps)
     if dev is not None:
         return dev, wall, "profiler"
     dev = _spaced_ms(fn, reps, wall)
     return dev, wall, None if dev is None else "spaced"
+
+
+def _times_spaced_first(fn, reps=20):
+    """_times for a twin or a library call: their many small launches
+    rarely all land in one profiler window, and each window costs about a
+    second of host time, so CUDA events behind a spin kernel come first
+    and one profiler window only where those cannot be taken."""
+    wall = _time_ms(fn, reps)
+    dev = _spaced_ms(fn, reps, wall)
+    if dev is not None:
+        return dev, wall, "spaced"
+    dev = _device_ms(fn, reps, 1)
+    return dev, wall, None if dev is None else "profiler"
 
 
 def _bound_ms(nbytes, flops, kind="bf16"):
@@ -885,6 +938,102 @@ def phase_kernels(dev):
         _extra=[fl_arm, f128_arm, fl_unaligned],
         **worst(arms)))
 
+    # -- flash_attention_bwd: the gradient of every attention layer of
+    # lm.train_loss. smollm-135m's 2 x 9/3 x 512 x 64 in bf16 (the train
+    # phase's dtype) and float32, recurrentgemma-2b's hd 256, 10 over 1 KV
+    # head, window 2048 at 1 x 2304, and hd 16 / 80 / 128; o from the
+    # forward twin. SDPA's forward + backward under autograd is the
+    # library yardstick (k / v expanded to every query head first, so it
+    # takes its fastest backend; it then does a little less work than the
+    # kernel's per-group dK / dV sums)
+    from repro_torch.kernels import flash_attention_bwd
+    arms = []
+
+    def bwd_inputs(B, H_, KV_, S_, hd_, dt):
+        return (rn(B, H_, S_, hd_, dt=dt), rn(B, KV_, S_, hd_, dt=dt),
+                rn(B, KV_, S_, hd_, dt=dt), rn(B, H_, S_, hd_, dt=dt))
+
+    def bwd_arm(name, qkvd, causal=True, window=0):
+        q_, k_, v_, do_ = qkvd
+        o_ = ref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                     window=window)
+        a_ = (q_, k_, v_, o_, do_)
+        got = flash_attention_bwd(*a_, causal=causal, window=window)
+        again = flash_attention_bwd(*a_, causal=causal, window=window)
+        want = ref.flash_attention_bwd_ref(*a_, causal=causal,
+                                           window=window)
+        for n_, g_, r_, w_ in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(g_, r_):
+                raise AssertionError(f"flash_attention_bwd {name} {n_}: two "
+                                     f"launches differ")
+            arm(arms, f"flash_attention_bwd {name} {n_}", g_, w_)
+            if q_.dtype == torch.float32:
+                err = (g_ - w_).abs().max().item()
+                lim = BWD_TOL_F32 * w_.abs().max().item()
+                print(f"[kernels] flash_attention_bwd {name} {n_}: float32 "
+                      f"max_abs_err {err:.3g} (tolerance {lim:.3g}, "
+                      f"{BWD_TOL_F32} of max |twin|) "
+                      f"{'ok' if err <= lim else 'FAIL'}")
+                if err > lim:
+                    raise AssertionError(f"flash_attention_bwd {name} {n_}:"
+                                         f" float32 error {err} > {lim}")
+        print(f"[kernels] flash_attention_bwd {name}: two launches bit-equal "
+              f"ok")
+        return a_
+
+    def bwd_timed(label, a_, causal=True, window=0, mask=None):
+        q_, k_, v_, o_, do_ = a_
+        B_, H_, S_, hd_ = q_.shape
+        g_ = H_ // k_.shape[1]
+        ke, ve = (t.repeat_interleave(g_, dim=1) for t in (k_, v_))
+        pairs = sum(min(i + 1, window) if window else i + 1
+                    for i in range(S_)) if causal else S_ * S_
+        b_ = _bound_ms(4 * _nbytes(q_) + 4 * _nbytes(k_),
+                       10 * hd_ * B_ * H_ * pairs,
+                       "bf16" if q_.dtype != torch.float32 else "f32")
+
+        def sdpa():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q_, ke, ve))
+            F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask,
+                is_causal=mask is None and causal).backward(do_)
+
+        return dict(label=label,
+                    _fns=(lambda: flash_attention_bwd(*a_, causal=causal,
+                                                      window=window),
+                          lambda: ref.flash_attention_bwd_ref(
+                              *a_, causal=causal, window=window), sdpa),
+                    bound_ms=b_[0], bound_by=b_[1])
+
+    S = 512
+    bwd_main = bwd_arm("2x9/3x512 hd64 causal bf16",
+                       bwd_inputs(2, H, KV, S, hd, bf))
+    bwd_f32 = bwd_arm("2x9/3x512 hd64 causal float32",
+                      bwd_inputs(2, H, KV, S, hd, torch.float32))
+    bwd_rg = bwd_arm(f"1x10/1x{Sr} hd256 window={Wr} bf16",
+                     bwd_inputs(1, 10, 1, Sr, 256, bf), window=Wr)
+    bwd_extra = [bwd_timed("2 x 9/3 x 512, hd 64, causal, float32", bwd_f32),
+                 dict(bwd_timed(f"1 x 10/1 x {Sr}, hd 256, window {Wr}, bf16",
+                                bwd_rg, window=Wr, mask=mask), _reps=5)]
+    # the other head dims: checked, not timed (the timings phase's length)
+    for hd_, (h_, kv_) in ((16, (4, 2)), (80, (8, 8)), (128, (16, 4))):
+        for causal, w in ((True, 0), (False, 0), (True, 48)):
+            bwd_arm(f"2x{h_}/{kv_}x200 hd{hd_} causal={causal} window={w} "
+                    f"bf16", bwd_inputs(2, h_, kv_, 200, hd_, bf), causal, w)
+    main_t = bwd_timed("", bwd_main)
+    out.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:71",
+        _fns=main_t["_fns"], bound_ms=main_t["bound_ms"],
+        bound_by=main_t["bound_by"],
+        shape=dict(B=2, H=H, KV=KV, S=S, hd=hd, dtype="bfloat16",
+                   causal=True),
+        _extra=bwd_extra,
+        **worst(arms, f"float32 {BWD_TOL_F32} of max |twin| (and "
+                      f"{TOL_ULPS} bf16 ulps); bf16 {TOL_ULPS} bf16 ulps; "
+                      f"two launches bit-equal")))
+
     # -- svrg_update: n = 64 (the core phase's paper-lsq width), n = 2^20
     # (parameter-sized vectors), an odd tail, and views one element into
     # their buffers (not 16-byte aligned: the scalar path), float32 and bf16
@@ -1200,7 +1349,8 @@ def phase_timings(kern):
             if fn is None:
                 r[key], r[wall_key] = None, None
                 continue
-            dev_ms, r[wall_key], how = _times(fn, reps)
+            dev_ms, r[wall_key], how = (_times(fn, reps) if key == "ms"
+                                        else _times_spaced_first(fn, reps))
             if how == "spaced":
                 r.setdefault("spaced_timed", []).append(key)
             if dev_ms is None:
@@ -1216,8 +1366,8 @@ def phase_timings(kern):
                 + (f"; {r['blocks']} blocks" if "blocks" in r else "")
                 + (f", {r['kernel']} kernel" if "kernel" in r else "")
                 + (f"; device time from CUDA events behind a spin kernel "
-                   f"for {r['spaced_timed']} (no profiler window held every "
-                   f"call's kernels)" if r.get("spaced_timed") else "")
+                   f"for {r['spaced_timed']}" if r.get("spaced_timed")
+                   else "")
                 + (f"; CUDA-event time of back-to-back calls for "
                    f"{r['event_timed']} (no device time could be taken)"
                    if r.get("event_timed") else ""))
@@ -1445,6 +1595,278 @@ def _small_engine_card_vs_cpu(params, cuda_params, cfg, dev, tag):
     return rec
 
 
+# ----------------------------------------------------------------------------
+# training: lm.train_loss through the flash kernels and their backward,
+# MBProx and the AdamW baseline, checkpoint and resume
+# ----------------------------------------------------------------------------
+
+def _train_batches(cfg, n, batch, seq, n_micro, seed=0):
+    """n batches of the train CLI's stream (TokenStream under
+    fold_in(PRNGKey(seed + 1), step)), on the CPU."""
+    from repro_torch import prng
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.train import make_batch
+    stream = TokenStream(cfg.vocab_size, seq, seed=seed)
+    return [make_batch(cfg, stream, prng.fold_in(prng.PRNGKey(seed + 1), i),
+                       batch, n_micro) for i in range(n)]
+
+
+def _train_run(cfg, params, dev, optimizer, batches, lrs, timed=False):
+    """Steps of the MBProx (default config) or AdamW baseline step from
+    `params` on `batches`: (losses, final params, wall seconds per step
+    when timed)."""
+    from repro_torch.device import to_device
+    from repro_torch.launch import steps as steps_lib
+    p = to_device(params, dev)
+    if optimizer == "mbprox":
+        step, opt, _ = steps_lib.make_mbprox_train_step(cfg)
+    else:
+        step, opt = steps_lib.make_baseline_train_step(cfg)
+    s, losses, secs = opt.init(p), [], []
+    for b, lr in zip(batches, lrs):
+        t0 = time.perf_counter()
+        p, s, m = step(p, s, to_device(b, dev), lr)
+        losses.append(float(m["loss"]))          # waits for the step
+        secs.append(time.perf_counter() - t0)
+    return (losses, p, secs) if timed else (losses, p)
+
+
+def _tree_diff(a, b, start):
+    """(max |a - b|, ||a - b|| / ||a - start||) over the leaves, on the
+    CPU."""
+    from repro_torch.tree import tree_leaves
+    mx, d2, u2 = 0.0, 0.0, 0.0
+    for x, y, z in zip(tree_leaves(a), tree_leaves(b), tree_leaves(start)):
+        x, y, z = x.float().cpu(), y.float().cpu(), z.float().cpu()
+        mx = max(mx, (x - y).abs().max().item())
+        d2 += float(((x - y) ** 2).sum())
+        u2 += float(((x - z) ** 2).sum())
+    return mx, math.sqrt(d2) / max(math.sqrt(u2), 1e-30)
+
+
+def _card_vs_cpu(tag, cfg, params, dev, batches, runs):
+    """Each (optimizer, lr) run on the card and on the CPU from the same
+    params and batches, held to the TRAIN_* gates; returns the record."""
+    rec = {}
+    for optimizer, lr in runs:
+        lrs = [lr] * len(batches)
+        gl, gp = _train_run(cfg, params, dev, optimizer, batches, lrs)
+        cl, cp = _train_run(cfg, params, "cpu", optimizer, batches, lrs)
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        mx, rl2 = _tree_diff(gp, cp, params)
+        if optimizer == "mbprox":
+            ok = mx <= TRAIN_ATOL
+            gate = f"max |dp| <= {TRAIN_ATOL}"
+        else:
+            ok = rl2 <= TRAIN_ADAM_RL2 and mx <= 2 * lr * len(batches)
+            gate = (f"relative L2 <= {TRAIN_ADAM_RL2}, max <= "
+                    f"{2 * lr * len(batches):.3g}")
+        ok = ok and lerr <= TRAIN_LOSS_RTOL
+        print(f"[{tag}] {optimizer} lr {lr} x {len(batches)} steps, card vs "
+              f"CPU: losses {gl} vs {cl} (max rel {lerr:.3g}, tolerance "
+              f"{TRAIN_LOSS_RTOL}); params max |dp| {mx:.3g}, relative L2 "
+              f"{rl2:.3g} ({gate}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: {optimizer} on the card differs "
+                                 f"from the CPU")
+        rec[optimizer] = {"lr": lr, "card_losses": gl, "cpu_losses": cl,
+                          "loss_max_rel": lerr, "param_max_abs": mx,
+                          "param_rel_l2": rl2}
+    return rec
+
+
+def phase_train_small(dev):
+    """Reduced float32 smollm (hd 16): three MBProx and three AdamW steps on
+    the card against the same steps on the CPU (the kernels' twins), then
+    tests/test_system.py's loss-drop run through the train CLI's train()
+    on the card (60 MBProx steps, lr 5e-2, batch 8 x 32)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    cfg = get_config("smollm-135m").reduced()
+    params = lm.init_params(0, cfg, device="cpu")
+    kernels.reset_launch_counts()
+    rec = _card_vs_cpu("train_small", cfg, params, dev,
+                       _train_batches(cfg, 3, 8, 32, 2),
+                       (("mbprox", 5e-2), ("baseline", 3e-3)))
+    t0 = time.perf_counter()
+    _, losses = train("smollm-135m", 60, optimizer="mbprox", lr=5e-2,
+                      batch_size=8, seq_len=32, log_every=1000, device=dev)
+    secs = time.perf_counter() - t0
+    ok = min(losses) < losses[0] - 0.2
+    print(f"[train_small] train() 60 MBProx steps on the card in {secs:.1f}"
+          f" s: loss {losses[0]:.4f} -> min {min(losses):.4f} (must drop "
+          f"by > 0.2) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train_small: the loss did not drop")
+    rec["loss_drop"] = {"first": losses[0], "min": min(losses),
+                        "last": losses[-1], "seconds": secs}
+    rec["launches"] = kernels.launch_counts()
+    if not all(rec["launches"][k] for k in ("flash_attention",
+                                            "flash_attention_bwd")):
+        raise AssertionError(f"train_small: flash forward / backward not "
+                             f"launched: {rec['launches']}")
+    return rec
+
+
+def _profile_step(step_fn, tag):
+    """One profiled outer step: wall, device-busy ms, idle share, kernel
+    launches, and the flash forward / backward wrappers' launches."""
+    from repro_torch import kernels
+
+    def window():
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    kern, wall = _profiled(window)
+    after = kernels.launch_counts()
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall,
+           "launches": sum(e.count for e in kern),
+           "flash_fwd": after["flash_attention"] - before["flash_attention"],
+           "flash_bwd": (after["flash_attention_bwd"]
+                         - before["flash_attention_bwd"]),
+           "top": [(e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in top]}
+    print(f"[{tag}] profiled outer step: wall {wall:.2f} ms, device-busy "
+          f"{busy:.3f} ms, idle {100 * out['idle_share']:.1f}%, "
+          f"{out['launches']} kernel launches, flash forward "
+          f"{out['flash_fwd']} / backward {out['flash_bwd']} calls")
+    for k, n, ms in out["top"]:
+        print(f"[{tag}]   {ms:9.3f} ms  x{n:5d}  {k[:90]}")
+    return out
+
+
+def phase_train(dev):
+    """Full-width smollm-135m: (a) float32, card against CPU (2 x 64,
+    n_micro 2, two MBProx and two AdamW steps); (b) the config's bf16
+    activations over float32 masters at 16 x 512, n_micro 2: 20 MBProx and
+    10 AdamW outer steps (tokens/s, ms per step, peak memory, one profiled
+    step), the first 5 MBProx losses against a float32 card run on the
+    same batches; (c) the train CLI's checkpoint and resume: 4 steps with
+    a checkpoint, resumed to 6, against 6 uninterrupted; the card's
+    checkpoint restored on the CPU bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("smollm-135m")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kernels.reset_launch_counts()
+    rec = {}
+    # (a)
+    params = lm.init_params(0, cfg32, device="cpu")
+    rec["float32_card_vs_cpu"] = _card_vs_cpu(
+        "train", cfg32, params, dev, _train_batches(cfg32, 2, 2, 64, 2),
+        (("mbprox", 3e-3), ("baseline", 3e-3)))
+    del params
+    _train_bf16_and_resume(cfg, cfg32, dev, rec)
+    rec["launches"] = kernels.launch_counts()
+    if not all(rec["launches"][k] for k in ("flash_attention",
+                                            "flash_attention_bwd")):
+        raise AssertionError(f"train: flash forward / backward not "
+                             f"launched: {rec['launches']}")
+    return rec
+
+
+def _train_bf16_and_resume(cfg, cfg32, dev, rec):
+    """Phase train's (b) and (c), into `rec`."""
+    import shutil
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.device import to_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import Schedule
+    from repro_torch.tree import tree_leaves
+    # (b)
+    master = lm.init_params(0, cfg, device=dev)
+    batches = _train_batches(cfg, 21, 16, 512, 2)
+    sched = Schedule(peak=3e-3, warmup=5, total=20)
+    lrs = [sched(i) for i in range(20)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, p, secs = _train_run(cfg, master, dev, "mbprox", batches[:20],
+                                 lrs, timed=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = 16 * 512
+    step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+    l32, _ = _train_run(cfg32, master, dev, "mbprox", batches[:5], lrs[:5])
+    gap = max(abs(a - b) for a, b in zip(losses[:5], l32))
+    adam, _, asecs = _train_run(cfg, master, dev, "baseline", batches[:10],
+                                lrs[:10], timed=True)
+    finite = all(math.isfinite(x) for x in losses + adam + l32)
+    ok = finite and gap <= TRAIN_BF16_ATOL
+    adam_ms = 1e3 * sorted(asecs[1:])[len(asecs[1:]) // 2]
+    print(f"[train] bf16 MBProx 16 x 512, n_micro 2: losses "
+          f"{[round(x, 4) for x in losses]}; median {step_ms:.1f} ms an "
+          f"outer step (first {1e3 * secs[0]:.1f}), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB "
+          f"allocated")
+    print(f"[train] first 5 losses bf16 vs float32 on the card: {l32} "
+          f"(max gap {gap:.4g}, tolerance {TRAIN_BF16_ATOL}); AdamW 10 steps"
+          f" {[round(x, 4) for x in adam]} median {adam_ms:.1f} ms "
+          f"({tokens / adam_ms * 1e3:.0f} tokens/s); all finite {finite} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train: bf16 losses not finite or too far "
+                             "from float32")
+    step, opt, _ = steps_lib.make_mbprox_train_step(cfg)
+    state = {"p": p, "s": opt.init(p)}
+
+    def one_step():
+        state["p"], state["s"], _ = step(state["p"], state["s"],
+                                         to_device(batches[20], dev), lrs[-1])
+
+    prof = _profile_step(one_step, "train")
+    rec["bf16"] = {"batch": [16, 512], "n_micro": 2, "mbprox_losses": losses,
+                   "mbprox_step_ms": step_ms, "first_step_ms": 1e3 * secs[0],
+                   "tokens_per_s": tokens / step_ms * 1e3,
+                   "peak_allocated_gib": peak, "float32_losses": l32,
+                   "bf16_vs_float32_gap": gap, "adamw_losses": adam,
+                   "adamw_step_ms": adam_ms, "profile": prof}
+    del master, p, state
+    torch.cuda.empty_cache()
+    # (c)
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(reduced=False, log_every=1000, device=dev)
+    t0 = time.perf_counter()
+    _, first = train("smollm-135m", 4, ckpt_dir=str(d), **kw)
+    resumed_p, resumed = train("smollm-135m", 6, ckpt_dir=str(d),
+                               resume=True, **kw)
+    ckpt_s = time.perf_counter() - t0
+    _, whole = train("smollm-135m", 6, **kw)
+    rerr = max(abs(a - b) for a, b in zip(resumed, whole[4:]))
+    bit = resumed == whole[4:]
+    cpu_params = to_device(resumed_p, "cpu")
+    like = {"params": cpu_params,
+            "opt": steps_lib.make_mbprox_train_step(cfg)[1].init(cpu_params)}
+    restored, at = ckpt_lib.restore(str(d), like)
+    same = at == 5 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(restored["params"]),
+                                          tree_leaves(cpu_params)))
+    ok = len(resumed) == 2 and rerr <= RESUME_ATOL and same
+    print(f"[train] train() 4 steps + checkpoint, resumed to 6 ({ckpt_s:.1f}"
+          f" s with two saves and a restore): losses {resumed} vs "
+          f"uninterrupted {whole[4:]} (max {rerr:.3g}, tolerance "
+          f"{RESUME_ATOL}; bit-equal {bit}); the card's checkpoint of step "
+          f"{at} restored on the CPU equals the card's params bit for bit "
+          f"{same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train: resume or the CPU restore failed")
+    shutil.rmtree(d, ignore_errors=True)
+    rec["resume"] = {"losses": resumed, "uninterrupted": whole[4:],
+                     "max_abs": rerr, "bit_equal": bit, "seconds": ckpt_s,
+                     "cpu_restore_bit_equal": same}
+
+
 def phase_serve_cli_default():
     """`python -m repro_torch.launch.serve` with its defaults (the engine
     on the reduced smollm, head_dim 16) in a process of its own, on the
@@ -1470,19 +1892,26 @@ def phase_serve_cli_default():
     return {"seconds": secs, "stats": stats}
 
 
-def _greedy_from_prefill(params, cfg, prompts, gen_len):
+def _greedy_from_prefill(params, cfg, prompts, gen_len,
+                         return_margins=False):
     """Greedy decode from lm.prefill's cache (the whole prompt in one
-    pass, then decode_step from the state it leaves)."""
+    pass, then decode_step from the state it leaves). With return_margins
+    also the top-1 minus top-2 logit gap of the step that chose each
+    token, as generate() gives them."""
     from repro_torch.models import lm
     P = prompts.shape[1]
     logits, cache = lm.prefill(params, cfg, {"tokens": prompts})
     state = lm.decode_state_from_prefill(cfg, cache, P + gen_len + 1)
     logits = logits[:, -1]
-    out = []
+    out, margins = [], []
     for i in range(gen_len):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(tok)
         logits, state = lm.decode_step(params, cfg, state, tok, P + i)
+    if return_margins:
+        return torch.stack(out, dim=1), torch.stack(margins, dim=1)
     return torch.stack(out, dim=1)
 
 
@@ -1748,18 +2177,22 @@ def _full_width_stream(vocab, logprobs=0):
             for i, n in enumerate((32, 96, 160, 2300, 32, 96, 160))]
 
 
-def _generate_refs(params, cfg, reqs, dev):
-    """{rid: (generate()'s tokens, its top-1/top-2 gaps)}, the prompts of
-    one length in one batch."""
+def _prefill_refs(params, cfg, reqs, dev):
+    """{rid: (the reference's tokens, its top-1/top-2 gaps)}: greedy
+    decode from lm.prefill's dense cache (_greedy_from_prefill, held to
+    generate() under the float32 margin rule in _full_width), the prompts
+    of one length in one batch. generate() primes its cache a token at a
+    time, which for the 2300-token prompt took over a minute a model."""
     import numpy as np
-    from repro_torch.launch.serve import generate
     groups = {}
     for r in reqs:
         groups.setdefault((len(r.prompt), r.max_new_tokens), []).append(r)
     out = {}
     for (_, n), rs in groups.items():
-        toks, margins = generate(params, cfg, np.stack([r.prompt for r in rs]),
-                                 n, device=dev, return_margins=True)
+        prompts = torch.as_tensor(np.stack([r.prompt for r in rs]),
+                                  device=dev)
+        toks, margins = _greedy_from_prefill(params, cfg, prompts, n,
+                                             return_margins=True)
         for i, r in enumerate(rs):
             out[r.rid] = (toks[i].cpu().numpy(),
                           margins[i].float().cpu().numpy())
@@ -1770,8 +2203,9 @@ def phase_engine_recurrent(master, params, cfg, dev, tag):
     """A full-width recurrent model (phase 7's or 8's weights) through
     ServingEngine with 4 slots, block 16, max_seq_len 2560, on
     _full_width_stream: in float32 (every completion under the float32
-    margin rule against float32 generate()), in float32 at speculate=4
-    with partial scripted drafts (scripts from generate()'s tokens), and
+    margin rule against float32 greedy decode from lm.prefill's cache,
+    _prefill_refs), in float32 at speculate=4 with partial scripted drafts
+    (scripts from the reference's tokens), and
     in bf16 (tokens/s, TTFT, TPOT; every request completes with finite
     logprobs and every block returns). Launch counters are zeroed before
     each run and read after it: per dispatch, each attention layer
@@ -1808,7 +2242,8 @@ def phase_engine_recurrent(master, params, cfg, dev, tag):
             "verify_dispatches", 0)
         want = {"paged_prefill": n_attn * (prefills + verifies),
                 "paged_attention": n_attn * (eng.steps - verifies),
-                "flash_attention": 0, "svrg_update": 0,
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "svrg_update": 0,
                 "rglru_scan": n_rec * (prefills + eng.steps),
                 "rwkv6_scan": n_rwkv * (prefills + eng.steps)}
         stats.update(launches=counts, decode_or_verify_steps=eng.steps,
@@ -1855,15 +2290,16 @@ def phase_engine_recurrent(master, params, cfg, dev, tag):
     del eng
     t0 = time.perf_counter()
     with torch.inference_mode():
-        refs = _generate_refs(master, cfg32, reqs, dev)
+        refs = _prefill_refs(master, cfg32, reqs, dev)
     gen_s = time.perf_counter() - t0
     rule = _margin_rule(done, refs, MARGIN_BOUND_F32, f"{tag} float32")
-    print(f"[{tag}] float32 engine vs float32 generate() ({gen_s:.1f} s): "
+    print(f"[{tag}] float32 engine vs float32 prefill + decode "
+          f"({gen_s:.1f} s): "
           f"{rule['exact']}/{rule['requests']} exact; divergences within "
           f"the bound {MARGIN_BOUND_F32}: "
           f"{[(d['rid'], d['at'], d['margin']) for d in rule['diverged_within_bound']]}")
-    rec["float32"] = {"stats": stats, "vs_generate": rule,
-                      "generate_seconds": gen_s}
+    rec["float32"] = {"stats": stats, "vs_prefill_decode": rule,
+                      "reference_seconds": gen_s}
 
     eng = ServingEngine(master, cfg32, speculate=4, **kw)
     eng.scheduler._proposers = [ScriptedProposer(
@@ -1875,14 +2311,14 @@ def phase_engine_recurrent(master, params, cfg, dev, tag):
     rule = _margin_rule(done, refs, MARGIN_BOUND_F32,
                         f"{tag} float32 speculate=4")
     spec = stats.get("speculation") or {}
-    print(f"[{tag}] float32 speculate=4 vs float32 generate(): "
+    print(f"[{tag}] float32 speculate=4 vs float32 prefill + decode: "
           f"{rule['exact']}/{rule['requests']} exact; proposed "
           f"{sched.proposed_tokens}, accepted {sched.accepted_tokens}")
     if not spec.get("verify_dispatches") or not (
             0 < sched.accepted_tokens < sched.proposed_tokens):
         raise AssertionError(f"{tag}: the partial drafts were not verified "
                              f"and partly accepted ({spec})")
-    rec["float32_speculate4"] = {"stats": stats, "vs_generate": rule,
+    rec["float32_speculate4"] = {"stats": stats, "vs_prefill_decode": rule,
                                  "proposed": sched.proposed_tokens,
                                  "accepted": sched.accepted_tokens}
     torch.cuda.empty_cache()
@@ -1998,16 +2434,20 @@ def phase_engine(params, cfg, dev):
     V = cfg.vocab_size
     kw = dict(num_slots=8, block_size=16, max_seq_len=512,
               prefix_cache=True, device=dev)
+    # generate(), the streams' reference, primes its cache a token at a
+    # time, so the prompts and new tokens are cut to a third of the
+    # tokens they had (32-256 / 160 + 8-64 / 48-96 prompts, 32 new) to
+    # keep the script inside its clock
     streams = [
         ("synthetic", {}, synthetic_requests(
-            16, vocab_size=V, prompt_len=(32, 256), max_new=(32, 32),
+            16, vocab_size=V, prompt_len=(16, 96), max_new=(16, 16),
             seed=0)),
         ("shared_prefix", {}, shared_prefix_requests(
-            8, vocab_size=V, prefix_len=160, suffix_len=(8, 64),
-            max_new=(32, 32), seed=1)),
+            8, vocab_size=V, prefix_len=64, suffix_len=(8, 32),
+            max_new=(16, 16), seed=1)),
         ("repetitive_speculate4", {"speculate": 4}, repetitive_requests(
-            4, vocab_size=V, period=6, prompt_len=(48, 96),
-            max_new=(32, 32), seed=2)),
+            4, vocab_size=V, period=6, prompt_len=(24, 48),
+            max_new=(16, 16), seed=2)),
     ]
     engines = {0: ServingEngine(params, cfg, **kw),
                4: ServingEngine(params, cfg, speculate=4, **kw)}
@@ -2031,8 +2471,8 @@ def phase_engine(params, cfg, dev):
         prefills = stats["prefill"]["dispatches"]
         want = {"paged_prefill": cfg.n_layers * (prefills + verifies),
                 "paged_attention": cfg.n_layers * (eng.steps - verifies),
-                "flash_attention": 0, "svrg_update": 0, "rglru_scan": 0,
-                "rwkv6_scan": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0}
         results.append((name, reqs, done, stats))
         print(f"[engine] {name}: {stats['requests']} requests, "
               f"{stats['generated_tokens']} tokens, "
@@ -2070,8 +2510,8 @@ def phase_engine(params, cfg, dev):
     swant = {"paged_prefill": cfg.n_layers * (sstats["prefill"]["dispatches"]
                                               + sverifies),
              "paged_attention": cfg.n_layers * (eng.steps - sverifies),
-             "flash_attention": 0, "svrg_update": 0, "rglru_scan": 0,
-             "rwkv6_scan": 0}
+             "flash_attention": 0, "flash_attention_bwd": 0,
+             "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0}
     sstats.update(launches=scounts, decode_or_verify_steps=eng.steps,
                   sampled_dispatches=eng.runner.sampled_dispatches)
     print(f"[engine] sampled_speculate4 (temperature 0.8, top-k 50, top-p "
@@ -2257,9 +2697,11 @@ def _core_arms(dev, stream, spec, draws):
     paper's own drivers use, each with its data drawn on the card first
     (the same batches then replay to its CPU run):
       - quickstart (examples/quickstart.py: paper-lsq, m = 8, b = 128,
-        T = 8, its `draws`): MP-DANE saga (the quickstart's eta_scale 0.1)
-        and prox_svrg (0.05, tests/test_core_distributed.py's), the plan's
-        K, R and kappa; each within Thm 7's inexact rate bound;
+        the first 2 of its T = 8 `draws`, a cut of depth that keeps the
+        script inside its clock): MP-DANE saga (the quickstart's eta_scale
+        0.1) and prox_svrg (0.05, tests/test_core_distributed.py's), the
+        plan's K, R and kappa; each within Thm 7's inexact rate bound at
+        T = 2;
       - Figure 3 (benchmarks/fig3_convergence.py: d = 32, m = 4,
         n_local = 1024, b = 64 / 256 / 1024, T = 1024 / b): MP-DANE saga,
         K = 1 and 4, R = 1, kappa = 0, eta_scale 0.1 (each within Thm 7's
@@ -2294,6 +2736,7 @@ def _core_arms(dev, stream, spec, draws):
                                         radius=1.0)
         return theory.ProblemSpec(L=L, beta=beta, B=1.0, dim=stream.dim)
 
+    draws = draws[:2]
     m, b, T = draws[0][0].shape[0], draws[0][0].shape[1], len(draws)
     thm7 = theory.rate_bound_weakly_convex(spec, m * b, T, exact=False)
     for solver, eta in (("saga", 0.1), ("prox_svrg", 0.05)):
@@ -3161,7 +3604,7 @@ def phase_engine_tiered(params, cfg, dev):
 
 
 
-def profile_decode(eng, vocab, n_steps=10, sampling=None):
+def profile_decode(eng, vocab, n_steps=4, sampling=None):
     """Where one decode step's time goes: every lane decoding (prompts of
     128, all admitted first), n_steps engine steps under torch.profiler;
     with `sampling`, every lane sampled with it. Returns wall ms per step,
@@ -3263,6 +3706,7 @@ def main(argv=None):
                                  "small_rwkv")
     record["small_sampled"] = phase("small_sampled", phase_small_sampled,
                                     dev)
+    record["train_small"] = phase("train_small", phase_train_small, dev)
     record["serve_cli_default"] = phase("serve_cli_default",
                                         phase_serve_cli_default)
     cfg = get_config("smollm-135m")
@@ -3274,6 +3718,7 @@ def main(argv=None):
         "engine_quant", phase_engine_quant, params, cfg, dev)
     record["engine_tiered"], tiered_launches = phase(
         "engine_tiered", phase_engine_tiered, params, cfg, dev)
+    record["train"] = phase("train", phase_train, dev)
     record["core"], profile_core = phase("core", phase_core, dev)
     record["recurrentgemma"], rg_master, rg_params = phase(
         "recurrentgemma", phase_recurrentgemma, dev)
@@ -3304,7 +3749,7 @@ def main(argv=None):
                                      engine, cfg.vocab_size)
     from repro_torch.serving.sampling import SamplingParams
     record["sampled_decode_profile"] = phase(
-        "sampled_decode_profile", profile_decode, engine, cfg.vocab_size, 10,
+        "sampled_decode_profile", profile_decode, engine, cfg.vocab_size, 4,
         SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5))
     record["core_profile"] = phase("core_profile", profile_core)
     rw_cfg = get_config("rwkv6-3b")
@@ -3328,9 +3773,13 @@ def main(argv=None):
                       max_seq_len=2560, device=dev), rg_cfg.vocab_size)
     del rg_params
     rg, rw = record["recurrentgemma"], record["rwkv6"]
+    tr = (record["train_small"]["launches"], record["train"]["launches"])
     launches = {"flash_attention":
                 record["forward"]["launches"]["flash_attention"]
-                + rg["forward"]["launches"]["flash_attention"],
+                + rg["forward"]["launches"]["flash_attention"]
+                + sum(t["flash_attention"] for t in tr),
+                "flash_attention_bwd":
+                sum(t["flash_attention_bwd"] for t in tr),
                 "paged_attention":
                 record["engine"]["launches"]["paged_attention"]
                 + quant_launches["paged_attention"]

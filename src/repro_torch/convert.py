@@ -8,7 +8,12 @@ and the decode / paged states share the {"prefix", "blocks"} layout.
 `from_jax` turns such a tree, with numpy leaves (`jax.device_get`), into
 the port's: the same dicts and lists, with every `blocks["p{i}"]` unstacked
 into a list of n_super per-layer trees. This is how the parity tests share
-weights between the two packages; nothing is downloaded. It handles every
+weights between the two packages; nothing is downloaded. `to_jax` is the
+inverse (port trees back to the JAX layout with numpy leaves), and
+`stack_blocks` / `unstack_blocks` turn any tree that holds the port's
+params layout (a params tree, or an optimizer state of such trees) into
+the JAX layout and back with tensor leaves: the checkpoint format, which
+the two packages share, stores the JAX layout. It handles every
 architecture's tree (recurrent, MoE, frontends) even where the port's
 models do not run it yet.
 """
@@ -67,3 +72,62 @@ def param_count(tree) -> int:
 
     _map(tree, add)
     return total
+
+
+def _is_blocks(key, sub) -> bool:
+    """A "blocks" entry of the port's layout: {"p{i}": [layer, ...]}."""
+    return (key == "blocks" and isinstance(sub, dict)
+            and all(isinstance(v, list) for v in sub.values()))
+
+
+def stack_blocks(tree):
+    """The JAX layout of a port tree with tensor leaves: every "blocks"
+    entry, at any depth, gets its lists of n_super layers stacked into a
+    leading axis (torch.stack). Other nodes are copied as they are."""
+    if isinstance(tree, dict):
+        return {k: ({pk: _stack(pv) for pk, pv in v.items()}
+                    if _is_blocks(k, v) else stack_blocks(v))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [stack_blocks(v) for v in tree]
+    return tree
+
+
+def _stack(layers):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def unstack_blocks(tree, like):
+    """The inverse of stack_blocks: `tree` in the JAX layout (tensor leaves)
+    back into the layout of the port tree `like`."""
+    if isinstance(like, dict):
+        return {k: ({pk: _unstack(tree[k][pk], len(pv))
+                     for pk, pv in v.items()}
+                    if _is_blocks(k, v) else unstack_blocks(tree[k], v))
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [unstack_blocks(t, v) for t, v in zip(tree, like)]
+    return tree
+
+
+def _numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes      # JAX's bfloat16 numpy type (only where JAX is)
+        return t.float().numpy().astype(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def to_jax(tree, cfg):
+    """A port params or state tree in the JAX layout with numpy leaves:
+    every `blocks["p{i}"]` list of cfg.n_super layers re-stacked into a
+    leading axis. bf16 leaves become `ml_dtypes.bfloat16` arrays (JAX's
+    numpy bfloat16), imported only for them."""
+    for v in tree.get("blocks", {}).values():
+        if len(v) != cfg.n_super:
+            raise ValueError(f"to_jax: {len(v)} layers in a blocks entry, "
+                             f"the config has n_super = {cfg.n_super}")
+    return _map(stack_blocks(tree), _numpy)

@@ -1,18 +1,19 @@
 """Seeded synthetic data streams.
 
-The port of `repro/data/synthetic.py` (`LeastSquaresStream`; the token
-stream waits for the training slice). The paper's setting is *stochastic*
+The port of `repro/data/synthetic.py` (`LeastSquaresStream`,
+`TokenStream`). The paper's setting is *stochastic*
 optimization: examples arrive from an unknown distribution D one at a time
 ("a button generating examples"). The stream is modelled by seeded
 generators so that (a) any machine can draw its own minibatch
 independently, (b) restarts regenerate identical streams, and (c) no
 dataset ever needs to be stored (the paper's memory model).
 
-Examples are drawn from an explicit `torch.Generator` and land on its
-device. The two packages' generators differ (and so do torch's CPU and
+Least-squares examples are drawn from an explicit `torch.Generator` and
+land on its device. The two packages' generators differ (and so do torch's CPU and
 CUDA ones), so the same seed gives other numbers than the JAX stream; the
 feature scales (`_spectrum`) are equal to the bit, and `w_star` is one
-vector on every device.
+vector on every device. `TokenStream` draws from the port's threefry keys
+(`prng.py`) instead, and gives JAX's batches bit for bit.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 # elements per chunk of a population estimate (64 MiB of float32 rows), so
 # a large `dim` never allocates n_eval x dim at once
@@ -106,3 +109,32 @@ class LeastSquaresStream:
         var = self._spectrum(dev).double() ** 2 / self.dim
         diff = w.double() - self.w_star(dev).double()
         return 0.5 * torch.sum(var * diff * diff)
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """Deterministic synthetic token stream for LM training/serving tests.
+
+    Produces (tokens, targets) with a learnable structure: targets are a fixed
+    permutation-shift of tokens so tiny models can overfit it, which the smoke
+    and integration tests use to check that training reduces loss.
+    """
+
+    vocab_size: int
+    seq_len: int
+    seed: int = 0
+
+    def batch(self, key, batch_size: int):
+        """(inputs, targets), each (batch_size, seq_len) int64 on the key's
+        device, equal to the JAX stream's under the same key: the tokens
+        are `jax.random.randint`'s, the mix `jax.random.bernoulli(
+        fold_in(key, 1), 0.5)`, which is uniform(...) < 0.5."""
+        toks = prng.randint(key, (batch_size, self.seq_len + 1), 0,
+                            self.vocab_size)
+        # next-token structure: x_{t+1} = (x_t * 31 + 7) % V on half of
+        # the positions
+        det = (toks[:, :-1] * 31 + 7) % self.vocab_size
+        mix = prng.uniform(prng.fold_in(key, 1), tuple(det.shape)) < 0.5
+        inputs = toks[:, :-1]
+        targets = torch.where(mix, det, toks[:, 1:])
+        return inputs, targets

@@ -3,6 +3,7 @@
   paged_attention    csrc/paged_attention.cu   decode, every step and layer
   paged_prefill      csrc/paged_prefill.cu     admission, chunks, verify
   flash_attention    csrc/flash_attention.cu   dense lm.forward / prefill
+  flash_attention_bwd  csrc/flash_attention_bwd.cu  its gradient (training)
   svrg_update        csrc/svrg_update.cu       every step of MP-DSVRG's pass
   rglru_scan         csrc/rglru_scan.cu        every RG-LRU layer, T = S or 1
   rwkv6_scan         csrc/rwkv6_scan.cu        every RWKV6 layer, T = S or 1
@@ -10,7 +11,8 @@
 Each wrapper takes its plain twin (`ref.py`) for a CPU tensor and launches
 its kernel (built by `build.py` at first use) for a CUDA tensor.
 """
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -20,6 +22,7 @@ from repro_torch.kernels.svrg_update import svrg_update
 WRAPPERS = {"paged_attention": paged_attention,
             "paged_prefill": paged_prefill_attention,
             "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "svrg_update": svrg_update,
             "rglru_scan": rglru_scan,
             "rwkv6_scan": rwkv6_scan}

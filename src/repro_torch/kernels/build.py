@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 KERNELS = ("paged_attention", "paged_prefill", "flash_attention",
-           "svrg_update", "rglru_scan", "rwkv6_scan")
+           "flash_attention_bwd", "svrg_update", "rglru_scan", "rwkv6_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -63,6 +63,7 @@ SIGNATURES = {
     "paged_prefill_wgmma": [_P] * 9 + [_I] * 10 + [_F, _P],
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
     "flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [_F, _P],
+    "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
     "rglru_scan": [_P] * 5 + [_I] * 5 + [_P],
     "rwkv6_scan": [_P] * 9 + [_I] * 5 + [_P],
@@ -168,6 +169,21 @@ def ptr(t) -> int | None:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record this launch: grad mode is on and an
+    input requires grad. A kernel launched through raw pointers into a
+    fresh buffer returns an output with no grad_fn, so the gradient to
+    its inputs would be cut without a word. Every CUDA wrapper calls this
+    before it launches, except flash_attention, whose autograd Function
+    launches the backward kernel. None entries are skipped; with grad
+    mode off (no_grad, inference_mode) it checks nothing."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            f"torch.no_grad() or on inputs that do not require grad")
 
 
 def check_launch(name: str, err: int) -> None:

@@ -1,14 +1,23 @@
-"""Blocked GQA flash attention (forward): CUDA kernel wrapper.
+"""Blocked GQA flash attention, forward and backward: CUDA kernel wrappers.
 
-The port of `repro/kernels/flash_attention.py` (a Pallas TPU kernel). The
-kernels are in `csrc/flash_attention.cu`; `ref.flash_attention_ref` is
-their plain twin. A CPU tensor takes the twin; a CUDA tensor launches a
-kernel or raises. The dtype picks the kernel: bf16 / f16 run the
-tensor-core (wgmma) kernel, float32 the CUDA-core one, since TF32 tensor
-cores would keep too few bits for float32's 2e-5. Neither stands in for
-the other. The tensor-core kernel reads q, k and v with TMA, so a bf16 /
-f16 view off a 16-byte boundary is first copied into a fresh buffer
-(`build.tma_ready`). `flash_attention.launches` counts kernel launches.
+The port of `repro/kernels/flash_attention.py` (a Pallas TPU kernel,
+forward only). The forward kernels are in `csrc/flash_attention.cu`, the
+backward in `csrc/flash_attention_bwd.cu`; `ref.flash_attention_ref` and
+`ref.flash_attention_bwd_ref` are their plain twins. A CPU tensor takes
+the twin; a CUDA tensor launches a kernel or raises. The dtype picks the
+forward kernel: bf16 / f16 run the tensor-core (wgmma) kernel, float32 the
+CUDA-core one, since TF32 tensor cores would keep too few bits for
+float32's 2e-5. Neither stands in for the other. The tensor-core kernel
+reads q, k and v with TMA, so a bf16 / f16 view off a 16-byte boundary is
+first copied into a fresh buffer (`build.tma_ready`).
+
+Under autograd (grad mode on and an input that requires grad)
+`flash_attention` is a `torch.autograd.Function`: its forward is the
+plain call, which saves q, k, v and the output, and its backward is
+`flash_attention_bwd` (the backward kernel on CUDA, its twin on the CPU).
+Otherwise the call is the plain forward and records nothing.
+`flash_attention.launches` counts forward launches,
+`flash_attention_bwd.launches` backward calls (two kernels each).
 """
 from __future__ import annotations
 
@@ -18,29 +27,36 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd), one float dtype; KV head
-    h // (H / KV). window > 0: key u is visible to query i only when
-    u > i - window (local attention). Returns (B, H, Sq, hd)."""
+def _check(name, q, k, v, *more):
+    """The CUDA kernels' shape / dtype / layout contract: q (and `more`:
+    o, dO) (B, H, Sq, hd), k / v (B, KV, Sk, hd), one float dtype, one
+    device, contiguous, H a multiple of KV, hd in HEAD_DIMS."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    for t in (k, v) + more:
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: an input on {t.device} {t.dtype}, q "
+                             f"on {q.device} {q.dtype}")
+    if not all(t.is_contiguous() for t in (q, k, v) + more):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if q.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype}")
+    if (k.shape != (B, KV, Sk, hd) or v.shape != k.shape or H % KV
+            or hd not in HEAD_DIMS
+            or any(t.shape != q.shape for t in more)):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; the CUDA kernel takes "
+                         f"head_dim in {HEAD_DIMS}")
+
+
+def _forward(q, k, v, causal: bool, window: int):
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check("flash_attention", q, k, v)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    for t in (k, v):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"flash_attention: k/v on {t.device} {t.dtype},"
-                             f" q on {q.device} {q.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: inputs must be contiguous")
-    if q.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype}")
-    if (k.shape != (B, KV, Sk, hd) or v.shape != k.shape or H % KV
-            or hd not in HEAD_DIMS):
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}; "
-                         f"the CUDA kernel takes head_dim in {HEAD_DIMS}")
     if q.dtype != torch.float32:
         # the tensor-core kernel reads q, k and v with TMA: a view off a
         # 16-byte boundary is copied first
@@ -58,4 +74,72 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd), one float dtype; KV head
+    h // (H / KV). window > 0: key u is visible to query i only when
+    u > i - window (local attention). Returns (B, H, Sq, hd). Carries a
+    gradient to q, k and v when grad mode is on and one of them requires
+    it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        window: int = 0):
+    """The gradient of flash_attention: q, o (its output) and do (the
+    output's gradient) (B, H, Sq, hd), k/v (B, KV, Sk, hd), one float
+    dtype, contiguous. Returns (dq (B, H, Sq, hd), dk, dv (B, KV, Sk,
+    hd)) in the inputs' dtype, accumulated in float32. On CUDA one call
+    launches the kernel's two passes (dq per query tile, then dk / dv per
+    key tile over the group's query heads); neither uses atomics, so the
+    bits do not change from call to call."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                           window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _check("flash_attention_bwd", q, k, v, o, do)
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if Sq == 0 or Sk == 0 or B == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # each query row's log-sum-exp and rowsum(dO * O), written by the
+    # first pass and read by the second
+    scratch = torch.empty(2, B, H, Sq, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = build.load("flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(),
+            build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd, int(causal),
+            max(int(window), 0), hd ** -0.5, build.stream())
+    build.check_launch("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -99,6 +99,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, *,
                                        window=window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    build.refuse_grad("paged_attention", q, k_pool, v_pool, k_scale, v_scale)
     _check(q, k_pool, v_pool, block_tables, ctx_lens, k_scale, v_scale)
     # the kernel copies pool rows with TMA: a pool view off a 16-byte
     # boundary is copied whole first

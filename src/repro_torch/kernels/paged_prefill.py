@@ -91,6 +91,8 @@ def paged_prefill_attention(q, k_suf, v_suf, k_pool, v_pool, block_tables,
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device "
                          f"{q.device}")
+    build.refuse_grad("paged_prefill_attention", q, k_suf, v_suf, k_pool,
+                      v_pool, k_scale, v_scale)
     _check(q, k_suf, v_suf, k_pool, v_pool, block_tables, starts, lengths,
            k_scale, v_scale)
     N, Ls, H, hd = q.shape

@@ -113,6 +113,48 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+                            window: int = 0, chunk: int = 256):
+    """The gradient of flash_attention_ref, by the explicit flash-backward
+    formulas, one chunk of `chunk` query rows at a time in float32: P
+    recomputed from the scores and each row's log-sum-exp, D = rowsum(dO *
+    O), dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K * scale, dK = dS^T Q
+    * scale, dK and dV summed over each KV head's group of query heads.
+    q, o, do: (B, H, Sq, hd); k/v: (B, KV, Sk, hd); o is the forward's
+    output. Returns (dq, dk, dv) in the inputs' dtype."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G, scale = H // KV, hd ** -0.5
+    kf = k.float()[:, :, None]                      # (B, KV, 1, Sk, hd)
+    vf = v.float()[:, :, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    dq = torch.empty(B, H, Sq, hd, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, KV, Sk, hd, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for c0 in range(0, Sq, chunk):
+        rows = slice(c0, min(c0 + chunk, Sq))
+        qf, of, dof = (t[:, :, rows].float().reshape(B, KV, G, -1, hd)
+                       for t in (q, o, do))
+        qpos = torch.arange(rows.start, rows.stop, device=q.device)[:, None]
+        valid = (kpos <= qpos) if causal else torch.ones(
+            qpos.shape[0], Sk, dtype=torch.bool, device=q.device)
+        if window > 0:
+            valid = valid & (kpos > qpos - window)
+        s = torch.einsum("bkgqh,bkgsh->bkgqs", qf, kf) * scale
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m = s.amax(-1, keepdim=True)
+        lse = m + torch.log(torch.where(valid, torch.exp(s - m),
+                                        torch.zeros_like(s)).sum(-1, True))
+        p = torch.where(valid, torch.exp(s - lse), torch.zeros_like(s))
+        d = (dof * of).sum(-1, keepdim=True)
+        ds = p * (torch.einsum("bkgqh,bkgsh->bkgqs", dof, vf) - d)
+        dq[:, :, rows] = (torch.einsum("bkgqs,bkgsh->bkgqh", ds, kf)
+                          * scale).reshape(B, H, -1, hd)
+        dk += torch.einsum("bkgqs,bkgqh->bksh", ds, qf) * scale
+        dv += torch.einsum("bkgqs,bkgqh->bksh", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ----------------------------------------------------------------------------
 # Emulations of the attention kernels' orders of work, for the tests only:
 # they fix on the CPU what the kernels' designs do to the numbers (how the

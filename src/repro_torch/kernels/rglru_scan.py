@@ -65,6 +65,7 @@ def rglru_scan(a, x, h0=None):
         return ref.rglru_scan_ref(a, x, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    build.refuse_grad("rglru_scan", a, x, h0)
     if a.dim() != 3 or x.shape != a.shape:
         raise ValueError(f"rglru_scan: a {tuple(a.shape)}, x "
                          f"{tuple(x.shape)}; both must be (B, T, C)")

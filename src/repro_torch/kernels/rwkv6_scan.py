@@ -66,6 +66,7 @@ def rwkv6_scan(r, k, v, w, u, s0=None, return_states=False):
         return ref.rwkv6_scan_ref(r, k, v, w, u, s0, return_states)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
+    build.refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(f"rwkv6_scan: r {tuple(r.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, w "

@@ -25,6 +25,7 @@ def svrg_update(x, g_x, g_z, mu, w_anchor, eta: float, gamma: float):
         return ref.svrg_update_ref(x, g_x, g_z, mu, w_anchor, eta, gamma)
     if x.device.type != "cuda":
         raise ValueError(f"svrg_update: unsupported device {x.device}")
+    build.refuse_grad("svrg_update", x, g_x, g_z, mu, w_anchor)
     ts = (x, g_x, g_z, mu, w_anchor)
     for t in ts:
         if t.device != x.device:

@@ -1,1 +1,2 @@
-"""Entry-point scripts of the PyTorch port (the serve CLI)."""
+"""Entry-point scripts of the PyTorch port (the serve and train CLIs) and
+the step builders they share (`steps.py`)."""

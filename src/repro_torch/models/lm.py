@@ -12,8 +12,8 @@ and the decode / paged states follow the same tree. The JAX package's
 `lax.scan` over superblocks is a loop over layers here (`_layers`).
 
 Entry points match the JAX module: init_params, cast_params, forward,
-prefill, init_decode_state, decode_step, prefill_paged, decode_step_paged,
-decode_verify_paged and commit_decode_state. Attention layers ("attn",
+train_loss, prefill, init_decode_state, decode_step, prefill_paged,
+decode_step_paged, decode_verify_paged and commit_decode_state. Attention layers ("attn",
 "attn_local"), RG-LRU layers ("rec", recurrentgemma) and RWKV6 layers
 ("rwkv", rwkv6) are ported, on every path. In the paged state (the serving
 engine's) attention layers hold block pools and recurrent layers
@@ -33,11 +33,13 @@ from __future__ import annotations
 from typing import Iterator, List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, recurrent
-from repro_torch.models.layers import init_embed, init_mlp, mlp, rms_norm
+from repro_torch.models.layers import (init_embed, init_mlp, mlp, rms_norm,
+                                       softmax_xent)
 
 ATTN_KINDS = ("attn", "attn_local")
 RECURRENT_KINDS = ("rec", "rwkv")
@@ -215,27 +217,51 @@ def _write_state(st, new, active=None):
 # Sequence forward (train / prefill)
 # ----------------------------------------------------------------------------
 
+def _seq_layer(kind: str, p, h, cfg: ModelConfig, positions,
+               collect_kv: bool = False, lengths=None):
+    """One layer over a full sequence: (h, its state when collect_kv)."""
+    if kind in RECURRENT_KINDS:
+        return _recurrent_layer(kind, p, h, cfg, lengths=lengths)
+    o = attention.attention_block(
+        p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), positions, cfg,
+        window=_window(cfg, kind), return_kv=collect_kv)
+    kv = None
+    if collect_kv:
+        o, (k, v) = o
+        kv = {"k": k, "v": v}
+    return _mlp_residual(p, h + o, cfg), kv
+
+
 def _run_blocks_seq(params, cfg: ModelConfig, h, positions,
-                    collect_kv: bool = False, lengths=None):
+                    collect_kv: bool = False, lengths=None,
+                    remat: bool = False):
     """All layers over a full sequence. Returns (h, per-layer states when
     collect_kv else None): {"k", "v"} for attention layers, {"rec": {"h",
     "conv"}} for RG-LRU layers, {"tmix": {"shift", "S"}, "cmix"} for RWKV6
     layers. `lengths` freezes recurrent layers past each row's true length
-    (attention needs no mask: trailing pads are causally invisible)."""
+    (attention needs no mask: trailing pads are causally invisible).
+    remat=True recomputes each superblock in the backward pass
+    (torch.utils.checkpoint, non-reentrant), as the JAX path wraps each in
+    jax.checkpoint; prefix layers run as they are, as there."""
+    if remat:
+        for kind, p in zip(cfg.prefix_pattern, params["prefix"]):
+            h, _ = _seq_layer(kind, p, h, cfg, positions)
+
+        def superblock(h, s):
+            for pi, kind in enumerate(cfg.block_pattern):
+                h, _ = _seq_layer(kind, params["blocks"][f"p{pi}"][s], h,
+                                  cfg, positions)
+            return h
+
+        for s in range(cfg.n_super):
+            h = torch.utils.checkpoint.checkpoint(superblock, h, s,
+                                                  use_reentrant=False)
+        return h, None
     kvs: List = []
     for kind, p in _layers(params, cfg):
-        if kind in RECURRENT_KINDS:
-            h, st = _recurrent_layer(kind, p, h, cfg, lengths=lengths)
-            if collect_kv:
-                kvs.append(st)
-            continue
-        o = attention.attention_block(
-            p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), positions, cfg,
-            window=_window(cfg, kind), return_kv=collect_kv)
+        h, st = _seq_layer(kind, p, h, cfg, positions, collect_kv, lengths)
         if collect_kv:
-            o, kv = o
-            kvs.append({"k": kv[0], "v": kv[1]})
-        h = _mlp_residual(p, h + o, cfg)
+            kvs.append(st)
     return h, (kvs if collect_kv else None)
 
 
@@ -243,18 +269,39 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def forward(params, cfg: ModelConfig, batch):
+def forward(params, cfg: ModelConfig, batch, remat: bool = False):
     """Full-sequence logits. batch: {"tokens": (B, S) int}. Returns
     (logits (B, S, V), aux) — aux carries the JAX path's (zero) MoE
-    losses."""
+    losses. remat: recompute each superblock in the backward pass."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     h = _embed(params, cfg, tokens)
     h, _ = _run_blocks_seq(params, cfg, h,
-                           _positions(*tokens.shape, tokens.device))
+                           _positions(*tokens.shape, tokens.device),
+                           remat=remat)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, h), {"moe_aux": 0.0, "moe_zloss": 0.0}
+
+
+def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
+    """Mean next-token cross-entropy of batch {"tokens", "targets"} (both
+    (B, S) int) plus the MoE terms, as the JAX train_loss. Returns (total,
+    {"xent", "moe_aux", "moe_zloss"}); the MoE terms are zeros, since the
+    dense attention archs are the ones that train here. Differentiable
+    through the flash kernel (its backward is a kernel too)."""
+    for kind in cfg.prefix_pattern + cfg.block_pattern:
+        if kind in RECURRENT_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: training {kind!r} layers needs backward "
+                f"kernels for the recurrent scans (ROADMAP queue 1, "
+                f"'Recurrent training')")
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    loss = softmax_xent(logits, batch["targets"]).mean()
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    aux = {k: zero + v for k, v in aux.items()}
+    total = loss + 0.01 * aux["moe_aux"] + 1e-4 * aux["moe_zloss"]
+    return total, {"xent": loss, **aux}
 
 
 def _to_tree(cfg: ModelConfig, per_layer: List):

@@ -17,7 +17,10 @@ ulps at every head dim and block size; paged decode's split is held bit
 for bit where the output must not move (a row alone or in any batch, a
 non-finite pool past ctx, ctx = 1 giving the token's V row), and each
 wrapper that reads with TMA gives the aligned call's bits on bf16 views
-off a 16-byte boundary."""
+off a 16-byte boundary. The flash backward kernel is held to
+ref.flash_attention_bwd_ref at every head dim: float32 within 2e-5 of
+max(1, max |twin|), bf16 / f16 within 2 bf16 ulps, two launches
+bit-equal; the wrappers without a backward raise under autograd."""
 import numpy as np
 import pytest
 
@@ -864,3 +867,100 @@ def test_rwkv6_scan_states_bit_equal(cuda, shape, dtype, with_s0):
         one = [x[:, :, t:t + 1].contiguous() for x in (r, k, v, w)]
         _, s = rwkv6_scan(*one, u, s)
         torch.testing.assert_close(steps[:, :, t], s, atol=0, rtol=0)
+
+
+# ----------------------------------------------------------------------------
+# flash_attention's backward kernel, and the other wrappers' refusal of
+# autograd
+# ----------------------------------------------------------------------------
+
+def _ulps(got, want):
+    """max |got - want| in bf16 ulps of max(|want|, 2^-8)."""
+    diff = (got.float() - want.float()).abs()
+    _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -8))
+    return float((diff / torch.ldexp(torch.ones_like(diff), e - 8)).max())
+
+
+@pytest.mark.parametrize("hd,heads", [(16, (4, 2)), (64, (9, 3)),
+                                      (80, (8, 8)), (128, (16, 4)),
+                                      (256, (10, 1))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("S,causal,window", [(1, True, 0), (40, True, 0),
+                                             (300, True, 0), (300, True, 96),
+                                             (77, False, 0), (77, False, 24)])
+def test_flash_backward_matches_twin(cuda, hd, heads, dtype, S, causal,
+                                     window):
+    """dq, dk, dv of the kernel against ref.flash_attention_bwd_ref on the
+    same inputs (o from the forward twin): float32 within 2e-5 of
+    max(1, max|twin|), bf16 / f16 within 2 bf16 ulps per element (both
+    accumulate in float32 and round once); two launches bit-equal."""
+    from repro_torch.kernels import flash_attention_bwd
+    rng = np.random.default_rng(hd + S)
+    H, KVh = heads
+    q = _rand(rng, 2, H, S, hd, dtype=dtype, dev=cuda)
+    k = _rand(rng, 2, KVh, S, hd, dtype=dtype, dev=cuda)
+    v = _rand(rng, 2, KVh, S, hd, dtype=dtype, dev=cuda)
+    do = _rand(rng, 2, H, S, hd, dtype=dtype, dev=cuda)
+    o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        assert torch.equal(g, a), f"d{name}: two launches differ"
+        if dtype == torch.float32:
+            bound = 2e-5 * max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) <= bound, name
+        else:
+            assert _ulps(g, w) <= 2, name
+
+
+def test_flash_autograd_launches_the_backward_kernel(cuda):
+    """Under autograd the card's flash_attention carries the gradient to q,
+    k and v through the backward kernel (the bits of a direct
+    flash_attention_bwd call); under no_grad it records nothing."""
+    from repro_torch.kernels import flash_attention_bwd
+    rng = np.random.default_rng(7)
+    q = _rand(rng, 2, H, 64, HD, dtype=torch.bfloat16, dev=cuda)
+    k = _rand(rng, 2, KV, 64, HD, dtype=torch.bfloat16, dev=cuda)
+    v = _rand(rng, 2, KV, 64, HD, dtype=torch.bfloat16, dev=cuda)
+    do = _rand(rng, 2, H, 64, HD, dtype=torch.bfloat16, dev=cuda)
+    with torch.no_grad():
+        plain = flash_attention(q, k, v)
+    assert plain.grad_fn is None
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    before = flash_attention_bwd.launches
+    o = flash_attention(qs, ks, vs)
+    assert o.grad_fn is not None and torch.equal(o, plain)
+    o.backward(do)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd(q, k, v, plain, do)
+    for g, w in zip((qs.grad, ks.grad, vs.grad), want):
+        assert torch.equal(g, w)
+
+
+def test_wrappers_refuse_grad_on_cuda(cuda):
+    """A kernel with no backward raises under autograd instead of cutting
+    the gradient; under no_grad the same call launches."""
+    rng = np.random.default_rng(1)
+    q = _rand(rng, 2, H, HD, dev=cuda).requires_grad_()
+    kp = _rand(rng, 5, BS, KV, HD, dev=cuda)
+    bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
+    ctx = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="paged_attention"):
+        paged_attention(q, kp, kp, bt, ctx)
+    with torch.no_grad():
+        assert paged_attention(q, kp, kp, bt, ctx).grad_fn is None
+    r = _rand(rng, 1, 2, 3, 16, dev=cuda).requires_grad_()
+    w = torch.rand(1, 2, 3, 16, device=cuda)
+    u = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="rwkv6_scan"):
+        rwkv6_scan(r, r, r, w, u)
+    with torch.inference_mode():
+        y, _ = rwkv6_scan(r, r, r, w, u)
+    assert y.grad_fn is None
