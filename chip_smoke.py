@@ -48,8 +48,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              4 x 128 admission and a verify of 8 x 5, timed against the
              bytes of 1-byte pools plus their f32 scales; the flash
              backward (dq, dk, dv) at smollm's 2 x 9/3 x 512 x 64 in bf16
-             and float32, at 1 x 10/1 x 2304, hd 256, window 2048 and at
-             hd 16 / 80 / 128 (causal, not, window 48), two launches
+             and float32, its train micro-batch 8 x 9/3 x 512 in bf16, at
+             1 x 10/1 x 2304, hd 256, window 2048 and at hd 16 / 80 / 128
+             (causal, not, window 48), bf16 on the forward kernel's o and
+             saved log-sum-exps as training runs it, two launches
              bit-equal, timed beside SDPA's forward + backward;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
@@ -103,10 +105,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bit-equal to its host copy, promotion widths on the bucket
              grid, tokens equal to the device-only run's up to a
              divergence inside the bf16 margin rule;
-     train   full-width smollm-135m training: float32 card vs CPU (two
-             MBProx and two AdamW steps at 2 x 64), the config's bf16
-             activations over float32 masters at 16 x 512 (20 MBProx and
-             10 AdamW outer steps: tokens/s, ms a step, peak memory, one
+     train   full-width smollm-135m training: float32 card vs CPU (one
+             MBProx and one AdamW step at 2 x 64), the config's bf16
+             activations over float32 masters at 16 x 512 (10 MBProx and
+             6 AdamW outer steps: tokens/s, ms a step, peak memory, one
              profiled outer step; the first 5 losses against a float32
              card run), and the train CLI's checkpoint / resume on the card
              (the resumed losses against an uninterrupted run, the card's
@@ -199,6 +201,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# what a run writes besides its checkpoints: the engine_quant workers' weights
+BUILD = ROOT / "build" / "chip_smoke"
 
 # H100 SXM peaks the bounds are stated against (NVIDIA data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -448,42 +452,48 @@ def phase_build():
                                   "flash_wgmma_kernel"),
             "paged_prefill_hgmma": _hgmma(build, paths["paged_prefill"],
                                           "paged_prefill_wgmma_kernel"),
+            "flash_bwd_hgmma": _hgmma(build, paths["flash_attention_bwd"],
+                                      "bwd_dq_wgmma_kernel",
+                                      "bwd_dkdv_wgmma_kernel"),
             "libraries": {n: str(p.relative_to(ROOT))
                           for n, p in paths.items()}}
 
 
-def _hgmma(build, lib, kernel):
-    """HGMMA (wgmma) instructions in each bf16 / f16 instantiation of the
-    tensor-core kernel `kernel` in library `lib`, from cuobjdump -sass
-    (beside nvcc); fails if cuobjdump is missing or an instantiation at
-    some head dim of build.HEAD_DIMS is missing or has none."""
+def _hgmma(build, lib, *kernels):
+    """HGMMA (wgmma) instructions in each bf16 / f16 instantiation of each
+    tensor-core kernel of `kernels` in library `lib`, from one cuobjdump
+    -sass (beside nvcc); fails if cuobjdump is missing or an instantiation
+    at some head dim of build.HEAD_DIMS is missing or has none."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
         raise AssertionError(f"cuobjdump not found beside nvcc ({cuobjdump})")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     names = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
-    counts, key = {}, None
+    counts = {k: {} for k in kernels}
+    key = None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
             key = None
-            if kernel in fn:
+            kernel = next((k for k in kernels if k in fn), None)
+            if kernel is not None:
                 dt = next((v for k, v in names.items() if k in fn), "?")
                 hd = re.findall(r"Li(\d+)E", fn)[0]
-                key = f"{dt}/hd{hd}"
-                counts[key] = 0
+                key = (kernel, f"{dt}/hd{hd}")
+                counts[kernel][key[1]] = 0
         elif key is not None and "HGMMA" in ln:
-            counts[key] += 1
+            counts[key[0]][key[1]] += 1
     want = {f"{dt}/hd{hd}" for dt in names.values()
             for hd in build.HEAD_DIMS}
-    print(f"[build] {kernel} SASS, HGMMA per instantiation: "
-          + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
-    if set(counts) != want or not all(counts.values()):
-        raise AssertionError(f"{kernel}: a bf16 / f16 instantiation is "
-                             f"missing or has no HGMMA: {counts}")
-    return counts
+    for kernel, c in counts.items():
+        print(f"[build] {kernel} SASS, HGMMA per instantiation: "
+              + ", ".join(f"{k} {v}" for k, v in sorted(c.items())))
+        if set(c) != want or not all(c.values()):
+            raise AssertionError(f"{kernel}: a bf16 / f16 instantiation is "
+                                 f"missing or has no HGMMA: {c}")
+    return counts if len(kernels) > 1 else counts[kernels[0]]
 
 
 def _check(name, got, want, tol_ulps=TOL_ULPS, f32_tol=None):
@@ -940,13 +950,16 @@ def phase_kernels(dev):
 
     # -- flash_attention_bwd: the gradient of every attention layer of
     # lm.train_loss. smollm-135m's 2 x 9/3 x 512 x 64 in bf16 (the train
-    # phase's dtype) and float32, recurrentgemma-2b's hd 256, 10 over 1 KV
-    # head, window 2048 at 1 x 2304, and hd 16 / 80 / 128; o from the
-    # forward twin. SDPA's forward + backward under autograd is the
-    # library yardstick (k / v expanded to every query head first, so it
-    # takes its fastest backend; it then does a little less work than the
-    # kernel's per-group dK / dV sums)
+    # phase's dtype) and float32, its train-phase micro-batch 8 x 9/3 x 512
+    # in bf16, recurrentgemma-2b's hd 256, 10 over 1 KV head, window 2048
+    # at 1 x 2304, and hd 16 / 80 / 128. bf16 / f16 run as training calls
+    # them: o and each row's lse from the forward kernel, the lse passed
+    # on (what autograd saves). SDPA's forward + backward under autograd
+    # is the library yardstick (k / v expanded to every query head first,
+    # so it takes its fastest backend; it then does a little less work
+    # than the kernel's per-group dK / dV sums)
     from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import _forward as flash_fwd
     arms = []
 
     def bwd_inputs(B, H_, KV_, S_, hd_, dt):
@@ -954,12 +967,15 @@ def phase_kernels(dev):
                 rn(B, KV_, S_, hd_, dt=dt), rn(B, H_, S_, hd_, dt=dt))
 
     def bwd_arm(name, qkvd, causal=True, window=0):
+        """(q, k, v, o, do) and the saved lse (None for float32)."""
         q_, k_, v_, do_ = qkvd
-        o_ = ref.flash_attention_ref(q_, k_, v_, causal=causal,
-                                     window=window)
+        lse = (None if q_.dtype == torch.float32 else
+               torch.empty(q_.shape[:3], dtype=torch.float32, device=dev))
+        o_ = flash_fwd(q_, k_, v_, causal, window, lse)
         a_ = (q_, k_, v_, o_, do_)
-        got = flash_attention_bwd(*a_, causal=causal, window=window)
-        again = flash_attention_bwd(*a_, causal=causal, window=window)
+        got = flash_attention_bwd(*a_, causal=causal, window=window, lse=lse)
+        again = flash_attention_bwd(*a_, causal=causal, window=window,
+                                    lse=lse)
         want = ref.flash_attention_bwd_ref(*a_, causal=causal,
                                            window=window)
         for n_, g_, r_, w_ in zip(("dq", "dk", "dv"), got, again, want):
@@ -979,9 +995,10 @@ def phase_kernels(dev):
                                          f" float32 error {err} > {lim}")
         print(f"[kernels] flash_attention_bwd {name}: two launches bit-equal "
               f"ok")
-        return a_
+        return a_, lse
 
-    def bwd_timed(label, a_, causal=True, window=0, mask=None):
+    def bwd_timed(label, a_lse, causal=True, window=0, mask=None):
+        a_, lse = a_lse
         q_, k_, v_, o_, do_ = a_
         B_, H_, S_, hd_ = q_.shape
         g_ = H_ // k_.shape[1]
@@ -1000,7 +1017,8 @@ def phase_kernels(dev):
 
         return dict(label=label,
                     _fns=(lambda: flash_attention_bwd(*a_, causal=causal,
-                                                      window=window),
+                                                      window=window,
+                                                      lse=lse),
                           lambda: ref.flash_attention_bwd_ref(
                               *a_, causal=causal, window=window), sdpa),
                     bound_ms=b_[0], bound_by=b_[1])
@@ -1010,6 +1028,7 @@ def phase_kernels(dev):
                        bwd_inputs(2, H, KV, S, hd, bf))
     bwd_f32 = bwd_arm("2x9/3x512 hd64 causal float32",
                       bwd_inputs(2, H, KV, S, hd, torch.float32))
+    bwd_arm("8x9/3x512 hd64 causal bf16", bwd_inputs(8, H, KV, S, hd, bf))
     bwd_rg = bwd_arm(f"1x10/1x{Sr} hd256 window={Wr} bf16",
                      bwd_inputs(1, 10, 1, Sr, 256, bf), window=Wr)
     bwd_extra = [bwd_timed("2 x 9/3 x 512, hd 64, causal, float32", bwd_f32),
@@ -1712,7 +1731,9 @@ def phase_train_small(dev):
 
 def _profile_step(step_fn, tag):
     """One profiled outer step: wall, device-busy ms, idle share, kernel
-    launches, and the flash forward / backward wrappers' launches."""
+    launches, the flash forward / backward wrappers' launches, and the
+    device ms of the flash kernels (flash_*_ms: the forward's, and the
+    backward's passes and group sum)."""
     from repro_torch import kernels
 
     def window():
@@ -1733,12 +1754,18 @@ def _profile_step(step_fn, tag):
            "flash_fwd": after["flash_attention"] - before["flash_attention"],
            "flash_bwd": (after["flash_attention_bwd"]
                          - before["flash_attention_bwd"]),
+           "flash_fwd_ms": sum(e.self_device_time_total for e in kern
+                               if "flash_wgmma_kernel" in e.key
+                               or "flash_attention_kernel" in e.key) / 1e3,
+           "flash_bwd_ms": sum(e.self_device_time_total for e in kern
+                               if "bwd_" in e.key) / 1e3,
            "top": [(e.key, e.count, e.self_device_time_total / 1e3)
                    for e in top]}
     print(f"[{tag}] profiled outer step: wall {wall:.2f} ms, device-busy "
           f"{busy:.3f} ms, idle {100 * out['idle_share']:.1f}%, "
           f"{out['launches']} kernel launches, flash forward "
-          f"{out['flash_fwd']} / backward {out['flash_bwd']} calls")
+          f"{out['flash_fwd']} / backward {out['flash_bwd']} calls, "
+          f"{out['flash_fwd_ms']:.3f} / {out['flash_bwd_ms']:.3f} ms")
     for k, n, ms in out["top"]:
         print(f"[{tag}]   {ms:9.3f} ms  x{n:5d}  {k[:90]}")
     return out
@@ -1746,24 +1773,25 @@ def _profile_step(step_fn, tag):
 
 def phase_train(dev):
     """Full-width smollm-135m: (a) float32, card against CPU (2 x 64,
-    n_micro 2, two MBProx and two AdamW steps); (b) the config's bf16
-    activations over float32 masters at 16 x 512, n_micro 2: 20 MBProx and
-    10 AdamW outer steps (tokens/s, ms per step, peak memory, one profiled
+    n_micro 2, one MBProx and one AdamW step); (b) the config's bf16
+    activations over float32 masters at 16 x 512, n_micro 2: 10 MBProx and
+    6 AdamW outer steps (tokens/s, ms per step, peak memory, one profiled
     step), the first 5 MBProx losses against a float32 card run on the
     same batches; (c) the train CLI's checkpoint and resume: 4 steps with
     a checkpoint, resumed to 6, against 6 uninterrupted; the card's
     checkpoint restored on the CPU bit for bit."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.device import to_device
     from repro_torch.models import lm
     cfg = get_config("smollm-135m")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     kernels.reset_launch_counts()
     rec = {}
-    # (a)
-    params = lm.init_params(0, cfg32, device="cpu")
+    # (a) the weights drawn on the card, a copy on the CPU
+    params = to_device(lm.init_params(0, cfg32, device=dev), "cpu")
     rec["float32_card_vs_cpu"] = _card_vs_cpu(
-        "train", cfg32, params, dev, _train_batches(cfg32, 2, 2, 64, 2),
+        "train", cfg32, params, dev, _train_batches(cfg32, 1, 2, 64, 2),
         (("mbprox", 3e-3), ("baseline", 3e-3)))
     del params
     _train_bf16_and_resume(cfg, cfg32, dev, rec)
@@ -1787,20 +1815,20 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
     from repro_torch.tree import tree_leaves
     # (b)
     master = lm.init_params(0, cfg, device=dev)
-    batches = _train_batches(cfg, 21, 16, 512, 2)
+    batches = _train_batches(cfg, 11, 16, 512, 2)
     sched = Schedule(peak=3e-3, warmup=5, total=20)
-    lrs = [sched(i) for i in range(20)]
+    lrs = [sched(i) for i in range(11)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, p, secs = _train_run(cfg, master, dev, "mbprox", batches[:20],
-                                 lrs, timed=True)
+    losses, p, secs = _train_run(cfg, master, dev, "mbprox", batches[:10],
+                                 lrs[:10], timed=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = 16 * 512
     step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
     l32, _ = _train_run(cfg32, master, dev, "mbprox", batches[:5], lrs[:5])
     gap = max(abs(a - b) for a, b in zip(losses[:5], l32))
-    adam, _, asecs = _train_run(cfg, master, dev, "baseline", batches[:10],
-                                lrs[:10], timed=True)
+    adam, _, asecs = _train_run(cfg, master, dev, "baseline", batches[:6],
+                                lrs[:6], timed=True)
     finite = all(math.isfinite(x) for x in losses + adam + l32)
     ok = finite and gap <= TRAIN_BF16_ATOL
     adam_ms = 1e3 * sorted(asecs[1:])[len(asecs[1:]) // 2]
@@ -1810,7 +1838,7 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
           f"{tokens / step_ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB "
           f"allocated")
     print(f"[train] first 5 losses bf16 vs float32 on the card: {l32} "
-          f"(max gap {gap:.4g}, tolerance {TRAIN_BF16_ATOL}); AdamW 10 steps"
+          f"(max gap {gap:.4g}, tolerance {TRAIN_BF16_ATOL}); AdamW 6 steps"
           f" {[round(x, 4) for x in adam]} median {adam_ms:.1f} ms "
           f"({tokens / adam_ms * 1e3:.0f} tokens/s); all finite {finite} "
           f"{'ok' if ok else 'FAIL'}")
@@ -1822,7 +1850,7 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
 
     def one_step():
         state["p"], state["s"], _ = step(state["p"], state["s"],
-                                         to_device(batches[20], dev), lrs[-1])
+                                         to_device(batches[10], dev), lrs[10])
 
     prof = _profile_step(one_step, "train")
     rec["bf16"] = {"batch": [16, 512], "n_micro": 2, "mbprox_losses": losses,
@@ -2122,7 +2150,9 @@ def phase_rwkv6(dev):
 def phase_rwkv6_4_layers(dev):
     """The bf16 gate, fixed before the port's numbers were seen: rwkv6-3b at
     full width cut to 4 layers, seeds 0, 1, 2 (weights lm.init_params(seed),
-    prompts 2 x 64 from numpy.random.default_rng(seed)), the first token's
+    which are JAX's init_params(PRNGKey(seed)) weights, the ones
+    JAX_BF16_4_LAYERS was measured on; prompts 2 x 64 from
+    numpy.random.default_rng(seed)), the first token's
     logits as the port runs. For every seed, bf16 prefill vs bf16 stepwise
     decode <= RWKV_BF16_GAP_BOUND and bf16 vs float32 (after prefill and
     after stepwise decode) <= RWKV_BF16_DRIFT_BOUND."""
@@ -3344,14 +3374,13 @@ def _quant_requests(vocab):
 QUANT_KW = dict(num_slots=4, block_size=16, max_seq_len=192)
 
 
-def _quant_cpu_engine(kv_dtype, cfg):
-    """engine_quant's float32 engine on the CPU, in a worker process: the
-    params of `cfg` drawn from seed 0 on the CPU, as the card's copy.
+def _quant_cpu_engine(kv_dtype, cfg, params_path):
+    """engine_quant's float32 engine on the CPU, in a worker process, on
+    the card's params (drawn there once, saved at `params_path`).
     {rid: (tokens, top-2 logprob gaps)}."""
-    from repro_torch.models import lm
     from repro_torch.serving.engine import ServingEngine
     torch.set_num_threads(2)
-    params = lm.init_params(0, cfg, device="cpu")
+    params = torch.load(params_path)
     eng = ServingEngine(params, cfg, kv_dtype=kv_dtype, device="cpu",
                         **QUANT_KW)
     done = eng.run(_quant_requests(cfg.vocab_size))
@@ -3405,11 +3434,15 @@ def phase_engine_quant(params, cfg, dev):
     rec = {"float32": {}, "bf16": {}}
     totals = {"paged_prefill": 0, "paged_attention": 0}
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # the weights are drawn once, on the card; the CPU workers load a copy
+    master = lm.init_params(0, cfg32, device=dev)
+    path = BUILD / "engine_quant_params.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(to_device(master, "cpu"), path)
     with ProcessPoolExecutor(
             3, mp_context=multiprocessing.get_context("spawn")) as pool:
-        cpu_runs = {kv: pool.submit(_quant_cpu_engine, kv, cfg32)
+        cpu_runs = {kv: pool.submit(_quant_cpu_engine, kv, cfg32, str(path))
                     for kv in kvs}
-        master = to_device(lm.init_params(0, cfg32, device="cpu"), dev)
         card = {}
         for kv in kvs:
             eng = ServingEngine(master, cfg32, kv_dtype=kv, device=dev,
@@ -3426,6 +3459,7 @@ def phase_engine_quant(params, cfg, dev):
         del master
         torch.cuda.empty_cache()
         cpu = {kv: f.result() for kv, f in cpu_runs.items()}
+    path.unlink()
     for kv in kvs:
         toks, launches = card[kv]
         refs = {rid: (t, g) for rid, (t, g) in cpu[kv].items()}

@@ -62,8 +62,9 @@ SIGNATURES = {
     "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
     "paged_prefill_wgmma": [_P] * 9 + [_I] * 10 + [_F, _P],
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
-    "flash_attention_wgmma": [_P] * 4 + [_I] * 9 + [_F, _P],
+    "flash_attention_wgmma": [_P] * 5 + [_I] * 9 + [_F, _P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "flash_attention_bwd_wgmma": [_P] * 13 + [_I] * 9 + [_F, _P],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
     "rglru_scan": [_P] * 5 + [_I] * 5 + [_P],
     "rwkv6_scan": [_P] * 9 + [_I] * 5 + [_P],

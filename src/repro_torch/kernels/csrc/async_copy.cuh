@@ -149,6 +149,17 @@ inline cudaError_t map_sw32(CUtensorMap* map, bool f16, const void* base,
                             const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  // the driver call needs a current context: make the runtime's primary
+  // one current, once a thread (one that has made no runtime call yet,
+  // such as the autograd engine's, has none; once current it stays so)
+  static thread_local bool has_context = false;
+  if (!has_context) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaSetDevice(dev);
+    if (e != cudaSuccess) return e;
+    has_context = true;
+  }
   const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map,

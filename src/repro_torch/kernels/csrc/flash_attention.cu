@@ -94,8 +94,9 @@ __global__ void __launch_bounds__(WGS * 128, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       T* __restrict__ out, int H, int KV, int Sq, int Sk,
-                       int causal, int window, float scale_log2) {
+                       T* __restrict__ out, float* __restrict__ lse,
+                       int H, int KV, int Sq, int Sk, int causal, int window,
+                       float scale_log2) {
   constexpr int NS = HD / 16;         // k-steps of Q.K^T, panels of a tile
   constexpr int NP = BN / 16;         // k-steps of P.V
   constexpr uint32_t SW32 = 3;        // descriptor mode: 32-byte swizzle
@@ -279,6 +280,11 @@ __global__ void __launch_bounds__(WGS * 128, 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float den = fmaxf(sum, 1e-30f);
     const int i = row + 8 * r;
+    // under autograd, the row's log-sum-exp of the log2e-scaled scores for
+    // the backward (csrc/flash_attention_bwd.cu recomputes these bits
+    // without it)
+    if (lse != nullptr && tq_ == 0 && i < Sq)
+      lse[((size_t)b * H + h) * Sq + i] = m[r] + log2f(sum);
     if (i < Sq) {
       T* orow = out + (((size_t)b * H + h) * Sq + i) * HD + 2 * tq_;
 #pragma unroll
@@ -308,8 +314,8 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int rows,
 
 template <typename T, int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int B, int H, int KV, int Sq, int Sk,
-                         int causal, int window, float scale,
+                         void* out, float* lse, int B, int H, int KV, int Sq,
+                         int Sk, int causal, int window, float scale,
                          cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t e = make_map<T, HD>(&tq, q, Sq, B * H, BQW);
@@ -325,7 +331,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   }
   dim3 grid((Sq + BQW - 1) / BQW, H, B);
   flash_wgmma_kernel<T, HD><<<grid, WGS * 128, smem, stream>>>(
-      tq, tk, tv, static_cast<T*>(out), H, KV, Sq, Sk, causal, window,
+      tq, tk, tv, static_cast<T*>(out), lse, H, KV, Sq, Sk, causal, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -444,9 +450,9 @@ __global__ void __launch_bounds__(BQ * split<HD>())
 
 template <typename T, int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int B, int H, int KV, int Sq, int Sk,
-                       int causal, int window, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* /* lse: wgmma only */, int B, int H,
+                       int KV, int Sq, int Sk, int causal, int window,
+                       float scale, cudaStream_t stream) {
   dim3 grid(B, H, (Sq + BQ - 1) / BQ);
   flash_attention_kernel<T, HD><<<grid, BQ * split<HD>(), 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -460,24 +466,24 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 #define FLASH_BY_HD(LAUNCH)                                                  \
   template <typename T>                                                      \
   cudaError_t LAUNCH##_by_hd(int hd, const void* q, const void* k,           \
-                             const void* v, void* out, int B, int H, int KV, \
-                             int Sq, int Sk, int causal, int window,         \
-                             float scale, cudaStream_t st) {                 \
+                             const void* v, void* out, float* lse, int B,    \
+                             int H, int KV, int Sq, int Sk, int causal,      \
+                             int window, float scale, cudaStream_t st) {     \
     switch (hd) {                                                            \
       case 16:                                                               \
-        return LAUNCH<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, causal, window, \
-                             scale, st);                                     \
+        return LAUNCH<T, 16>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,    \
+                             window, scale, st);                             \
       case 64:                                                               \
-        return LAUNCH<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, causal, window, \
-                             scale, st);                                     \
+        return LAUNCH<T, 64>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,    \
+                             window, scale, st);                             \
       case 80:                                                               \
-        return LAUNCH<T, 80>(q, k, v, out, B, H, KV, Sq, Sk, causal, window, \
-                             scale, st);                                     \
+        return LAUNCH<T, 80>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,    \
+                             window, scale, st);                             \
       case 128:                                                              \
-        return LAUNCH<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, causal,        \
+        return LAUNCH<T, 128>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,   \
                               window, scale, st);                            \
       case 256:                                                              \
-        return LAUNCH<T, 256>(q, k, v, out, B, H, KV, Sq, Sk, causal,        \
+        return LAUNCH<T, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,   \
                               window, scale, st);                            \
     }                                                                        \
     return cudaErrorInvalidValue;                                            \
@@ -498,24 +504,28 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int Sq, int Sk, int hd, int causal, int window,
                                float scale, void* stream) {
   if (H % KV != 0 || dtype != rt::F32) return cudaErrorInvalidValue;
-  return launch_f32_by_hd<float>(hd, q, k, v, out, B, H, KV, Sq, Sk, causal,
-                                 window, scale,
+  return launch_f32_by_hd<float>(hd, q, k, v, out, nullptr, B, H, KV, Sq, Sk,
+                                 causal, window, scale,
                                  static_cast<cudaStream_t>(stream));
 }
 
-// bf16 / f16 q / k / v: the wgmma kernel.
+// bf16 / f16 q / k / v: the wgmma kernel. lse: null, or (B, H, Sq) float32
+// for each row's log-sum-exp of the scores times scale log2e (log2 units).
 extern "C" int flash_attention_wgmma(const void* q, const void* k,
-                                     const void* v, void* out, int dtype,
+                                     const void* v, void* out, void* lse,
+                                     int dtype,
                                      int B, int H, int KV, int Sq, int Sk,
                                      int hd, int causal, int window,
                                      float scale, void* stream) {
   if (H % KV != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == rt::BF16)
-    return launch_wgmma_by_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, KV, Sq,
-                                             Sk, causal, window, scale, st);
+    return launch_wgmma_by_hd<__nv_bfloat16>(hd, q, k, v, out, l, B, H, KV,
+                                             Sq, Sk, causal, window, scale,
+                                             st);
   if (dtype == rt::F16)
-    return launch_wgmma_by_hd<__half>(hd, q, k, v, out, B, H, KV, Sq, Sk,
+    return launch_wgmma_by_hd<__half>(hd, q, k, v, out, l, B, H, KV, Sq, Sk,
                                       causal, window, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -13,11 +13,16 @@ first copied into a fresh buffer (`build.tma_ready`).
 
 Under autograd (grad mode on and an input that requires grad)
 `flash_attention` is a `torch.autograd.Function`: its forward is the
-plain call, which saves q, k, v and the output, and its backward is
-`flash_attention_bwd` (the backward kernel on CUDA, its twin on the CPU).
-Otherwise the call is the plain forward and records nothing.
+plain call, which saves q, k, v and the output (and, from the tensor-core
+kernel, each row's log-sum-exp), and its backward is
+`flash_attention_bwd` (the backward kernels on CUDA, its twin on the
+CPU). Otherwise the call is the plain forward and records nothing.
+The backward's dtype picks its kernels as the forward's does: bf16 / f16
+run two wgmma passes and, for a GQA group, a fixed-order sum of per-head
+dK / dV partials; float32 runs the two CUDA-core passes.
 `flash_attention.launches` counts forward launches,
-`flash_attention_bwd.launches` backward calls (two kernels each).
+`flash_attention_bwd.launches` backward calls (two or three kernels
+each).
 """
 from __future__ import annotations
 
@@ -25,6 +30,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS
+
+# csrc/flash_attention_bwd.cu: BM, the rows of a tensor-core tile (queries
+# in the first pass, keys in the second)
+BWD_TILE = 64
 
 
 def _check(name, q, k, v, *more):
@@ -49,7 +58,9 @@ def _check(name, q, k, v, *more):
                          f"head_dim in {HEAD_DIMS}")
 
 
-def _forward(q, k, v, causal: bool, window: int):
+def _forward(q, k, v, causal: bool, window: int, lse=None):
+    """The forward launch. lse: None, or a (B, H, Sq) float32 buffer the
+    tensor-core kernel fills with each row's log-sum-exp (log2 units)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -65,8 +76,9 @@ def _forward(q, k, v, causal: bool, window: int):
     fn = (build.load("flash_attention") if q.dtype == torch.float32
           else build.load("flash_attention", "flash_attention_wgmma"))
     with torch.cuda.device(q.device):
+        lse_arg = () if q.dtype == torch.float32 else (build.ptr(lse),)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd,
+                 *lse_arg, build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd,
                  int(causal), max(int(window), 0), hd ** -0.5,
                  build.stream())
     build.check_launch("flash_attention", err)
@@ -77,17 +89,22 @@ def _forward(q, k, v, causal: bool, window: int):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, o)
+        # the tensor-core forward also writes each row's log-sum-exp, which
+        # spares the backward a second forward launch to write them
+        lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+               if q.device.type == "cuda" and q.dtype != torch.float32
+               else None)
+        o = _forward(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
                                          causal=ctx.causal,
-                                         window=ctx.window)
+                                         window=ctx.window, lse=lse)
         return dq, dk, dv, None, None
 
 
@@ -107,14 +124,19 @@ flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, lse=None):
     """The gradient of flash_attention: q, o (its output) and do (the
     output's gradient) (B, H, Sq, hd), k/v (B, KV, Sk, hd), one float
     dtype, contiguous. Returns (dq (B, H, Sq, hd), dk, dv (B, KV, Sk,
     hd)) in the inputs' dtype, accumulated in float32. On CUDA one call
-    launches the kernel's two passes (dq per query tile, then dk / dv per
-    key tile over the group's query heads); neither uses atomics, so the
-    bits do not change from call to call."""
+    launches the kernels' two passes (dq per query tile, then dk / dv per
+    key tile: per query head for bf16 / f16, whose group's partials a
+    third kernel sums in head order; over the group's heads for float32);
+    none uses atomics, so the bits do not change from call to call.
+    lse: None, or the (B, H, Sq) float32 log-sum-exps the bf16 / f16
+    forward saved under autograd; without them a bf16 / f16 call first
+    runs the forward kernel to write them (one more forward launch). The
+    twin and float32 ignore it."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                            window=window)
@@ -127,16 +149,47 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if Sq == 0 or Sk == 0 or B == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # each query row's log-sum-exp and rowsum(dO * O), written by the
-    # first pass and read by the second
-    scratch = torch.empty(2, B, H, Sq, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = build.load("flash_attention_bwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd, int(causal),
+    args = (build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd, int(causal),
             max(int(window), 0), hd ** -0.5, build.stream())
+    if q.dtype == torch.float32:
+        # each query row's log-sum-exp and rowsum(dO * O), written by the
+        # first pass and read by the second
+        scratch = torch.empty(2, B, H, Sq, dtype=torch.float32,
+                              device=q.device)
+        with torch.cuda.device(q.device):
+            err = build.load("flash_attention_bwd")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                scratch[0].data_ptr(), scratch[1].data_ptr(), *args)
+    else:
+        if lse is None:
+            # the first pass reads each row's lse as the forward writes it
+            lse = torch.empty(B, H, Sq, dtype=torch.float32,
+                              device=q.device)
+            _forward(q, k, v, causal, window, lse)
+        elif (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+              or lse.device != q.device or not lse.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                             f"{lse.dtype} on {lse.device}; the forward's "
+                             f"is ({B}, {H}, {Sq}) float32, contiguous")
+        # the tensor-core passes read q, k, v, o and dO with TMA / 4-byte
+        # loads: a view off a 16-byte boundary is copied first
+        q, k, v, o, do = build.tma_ready(q, k, v, o, do)
+        # each query row's lse and D, padded to whole 64-row tiles; the
+        # group's per-head float32 dK / dV partials when H > KV
+        sqp = -(-Sq // BWD_TILE) * BWD_TILE
+        scratch = torch.empty(2, B, H, sqp, dtype=torch.float32,
+                              device=q.device)
+        parts = (torch.empty(2, B, H, Sk, hd, dtype=torch.float32,
+                             device=q.device) if H > KV else None)
+        with torch.cuda.device(q.device):
+            err = build.load("flash_attention_bwd",
+                             "flash_attention_bwd_wgmma")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                build.ptr(lse), scratch[0].data_ptr(), scratch[1].data_ptr(),
+                build.ptr(None if parts is None else parts[0]),
+                build.ptr(None if parts is None else parts[1]), *args)
     build.check_launch("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv

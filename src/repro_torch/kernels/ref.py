@@ -122,6 +122,12 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
     * scale, dK and dV summed over each KV head's group of query heads.
     q, o, do: (B, H, Sq, hd); k/v: (B, KV, Sk, hd); o is the forward's
     output. Returns (dq, dk, dv) in the inputs' dtype."""
+    return _flash_bwd(q, k, v, o, do, causal, window, chunk, None)
+
+
+def _flash_bwd(q, k, v, o, do, causal, window, chunk, rnd):
+    """flash_attention_bwd_ref's math; rnd, where given, rounds P and dS
+    before the products that take them (the tests' emulation)."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G, scale = H // KV, hd ** -0.5
@@ -148,6 +154,8 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
         p = torch.where(valid, torch.exp(s - lse), torch.zeros_like(s))
         d = (dof * of).sum(-1, keepdim=True)
         ds = p * (torch.einsum("bkgqh,bkgsh->bkgqs", dof, vf) - d)
+        if rnd is not None:
+            p, ds = rnd(p), rnd(ds)
         dq[:, :, rows] = (torch.einsum("bkgqs,bkgsh->bkgqh", ds, kf)
                           * scale).reshape(B, H, -1, hd)
         dk += torch.einsum("bkgqs,bkgqh->bksh", ds, qf) * scale
@@ -246,6 +254,24 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
         m = m_new
     o = acc / l.clamp_min(1e-30)
     return o.reshape(B, H, Sq, hd).to(dt)
+
+
+def flash_attention_bwd_split_ref(q, k, v, o, do, *, causal: bool = True,
+                                  window: int = 0, p_split: bool):
+    """flash_attention_bwd_ref with the roundings of the 16-bit tensor-core
+    backward (csrc/flash_attention_bwd.cu): Q, K, V and dO go to the
+    tensor cores exact, and P (for dV = P^T dO) and dS (for dQ = dS K and
+    dK = dS^T Q) are rounded to q's dtype first, either once
+    (p_split=False) or as a hi + lo pair of two roundings (p_split=True,
+    what the kernel does); products and sums in float32. Returns (dq, dk,
+    dv) in the inputs' dtype."""
+    dt = q.dtype
+
+    def rnd(x):
+        hi = x.to(dt).float()
+        return hi + (x - hi).to(dt).float() if p_split else hi
+
+    return _flash_bwd(q, k, v, o, do, causal, window, 256, rnd)
 
 
 def paged_prefill_tiled_ref(q, k_suf, v_suf, k_pool, v_pool, block_tables,

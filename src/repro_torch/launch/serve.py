@@ -52,7 +52,6 @@ import argparse
 import json
 import time
 
-import numpy as np
 import torch
 
 from repro_torch import prng
@@ -147,16 +146,18 @@ def _make_workload(args, cfg):
         return multi_tenant_requests(
             args.requests, n_tenants=args.tenants,
             prefix_len=args.prefix_len, suffix_len=plen, rate=rate,
-            **common)
+            tenant_priorities=args.tenant_priorities, **common)
     if args.workload == "bursty":
         return bursty_requests(
             args.requests, base_rate=args.base_rate,
             burst_rate=args.burst_rate, burst_every=args.burst_every,
-            burst_len=args.burst_len, prompt_len=plen, **common)
+            burst_len=args.burst_len, prompt_len=plen,
+            priorities=tuple(args.priorities), **common)
     if args.workload == "diurnal":
         return diurnal_requests(
             args.requests, rate_min=args.rate_min, rate_max=args.rate_max,
-            period=args.diurnal_period, prompt_len=plen, **common)
+            period=args.diurnal_period, prompt_len=plen,
+            priorities=tuple(args.priorities), **common)
     if args.workload == "repetitive":
         return repetitive_requests(
             args.requests, period=args.period, prompt_len=plen, rate=rate,
@@ -196,6 +197,7 @@ def _run_engine(args, cfg, params, device):
         prefill_chunk=args.prefill_chunk, speculate=args.speculate,
         draft=args.draft, ngram=args.ngram, kv_dtype=args.kv_dtype,
         host_cache_blocks=args.host_cache_blocks,
+        priority_aging=args.priority_aging,
         # widen the top-k side output when the CLI asks for more
         # alternatives than the engine default carries
         max_logprobs=max(args.logprobs, 8), obs=obs, device=device)
@@ -221,10 +223,16 @@ def _run_engine(args, cfg, params, device):
         print(f"sample (req {sample.rid}): {sample.tokens[:16]}")
 
 
+def _naive_prompts(args, cfg):
+    """The naive path's fixed batch of prompts: JAX's
+    jax.random.randint(PRNGKey(seed + 1), (batch, prompt_len), 0, vocab),
+    the same tokens (int64 on the CPU)."""
+    return prng.randint(prng.PRNGKey(args.seed + 1),
+                        (args.batch, args.prompt_len[0]), 0, cfg.vocab_size)
+
+
 def _run_naive(args, cfg, params, device):
-    plen = args.prompt_len[0]
-    rng = np.random.default_rng(args.seed + 1)
-    prompts = rng.integers(0, cfg.vocab_size, (args.batch, plen))
+    prompts = _naive_prompts(args, cfg)
     t0 = time.perf_counter()
     tokens = generate(params, cfg, prompts, max(args.max_new),
                       temperature=args.temperature, device=device)
@@ -260,13 +268,23 @@ def main(argv=None):
     ap.add_argument("--prefix-len", type=int, default=48)
     ap.add_argument("--n-prefixes", type=int, default=1)
     ap.add_argument("--tenants", type=int, default=4)
+    ap.add_argument("--tenant-priorities", type=int, nargs="+", default=None,
+                    help="per-tenant scheduler priority classes (one int "
+                         "per tenant; higher preempts lower — an SLO mix "
+                         "for --workload multi-tenant)")
     ap.add_argument("--base-rate", type=float, default=4.0)
     ap.add_argument("--burst-rate", type=float, default=64.0)
     ap.add_argument("--burst-every", type=float, default=2.0)
     ap.add_argument("--burst-len", type=float, default=0.25)
+    ap.add_argument("--priorities", type=int, nargs="+", default=[0],
+                    help="priority classes drawn uniformly per request "
+                         "(bursty / diurnal)")
     ap.add_argument("--rate-min", type=float, default=1.0)
     ap.add_argument("--rate-max", type=float, default=32.0)
     ap.add_argument("--diurnal-period", type=float, default=8.0)
+    ap.add_argument("--priority-aging", type=float, default=2.0,
+                    help="seconds of queue wait worth one priority class "
+                         "at admission (starvation bound; <=0 disables)")
     ap.add_argument("--period", type=int, default=6)
     ap.add_argument("--speculate", type=int, default=0)
     ap.add_argument("--draft", default="ngram", choices=["ngram"])

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import (flash_attention, paged_attention,
                                  paged_prefill_attention)
 from repro_torch.models.layers import apply_rope, init_dense
@@ -34,12 +35,13 @@ from repro_torch.models.layers import apply_rope, init_dense
 NEG_INF = -1e30
 
 
-def init_attention(gen, d_model, n_heads, n_kv_heads, head_dim, dtype):
+def init_attention(key, d_model, n_heads, n_kv_heads, head_dim, dtype):
+    kq, kk, kv, ko = prng.split(key, 4)
     return {
-        "wq": init_dense(gen, d_model, n_heads * head_dim, dtype),
-        "wk": init_dense(gen, d_model, n_kv_heads * head_dim, dtype),
-        "wv": init_dense(gen, d_model, n_kv_heads * head_dim, dtype),
-        "wo": init_dense(gen, n_heads * head_dim, d_model, dtype),
+        "wq": init_dense(kq, d_model, n_heads * head_dim, dtype),
+        "wk": init_dense(kk, d_model, n_kv_heads * head_dim, dtype),
+        "wv": init_dense(kv, d_model, n_kv_heads * head_dim, dtype),
+        "wo": init_dense(ko, n_heads * head_dim, d_model, dtype),
     }
 
 

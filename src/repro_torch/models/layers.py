@@ -4,14 +4,17 @@ Conventions, as in the JAX package:
   * params are plain dicts of tensors;
   * activations run in cfg.dtype (bf16 by default), softmax/norms in fp32.
 
-Initialisers draw from an explicit `torch.Generator` (on the device the
-tensors are made on); the numbers differ from `jax.random`'s, so parity
-tests share weights through `repro_torch.convert` instead.
+Initialisers take a `repro_torch.prng` key (JAX's threefry key, an int64
+tensor on the device the tensors are made on) and draw what the JAX
+initialisers draw from the same key: the same values, up to erf_inv's last
+place in `prng.normal`.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import prng
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -23,10 +26,9 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (x * (1.0 + scale.float())).to(dt)
 
 
-def init_dense(gen, d_in, d_out, dtype, scale=None):
+def init_dense(key, d_in, d_out, dtype, scale=None):
     scale = scale if scale is not None else d_in ** -0.5
-    return (torch.randn(d_in, d_out, generator=gen, device=gen.device)
-            * scale).to(dtype)
+    return (prng.normal(key, (d_in, d_out)) * scale).to(dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -55,14 +57,15 @@ def apply_rope(x, positions, theta: float = 10000.0):
 # MLPs
 # ----------------------------------------------------------------------------
 
-def init_mlp(gen, d_model, d_ff, dtype, kind: str = "swiglu"):
+def init_mlp(key, d_model, d_ff, dtype, kind: str = "swiglu"):
+    k1, k2, k3 = prng.split(key, 3)
     if kind in ("swiglu", "geglu"):
-        return {"w_gate": init_dense(gen, d_model, d_ff, dtype),
-                "w_up": init_dense(gen, d_model, d_ff, dtype),
-                "w_down": init_dense(gen, d_ff, d_model, dtype)}
+        return {"w_gate": init_dense(k1, d_model, d_ff, dtype),
+                "w_up": init_dense(k2, d_model, d_ff, dtype),
+                "w_down": init_dense(k3, d_ff, d_model, dtype)}
     if kind == "gelu":
-        return {"w_up": init_dense(gen, d_model, d_ff, dtype),
-                "w_down": init_dense(gen, d_ff, d_model, dtype)}
+        return {"w_up": init_dense(k1, d_model, d_ff, dtype),
+                "w_down": init_dense(k2, d_ff, d_model, dtype)}
     raise ValueError(kind)
 
 
@@ -84,9 +87,8 @@ def mlp(params, x, kind: str = "swiglu"):
 # Embedding / unembedding
 # ----------------------------------------------------------------------------
 
-def init_embed(gen, vocab, d_model, dtype):
-    return (torch.randn(vocab, d_model, generator=gen, device=gen.device)
-            * 0.02).to(dtype)
+def init_embed(key, vocab, d_model, dtype):
+    return (prng.normal(key, (vocab, d_model)) * 0.02).to(dtype)
 
 
 def softmax_xent(logits, targets, z_loss: float = 0.0):

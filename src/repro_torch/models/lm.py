@@ -35,6 +35,7 @@ from typing import Iterator, List, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, recurrent
@@ -82,46 +83,53 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 # Model init
 # ----------------------------------------------------------------------------
 
-def _init_block(gen, cfg: ModelConfig, kind: str):
+def _init_block(key, cfg: ModelConfig, kind: str):
+    k1, k2 = prng.split(key)
     D, dt = cfg.d_model, cfg.p_dtype
-    norms = {"norm1": torch.zeros(D, dtype=dt, device=gen.device),
-             "norm2": torch.zeros(D, dtype=dt, device=gen.device)}
+    norms = {"norm1": torch.zeros(D, dtype=dt, device=key.device),
+             "norm2": torch.zeros(D, dtype=dt, device=key.device)}
     if kind == "rec":
         return {**norms,
-                "rec": recurrent.init_rglru_block(gen, D, cfg.rnn_width,
+                "rec": recurrent.init_rglru_block(k1, D, cfg.rnn_width,
                                                   cfg.conv_width, dt),
-                "mlp": init_mlp(gen, D, cfg.d_ff, dt, cfg.mlp_kind)}
+                "mlp": init_mlp(k2, D, cfg.d_ff, dt, cfg.mlp_kind)}
     if kind == "rwkv":
         return {**norms,
-                "tmix": recurrent.init_rwkv(gen, D, cfg.n_heads,
+                "tmix": recurrent.init_rwkv(k1, D, cfg.n_heads,
                                             cfg.head_dim, dt),
-                "cmix": recurrent.init_rwkv_channel_mix(gen, D, cfg.d_ff,
+                "cmix": recurrent.init_rwkv_channel_mix(k2, D, cfg.d_ff,
                                                         dt)}
     return {**norms,
-            "attn": attention.init_attention(gen, D, cfg.n_heads,
+            "attn": attention.init_attention(k1, D, cfg.n_heads,
                                              cfg.n_kv_heads, cfg.head_dim,
                                              dt),
-            "mlp": init_mlp(gen, D, cfg.d_ff, dt, cfg.mlp_kind)}
+            "mlp": init_mlp(k2, D, cfg.d_ff, dt, cfg.mlp_kind)}
 
 
 def init_params(seed: int, cfg: ModelConfig, *, device=None):
-    """Random params in the JAX tree layout (unstacked), drawn from a
-    `torch.Generator` seeded with `seed` on `device` (default CUDA; raises
-    without a GPU unless device="cpu" is given)."""
+    """Random params in the JAX tree layout (unstacked), drawn on `device`
+    (default CUDA; raises without a GPU unless device="cpu" is given) from
+    JAX's key `PRNGKey(seed)` in JAX's key order (`repro/models/lm.py:
+    init_params`): its split into 8, the embedding from the first, prefix
+    layer i from fold_in(keys[2], i), superblock n of pattern position pi
+    from split(fold_in(keys[3], pi), n_super)[n], the head from keys[4].
+    So a seed gives the JAX package's weights (`prng.normal`: up to
+    erf_inv's last place)."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    keys = prng.split(prng.PRNGKey(seed, device=dev), 8)
     D, V, dt = cfg.d_model, cfg.vocab_size, cfg.p_dtype
-    params = {"embed": init_embed(gen, V, D, dt)}
-    params["prefix"] = [_init_block(gen, cfg, kind)
-                        for kind in cfg.prefix_pattern]
-    params["blocks"] = {
-        f"p{pi}": [_init_block(gen, cfg, kind) for _ in range(cfg.n_super)]
-        for pi, kind in enumerate(cfg.block_pattern)}
+    params = {"embed": init_embed(keys[0], V, D, dt)}
+    params["prefix"] = [_init_block(prng.fold_in(keys[2], i), cfg, kind)
+                        for i, kind in enumerate(cfg.prefix_pattern)]
+    blocks = {}
+    for pi, kind in enumerate(cfg.block_pattern):
+        layer_keys = prng.split(prng.fold_in(keys[3], pi), cfg.n_super)
+        blocks[f"p{pi}"] = [_init_block(k, cfg, kind) for k in layer_keys]
+    params["blocks"] = blocks
     params["final_norm"] = torch.zeros(D, dtype=dt, device=dev)
     if not cfg.tie_embeddings:
-        params["head"] = (torch.randn(D, V, generator=gen, device=dev)
-                          * D ** -0.5).to(dt)
+        params["head"] = (prng.normal(keys[4], (D, V)) * D ** -0.5).to(dt)
     return params
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.kernels import rglru_scan, rwkv6_scan
 from repro_torch.models.layers import init_dense
 
@@ -32,25 +33,24 @@ _RG_C = 8.0
 # RWKV6 time mix
 # ----------------------------------------------------------------------------
 
-def init_rwkv(gen, d_model, n_heads, head_dim, dtype, lora_rank: int = 32):
-    """The JAX time mix's params, drawn from `gen`."""
+def init_rwkv(key, d_model, n_heads, head_dim, dtype, lora_rank: int = 32):
+    """The JAX time mix's params, drawn from `key` as JAX draws them."""
+    ks = prng.split(key, 10)
     dh = n_heads * head_dim
-    dev = gen.device
+    dev = key.device
     return {
-        "w_r": init_dense(gen, d_model, dh, dtype),
-        "w_k": init_dense(gen, d_model, dh, dtype),
-        "w_v": init_dense(gen, d_model, dh, dtype),
-        "w_g": init_dense(gen, d_model, dh, dtype),
-        "w_o": init_dense(gen, dh, d_model, dtype),
+        "w_r": init_dense(ks[0], d_model, dh, dtype),
+        "w_k": init_dense(ks[1], d_model, dh, dtype),
+        "w_v": init_dense(ks[2], d_model, dh, dtype),
+        "w_g": init_dense(ks[3], d_model, dh, dtype),
+        "w_o": init_dense(ks[4], dh, d_model, dtype),
         # static token-shift mixes (one per projection r, k, v, g, w)
-        "mix": (torch.rand(5, d_model, generator=gen, device=dev)
-                * 0.5).to(dtype),
+        "mix": (prng.uniform(ks[5], (5, d_model)) * 0.5).to(dtype),
         # data-dependent decay: w_t = exp(-exp(decay_base + lora))
         "decay_base": torch.zeros(dh, dtype=dtype, device=dev),
-        "decay_A": init_dense(gen, d_model, lora_rank, dtype),
-        "decay_B": init_dense(gen, lora_rank, dh, dtype, scale=0.01),
-        "bonus_u": (torch.randn(n_heads, head_dim, generator=gen, device=dev)
-                    * 0.1).to(dtype),
+        "decay_A": init_dense(ks[6], d_model, lora_rank, dtype),
+        "decay_B": init_dense(ks[7], lora_rank, dh, dtype, scale=0.01),
+        "bonus_u": (prng.normal(ks[8], (n_heads, head_dim)) * 0.1).to(dtype),
         "ln_scale": torch.ones(dh, dtype=dtype, device=dev),
     }
 
@@ -160,13 +160,13 @@ def rwkv_step(params, x, cfg, state):
     return rwkv_seq(params, x, cfg, state=state)
 
 
-def init_rwkv_channel_mix(gen, d_model, d_ff, dtype):
-    """The JAX channel mix's params, drawn from `gen`."""
-    return {"w_k": init_dense(gen, d_model, d_ff, dtype),
-            "w_v": init_dense(gen, d_ff, d_model, dtype),
-            "w_r": init_dense(gen, d_model, d_model, dtype),
-            "mix": (torch.rand(2, d_model, generator=gen, device=gen.device)
-                    * 0.5).to(dtype)}
+def init_rwkv_channel_mix(key, d_model, d_ff, dtype):
+    """The JAX channel mix's params, drawn from `key` as JAX draws them."""
+    k1, k2, k3, k4 = prng.split(key, 4)
+    return {"w_k": init_dense(k1, d_model, d_ff, dtype),
+            "w_v": init_dense(k2, d_ff, d_model, dtype),
+            "w_r": init_dense(k3, d_model, d_model, dtype),
+            "mix": (prng.uniform(k4, (2, d_model)) * 0.5).to(dtype)}
 
 
 def rwkv_channel_mix(params, x, shift_state=None, lengths=None,
@@ -193,24 +193,26 @@ def rwkv_channel_mix(params, x, shift_state=None, lengths=None,
 # RG-LRU (Griffin / RecurrentGemma recurrent block)
 # ----------------------------------------------------------------------------
 
-def init_rglru_block(gen, d_model, rnn_width, conv_width, dtype):
-    """The JAX block's params, drawn from `gen` (log_lambda is float32 and
-    deterministic: a_t in [0.9, 0.999] at init, as in Griffin)."""
+def init_rglru_block(key, d_model, rnn_width, conv_width, dtype):
+    """The JAX block's params, drawn from `key` as JAX draws them
+    (log_lambda is float32 and deterministic: a_t in [0.9, 0.999] at init,
+    as in Griffin)."""
+    ks = prng.split(key, 7)
     rd = rnn_width
-    dev = gen.device
+    dev = key.device
     return {
-        "w_in_rec": init_dense(gen, d_model, rd, dtype),
-        "w_in_gate": init_dense(gen, d_model, rd, dtype),
-        "conv_w": (torch.randn(conv_width, rd, generator=gen, device=dev)
+        "w_in_rec": init_dense(ks[0], d_model, rd, dtype),
+        "w_in_gate": init_dense(ks[1], d_model, rd, dtype),
+        "conv_w": (prng.normal(ks[2], (conv_width, rd))
                    * conv_width ** -0.5).to(dtype),
         "conv_b": torch.zeros(rd, dtype=dtype, device=dev),
-        "w_a": init_dense(gen, rd, rd, dtype, scale=rd ** -0.5),
+        "w_a": init_dense(ks[3], rd, rd, dtype, scale=rd ** -0.5),
         "b_a": torch.zeros(rd, dtype=dtype, device=dev),
-        "w_x": init_dense(gen, rd, rd, dtype, scale=rd ** -0.5),
+        "w_x": init_dense(ks[4], rd, rd, dtype, scale=rd ** -0.5),
         "b_x": torch.zeros(rd, dtype=dtype, device=dev),
         "log_lambda": torch.linspace(-4.323, -9.0, rd, dtype=torch.float32,
                                      device=dev),
-        "w_out": init_dense(gen, rd, d_model, dtype),
+        "w_out": init_dense(ks[5], rd, d_model, dtype),
     }
 
 

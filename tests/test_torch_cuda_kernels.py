@@ -920,6 +920,59 @@ def test_flash_backward_matches_twin(cuda, hd, heads, dtype, S, causal,
             assert _ulps(g, w) <= 2, name
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("S,causal,window", [(300, True, 0), (300, True, 96),
+                                             (77, False, 0)])
+def test_flash_backward_group_split_matches_twin(cuda, dtype, S, causal,
+                                                 window):
+    """The tensor-core backward's second pass takes one query head a block
+    and sums the group's float32 dK / dV partials in head order: 16 query
+    heads over one KV head at hd 64 (a sum past 8 heads) within 2 bf16
+    ulps of the twin, two launches bit-equal."""
+    from repro_torch.kernels import flash_attention_bwd
+    rng = np.random.default_rng(S + 16)
+    q, do = (_rand(rng, 2, 16, S, 64, dtype=dtype, dev=cuda) for _ in "qd")
+    k, v = (_rand(rng, 2, 1, S, 64, dtype=dtype, dev=cuda) for _ in "kv")
+    o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), f"d{name}: two launches differ"
+        assert _ulps(g, w) <= 2, name
+
+
+@pytest.mark.parametrize("hd,heads", [(16, (4, 2)), (64, (9, 3)),
+                                      (80, (8, 8)), (256, (10, 1))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("S,causal,window", [(40, True, 0), (300, True, 96),
+                                             (77, False, 24)])
+def test_flash_backward_saved_lse_gives_the_recomputed_bits(
+        cuda, hd, heads, dtype, S, causal, window):
+    """The tensor-core forward's saved log-sum-exps (what autograd hands
+    the backward) give the dq / dk / dv bits of a call without them, for
+    which the wrapper runs the forward kernel once more to write them; and
+    writing them leaves the forward's output bits as they are."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import _forward
+    rng = np.random.default_rng(hd + S + 1)
+    H_, KV_ = heads
+    q, do = (_rand(rng, 2, H_, S, hd, dtype=dtype, dev=cuda) for _ in "qd")
+    k, v = (_rand(rng, 2, KV_, S, hd, dtype=dtype, dev=cuda) for _ in "kv")
+    lse = torch.empty(2, H_, S, dtype=torch.float32, device=cuda)
+    o = _forward(q, k, v, causal, window, lse)
+    assert torch.equal(o, _forward(q, k, v, causal, window))
+    saved = flash_attention_bwd(q, k, v, o, do, causal=causal, window=window,
+                                lse=lse)
+    before = flash_attention.launches
+    recomputed = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                     window=window)
+    assert flash_attention.launches == before + 1
+    for name, a, b in zip("qkv", saved, recomputed):
+        assert torch.equal(a, b), f"d{name}: saved and recomputed lse differ"
+
+
 def test_flash_autograd_launches_the_backward_kernel(cuda):
     """Under autograd the card's flash_attention carries the gradient to q,
     k and v through the backward kernel (the bits of a direct

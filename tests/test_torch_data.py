@@ -9,6 +9,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_cpu  # noqa: E402
+
+_torch_cpu.share_cores()
 jax = pytest.importorskip("jax")
 
 from repro.data.pipeline import ShardedBatcher as JBatcher  # noqa: E402

@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_cpu  # noqa: E402
+
+_torch_cpu.share_cores()
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
@@ -363,6 +367,61 @@ def test_flash_single_bf16_p_breaks_the_bf16_gate():
                                          p_split=True)
     assert _bf16_ulps(once, want) > 4 * _TOL_ULPS
     assert _bf16_ulps(split, want) <= _TOL_ULPS
+
+
+# The 16-bit flash backward (csrc/flash_attention_bwd.cu) runs its five
+# products on the tensor cores: Q, K, V and dO go in exact, but P (for dV =
+# P^T dO) and dS (for dQ = dS K and dK = dS^T Q) are float32 on the
+# accumulator fragment and must be rounded to the input type first. At
+# the bf16 shapes of tests/test_torch_cuda_kernels.py::
+# test_flash_backward_matches_twin and chip_smoke.py's backward arms the
+# kernel's hi + lo halves stay within the 2-ulp gate of the float32 twin;
+# one rounding of P and dS does not.
+_BWD_TWIN_CASES = [(S, causal, window, hd, heads)
+                   for S, causal, window in ((1, True, 0), (40, True, 0),
+                                             (300, True, 0), (300, True, 96),
+                                             (77, False, 0), (77, False, 24))
+                   for hd, heads in ((16, (4, 2)), (64, (9, 3)),
+                                     (80, (8, 8)), (128, (16, 4)),
+                                     (256, (10, 1)))]
+_BWD_SMOKE_CASES = ([(2, 9, 3, 512, 64, True, 0),
+                     (1, 10, 1, 2304, 256, True, 2048)]
+                    + [(2, h, kv, 200, hd, causal, w)
+                       for hd, (h, kv) in ((16, (4, 2)), (80, (8, 8)),
+                                           (128, (16, 4)))
+                       for causal, w in ((True, 0), (False, 0), (True, 48))])
+
+
+def _flash_bwd_case(seed, B, H, KV, S, hd, causal, window):
+    rng = np.random.default_rng(seed)
+    q, do = (_t(_rand(rng, B, H, S, hd)).bfloat16() for _ in "qd")
+    k, v = (_t(_rand(rng, B, KV, S, hd)).bfloat16() for _ in "kv")
+    o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return q, k, v, o, do
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (2, heads[0], heads[1], S, hd, causal, window)
+    for S, causal, window, hd, heads in _BWD_TWIN_CASES] + _BWD_SMOKE_CASES)
+def test_flash_bwd_hi_lo_stays_in_the_bf16_gate(B, H, KV, S, hd, causal,
+                                               window):
+    a = _flash_bwd_case(hd + S, B, H, KV, S, hd, causal, window)
+    got = ref.flash_attention_bwd_split_ref(*a, causal=causal, window=window,
+                                           p_split=True)
+    want = ref.flash_attention_bwd_ref(*a, causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        assert _bf16_ulps(g, w) <= _TOL_ULPS, name
+
+
+def test_flash_bwd_single_bf16_rounding_breaks_the_bf16_gate():
+    a = _flash_bwd_case(7, 2, 9, 3, 512, 64, True, 0)
+    want = ref.flash_attention_bwd_ref(*a)
+    once = ref.flash_attention_bwd_split_ref(*a, p_split=False)
+    split = ref.flash_attention_bwd_split_ref(*a, p_split=True)
+    for name, o, s_, w in zip(("dq", "dk", "dv"), once, split, want):
+        assert _bf16_ulps(o, w) > 4 * _TOL_ULPS, name
+        assert _bf16_ulps(s_, w) <= _TOL_ULPS, name
 
 
 # The 16-bit paged_prefill kernel (csrc/paged_prefill.cu) runs Q.K^T and

@@ -4,11 +4,16 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_cpu  # noqa: E402
+
+_torch_cpu.share_cores()
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models import layers as jl  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -85,9 +90,9 @@ def test_softmax_xent_matches_jax():
 
 
 def test_init_shapes_and_scales():
-    gen = torch.Generator().manual_seed(0)
-    emb = tl.init_embed(gen, 256, 64, torch.float32)
-    w = tl.init_dense(gen, 64, 128, torch.bfloat16)
+    k1, k2 = prng.split(prng.PRNGKey(0))
+    emb = tl.init_embed(k1, 256, 64, torch.float32)
+    w = tl.init_dense(k2, 64, 128, torch.bfloat16)
     assert emb.shape == (256, 64) and abs(emb.std().item() - 0.02) < 2e-3
     assert w.dtype == torch.bfloat16
     assert abs(w.float().std().item() - 64 ** -0.5) < 0.01

@@ -8,6 +8,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import _torch_cpu  # noqa: E402
+
+_torch_cpu.share_cores()
 jax = pytest.importorskip("jax")
 
 from repro_torch import prng  # noqa: E402
@@ -209,6 +213,69 @@ def test_gumbel_matches_jax(tdt, jdt):
     np.testing.assert_array_equal(
         _bits(u), _bits(jax.vmap(lambda k: jax.random.uniform(
             k, (2000,), jdt, float(jnp.finfo(jdt).tiny)))(_jax_keys(0))))
+
+
+# normal: sqrt(2) erf_inv(u) of uniform(nextafter(-1, 0), 1), whose bits
+# equal JAX's (checked below). The port's erf_inv is XLA's float32
+# polynomial on XLA's log1p, each step rounded as XLA rounds it, and gives
+# XLA's bits on all but ~1e-4 of its inputs: float32 values within 2 eps
+# of max(|JAX's|, 1) (the share of bit-equal ones printed); bf16 and f16
+# round the rest away and are bit-equal.
+@pytest.mark.parametrize("tdt,jdt", [(torch.float32, jnp.float32),
+                                     (torch.bfloat16, jnp.bfloat16),
+                                     (torch.float16, jnp.float16)])
+@pytest.mark.parametrize("seed,shape", [(0, (4096,)), (3, (37, 129)),
+                                        (2**31 - 1, (2, 3, 64))])
+def test_normal_matches_jax(tdt, jdt, seed, shape):
+    got = prng.normal(prng.PRNGKey(seed), shape, tdt)
+    want = jax.random.normal(jax.random.PRNGKey(seed), shape, jdt)
+    assert got.shape == shape and got.dtype == tdt
+    g, w = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    err = np.abs(g - w) / (torch.finfo(tdt).eps * np.maximum(np.abs(w), 1))
+    print(f"normal {tdt}: {np.mean(g == w):.4f} of values bit-equal, "
+          f"max {err.max():.2f} eps")
+    assert err.max() <= {torch.float32: 2, torch.float16: 0,
+                         torch.bfloat16: 0}[tdt]
+    lo = float(jnp.nextafter(jnp.array(-1.0, jdt), jnp.array(0.0, jdt)))
+    np.testing.assert_array_equal(
+        _bits(prng.uniform(prng.PRNGKey(seed), shape, tdt, lo, 1.0)),
+        _bits(jax.random.uniform(jax.random.PRNGKey(seed), shape, jdt, lo,
+                                 1.0)))
+
+
+def test_erfinv_is_xlas_polynomial():
+    """prng.erfinv and prng.log1p against XLA's float32 erf_inv and log1p
+    over (-1, 1), 1 +- its last floats included: log1p within 1 ulp,
+    erf_inv within 2, both bit-equal on all but 1e-3 of the inputs, and
+    erf_inv(+-1) = +-inf as XLA gives."""
+    from jax._src.lax import special
+    x = np.concatenate([
+        np.random.default_rng(0).uniform(-1, 1, 200_000),
+        1 - np.logspace(-7.2, -1, 500), -1 + np.logspace(-7.2, -1, 500),
+        [1.0, -1.0, 0.0]]).astype(np.float32)
+    for fn, jfn, x_, lim in ((prng.log1p, jnp.log1p, -x * x, 1),
+                             (prng.erfinv, special.erf_inv, x, 2)):
+        got = fn(torch.from_numpy(x_)).numpy()
+        want = np.asarray(jax.jit(jfn)(x_))
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(got[~fin], want[~fin])
+        ulps = np.abs(got[fin] - want[fin]) / np.spacing(np.abs(want[fin]))
+        assert ulps.max() <= lim
+        assert np.mean(got == want) > 0.999
+
+
+@pytest.mark.parametrize("shape", [(77, 91), (3, 1000)])
+def test_normal_chunked_draw_is_the_whole_draw(monkeypatch, shape):
+    """A draw taken NORMAL_CHUNK elements at a time over the flat counter
+    (what keeps full-width inits in memory) has the bits of one draw."""
+    whole = prng.normal(prng.PRNGKey(5), shape)
+    monkeypatch.setattr(prng, "NORMAL_CHUNK", 1000)
+    chunked = prng.normal(prng.PRNGKey(5), shape)
+    assert torch.equal(whole, chunked)
+    bf = prng.normal(prng.PRNGKey(5), shape, torch.bfloat16)
+    monkeypatch.setattr(prng, "NORMAL_CHUNK", 1 << 23)
+    assert torch.equal(bf, prng.normal(prng.PRNGKey(5), shape,
+                                       torch.bfloat16))
 
 
 # categorical: tokens equal wherever JAX's draw leads its runner-up by more
