@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. build   the seven CUDA kernels from src/repro_torch/kernels/csrc/
              (one nvcc per source, all started together); cuobjdump -sass
              must find HGMMA (wgmma) in every bf16 / f16 instantiation of
-             the tensor-core flash and paged_prefill kernels;
+             the tensor-core flash and paged_prefill kernels (paged_prefill
+             over pools of q's dtype and over int8 / fp8 pools);
   2. kernels each kernel against its plain PyTorch twin at the shapes its
              main path gives it (error vs a stated tolerance, the
              bytes-or-flops bound): the attention kernels at smollm-135m
@@ -18,8 +19,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              also 256; flash also 128), paged decode's batch invariance
              (each row alone bit-equal to its batch row), paged_prefill in
              bf16 and f16 (the tensor-core kernel; block sizes 16, 4 and
-             2048; NaN / inf in the masked pool slots) and in float32 and
-             with int8 / fp8 pools (the CUDA-core kernel), svrg_update at
+             2048; NaN / inf in the masked pool slots), bf16 and f16 over
+             int8 / fp8 pools (the tensor-core kernel; the admission at
+             windows 0 / 64, the 16 bucket, verify 8 x 2 / 4 / 5, block
+             sizes 4 and 2048, hd 16 / 80 / 256, NaN codes and scales in
+             the masked slots; each arm also bit-equal across two
+             launches) and in float32 over float32 and int8 pools (the
+             CUDA-core kernel), svrg_update at
              2^20, an odd tail and an unaligned view, rglru_scan through
              both its kernels (the bulk kernel at 2 x 512, 1 x 2304, 4 x
              64 and the chunk edges T = 64 / 65; the direct kernel at
@@ -45,8 +51,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              int8 and fp8 engine pools (quantized as the engine lands
              K/V; each row alone bit-equal to its batch row), and
              paged_prefill over engine-quantized int8 / fp8 pools at the
-             4 x 128 admission and a verify of 8 x 5, timed against the
-             bytes of 1-byte pools plus their f32 scales; the flash
+             4 x 128 admission and a verify of 8 x 5 (the tensor-core
+             kernel), timed against the bytes of 1-byte pools plus their
+             f32 scales; the flash
              backward (dq, dk, dv) at smollm's 2 x 9/3 x 512 x 64 in bf16
              and float32, its train micro-batch 8 x 9/3 x 512 in bf16, at
              1 x 10/1 x 2304, hd 256, window 2048 and at hd 16 / 80 / 128
@@ -451,7 +458,8 @@ def phase_build():
             "flash_hgmma": _hgmma(build, paths["flash_attention"],
                                   "flash_wgmma_kernel"),
             "paged_prefill_hgmma": _hgmma(build, paths["paged_prefill"],
-                                          "paged_prefill_wgmma_kernel"),
+                                          "paged_prefill_wgmma_kernel",
+                                          pools=PREFILL_POOLS),
             "flash_bwd_hgmma": _hgmma(build, paths["flash_attention_bwd"],
                                       "bwd_dq_wgmma_kernel",
                                       "bwd_dkdv_wgmma_kernel"),
@@ -459,11 +467,18 @@ def phase_build():
                           for n, p in paths.items()}}
 
 
-def _hgmma(build, lib, *kernels):
+# paged_prefill_wgmma_kernel's pool template argument (csrc/paged_prefill.cu:
+# 0 for a pool of q's dtype, else the int8 / fp8 dtype code) and its name
+# in _hgmma's keys
+PREFILL_POOLS = {"0": "", "3": "/int8", "4": "/fp8"}
+
+
+def _hgmma(build, lib, *kernels, pools=None):
     """HGMMA (wgmma) instructions in each bf16 / f16 instantiation of each
     tensor-core kernel of `kernels` in library `lib`, from one cuobjdump
     -sass (beside nvcc); fails if cuobjdump is missing or an instantiation
-    at some head dim of build.HEAD_DIMS is missing or has none."""
+    at some head dim of build.HEAD_DIMS (and, with `pools`, for each pool
+    template argument: {its value: its name}) is missing or has none."""
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
         raise AssertionError(f"cuobjdump not found beside nvcc ({cuobjdump})")
@@ -480,13 +495,15 @@ def _hgmma(build, lib, *kernels):
             kernel = next((k for k in kernels if k in fn), None)
             if kernel is not None:
                 dt = next((v for k, v in names.items() if k in fn), "?")
-                hd = re.findall(r"Li(\d+)E", fn)[0]
-                key = (kernel, f"{dt}/hd{hd}")
+                ints = re.findall(r"Li(\d+)E", fn)
+                pool = "" if pools is None else pools.get(ints[1], "?")
+                key = (kernel, f"{dt}/hd{ints[0]}{pool}")
                 counts[kernel][key[1]] = 0
         elif key is not None and "HGMMA" in ln:
             counts[key[0]][key[1]] += 1
-    want = {f"{dt}/hd{hd}" for dt in names.values()
-            for hd in build.HEAD_DIMS}
+    want = {f"{dt}/hd{hd}{pool}" for dt in names.values()
+            for hd in build.HEAD_DIMS
+            for pool in (pools or {"": ""}).values()}
     for kernel, c in counts.items():
         print(f"[build] {kernel} SASS, HGMMA per instantiation: "
               + ", ".join(f"{k} {v}" for k, v in sorted(c.items())))
@@ -746,8 +763,10 @@ def phase_kernels(dev):
     # 500, lengths = starts + counts, counts 0 for idle and sitting-out
     # lanes); bf16 and f16 (the tensor-core kernel), at the engine's block
     # size 16 and at 4 and 2048 (one block a row), and with NaN / inf in
-    # every pool slot a row may not see; float32 and int8 / fp8 pools (the
-    # CUDA-core kernel) at the admission
+    # every pool slot a row may not see; the same shapes over int8 / fp8
+    # pools quantized as the engine lands them (the tensor-core kernel, the
+    # codes converted exactly to q's dtype); float32 over float32 and int8
+    # pools (the CUDA-core kernel) at the admission
     def prefill_case(starts, counts, Ls, dt=bf, bs_=bs, m=M):
         n = len(starts)
         st = i32(starts)
@@ -774,12 +793,29 @@ def phase_kernels(dev):
     def prefill_blocks(c):
         """Blocks the launch takes: the tensor-core kernel's (N, KV, Ls /
         (64 // group)) or the CUDA-core kernel's (N, KV, Ls / 32)."""
-        q_, ks_, _, kp_ = c[:4]
+        q_, ks_ = c[0], c[1]
         n_, ls_, h_, hd_ = q_.shape
         kv_ = ks_.shape[2]
-        rows = (64 // (h_ // kv_) if q_.dtype != torch.float32
-                and kp_.dtype == q_.dtype else 16 if hd_ >= 256 else 32)
+        rows = (64 // (h_ // kv_) if prefill_route(q_.dtype) == "wgmma"
+                else 16 if hd_ >= 256 else 32)
         return n_ * kv_ * -(-ls_ // rows)
+
+    def quantized(c, qdt):
+        """c's pools quantized as the engine lands K/V
+        (attention.quantize_kv): (args, dict(k_scale=, v_scale=))."""
+        (kq, ksc), (vq, vsc) = (quantize_kv(p_, qdt) for p_ in c[3:5])
+        return (*c[:3], kq, vq, *c[5:]), dict(k_scale=ksc, v_scale=vsc)
+
+    def qarm(arms_, name, c, **kw):
+        """An arm over an int8 / fp8 pool: within TOL_ULPS of the twin and
+        bit-equal across two launches."""
+        got = paged_prefill_attention(*c, **kw)
+        if not torch.equal(got, paged_prefill_attention(*c, **kw)):
+            raise AssertionError(f"paged_prefill {name}: two launches "
+                                 f"differ")
+        arm(arms_, f"paged_prefill {name}", got,
+            ref.paged_prefill_ref(*c, kw["k_scale"], kw["v_scale"],
+                                  window=kw.get("window", 0)))
 
     def prefill_timed(label, c, **kw):
         b_ = prefill_bound(c, scales="k_scale" in kw)
@@ -788,7 +824,9 @@ def phase_kernels(dev):
                           lambda a=c: ref.paged_prefill_ref(*a, **kw), None),
                     bound_ms=b_[0], bound_by=b_[1])
 
-    arms, pp_extra = [], []
+    from repro_torch.kernels.paged_prefill import route as prefill_route
+    QPOOLS = (("int8", torch.int8), ("fp8", torch.float8_e4m3fn))
+    arms, pp_extra, q_timed = [], [], {}
     adm = ([0, 48, 200, 0], [128, 128, 100, 0], 128)
     verify = [0, 3, 17, 100, 250, 400, 500, 311]
     args = prefill_case(*adm)
@@ -804,6 +842,12 @@ def phase_kernels(dev):
                 arm(arms, f"paged_prefill {name} window={w} {dt_name}",
                     paged_prefill_attention(*c, window=w),
                     ref.paged_prefill_ref(*c, window=w))
+                for qname, qdt in QPOOLS:
+                    cq, qkw = quantized(c, qdt)
+                    qarm(arms, f"{name} window={w} engine-quantized {qname} "
+                               f"pool {dt_name}", cq, window=w, **qkw)
+                    if dt is bf and w == 0:
+                        q_timed[name, qname] = cq, qkw
         if dt is not bf:
             pp_extra.append(prefill_timed(
                 "4 x 128, cached 0/48/200, f16", cases[0][1]))
@@ -814,6 +858,10 @@ def phase_kernels(dev):
         c = prefill_case(*adm, bs_=bs_, m=m)
         arm(arms, f"paged_prefill 4x128 block_size={bs_} bf16",
             paged_prefill_attention(*c), ref.paged_prefill_ref(*c))
+        for qname, qdt in QPOOLS:
+            cq, qkw = quantized(c, qdt)
+            qarm(arms, f"4x128 block_size={bs_} engine-quantized {qname} "
+                       f"pool bf16", cq, **qkw)
         pp_extra.append(prefill_timed(
             f"4 x 128, cached 0/48/200, block size {bs_}, bf16", c))
     q, ksuf, vsuf, kp, vp, tables, starts, lengths = args
@@ -833,6 +881,29 @@ def phase_kernels(dev):
                              "moved the result")
     print("[kernels] paged_prefill: NaN / inf in the masked pool slots leave "
           "the result bit for bit the same ok")
+    # fp8 NaN codes (0x7F / 0xFF) and NaN scales, int8 NaN scales, in every
+    # pool slot a row may not see: the kernel stages code 0 and scale 0
+    # there (0 times NaN is NaN on the tensor cores), so the result is the
+    # clean call's bit for bit
+    for qname, qdt in QPOOLS:
+        cq, qkw = quantized(args, qdt)
+        kd, vd = cq[3].clone(), cq[4].clone()
+        dkw = {k_: t_.clone() for k_, t_ in qkw.items()}
+        for t_ in dkw.values():
+            t_[~used] = float("nan")
+        if qname == "fp8":
+            kd.view(torch.uint8)[~used] = 0x7F
+            vd.view(torch.uint8)[~used] = 0xFF
+        dq = (*cq[:3], kd, vd, *cq[5:])
+        what = "codes and scales" if qname == "fp8" else "scales"
+        qarm(arms, f"4x128 NaN {what} in the masked {qname} pool slots bf16",
+             dq, **dkw)
+        if not torch.equal(paged_prefill_attention(*dq, **dkw),
+                           paged_prefill_attention(*cq, **qkw)):
+            raise AssertionError(f"paged_prefill: NaN {what} in the masked "
+                                 f"{qname} pool slots moved the result")
+        print(f"[kernels] paged_prefill: NaN {what} in the masked {qname} "
+              f"pool slots leave the result bit for bit the same ok")
     c32 = prefill_case(*adm, dt=torch.float32)
     arm(arms, "paged_prefill 4x128 float32 (CUDA cores)",
         paged_prefill_attention(*c32), ref.paged_prefill_ref(*c32),
@@ -848,27 +919,25 @@ def phase_kernels(dev):
             ("fp8", [rn(*kp.shape, dt=torch.float32).mul(64)
                      .to(torch.float8_e4m3fn) for _ in range(2)])):
         c = (q, ksuf, vsuf, *pools, tables, starts, lengths)
-        arm(arms, f"paged_prefill 4x128 {name} pool (CUDA cores)",
-            paged_prefill_attention(*c, k_scale=sc[0], v_scale=sc[1]),
-            ref.paged_prefill_ref(*c, *sc))
+        qarm(arms, f"4x128 random {name} codes, scales in [0, 1/64) bf16", c,
+             k_scale=sc[0], v_scale=sc[1])
+        if name == "int8":
+            # float32 q over an int8 pool keeps the CUDA-core kernel
+            c = (*c32[:3], *pools, *c32[5:])
+            arm(arms, "paged_prefill 4x128 int8 pool float32 (CUDA cores)",
+                paged_prefill_attention(*c, k_scale=sc[0], v_scale=sc[1]),
+                ref.paged_prefill_ref(*c, *sc), f32_tol=2e-5)
     # the engine's int8 / fp8 admission and verify on pools quantized as
-    # the engine lands them (bf16 q and suffix, the CUDA-core kernel),
+    # the engine lands them (bf16 q and suffix, the tensor-core kernel),
     # timed against the bytes of 1-byte pools plus their f32 scales
-    from repro_torch.models.attention import quantize_kv
-    vc = prefill_case(verify, [0, 1, 2, 5, 5, 3, 5, 0], 5)
-    for name, qdt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
-        for what, c in (("4x128", args), ("verify 8x5", vc)):
-            (kq, ksc), (vq, vsc) = (quantize_kv(p_, qdt) for p_ in c[3:5])
-            cq = (*c[:3], kq, vq, *c[5:])
-            qkw = dict(k_scale=ksc, v_scale=vsc)
-            arm(arms, f"paged_prefill {what} engine-quantized {name} pool "
-                      f"bf16", paged_prefill_attention(*cq, **qkw),
-                ref.paged_prefill_ref(*cq, ksc, vsc))
-            where = ("4 x 128, cached 0/48/200" if what == "4x128"
-                     else "verify 8 x 5 over contexts <= 500")
+    for qname, _ in QPOOLS:
+        for what, where in (("4x128", "4 x 128, cached 0/48/200"),
+                            ("verify 8x5", "verify 8 x 5 over contexts <= "
+                                           "500")):
+            cq, qkw = q_timed[what, qname]
             pp_extra.append(prefill_timed(
-                f"{where}, engine-quantized {name} pool with f32 scales, "
-                f"bf16 (the CUDA-core kernel)", cq, **qkw))
+                f"{where}, engine-quantized {qname} pool with f32 scales, "
+                f"bf16 (the tensor-core kernel)", cq, **qkw))
     bound, by = prefill_bound(args)
     # the admission with q, the suffix and both pools off a 16-byte
     # boundary: the wrapper copies all five before the TMA reads
@@ -1195,6 +1264,11 @@ def phase_kernels(dev):
             arm(new["paged_prefill"], f"paged_prefill {tag} 3 x 16, cached "
                 f"0/8/0 window={w}", paged_prefill_attention(*pp, window=w),
                 ref.paged_prefill_ref(*pp, window=w))
+            for qname, qdt in QPOOLS:
+                cq, qkw = quantized(pp, qdt)
+                qarm(new["paged_prefill"], f"{tag} 3 x 16, cached 0/8/0 "
+                     f"window={w} engine-quantized {qname} pool bf16", cq,
+                     window=w, **qkw)
         for name, arms_ in new.items():
             r = by_name[name]
             r["arms"] += arms_

@@ -60,7 +60,7 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
     "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
-    "paged_prefill_wgmma": [_P] * 9 + [_I] * 10 + [_F, _P],
+    "paged_prefill_wgmma": [_P] * 11 + [_I] * 11 + [_F, _P],
     "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
     "flash_attention_wgmma": [_P] * 5 + [_I] * 9 + [_F, _P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P],

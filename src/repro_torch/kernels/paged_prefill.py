@@ -3,14 +3,16 @@
 The port of `repro/kernels/paged_prefill.py` (a Pallas TPU kernel). The
 kernels are in `csrc/paged_prefill.cu`; `ref.paged_prefill_ref` is their
 plain twin. A CPU tensor takes the twin; a CUDA tensor launches a kernel
-or raises. The dtypes pick the kernel: bf16 / f16 q with a pool of the
-same dtype (the serving path) run the tensor-core kernel (wgmma, TMA
-tiles, the pool gathered in 8-row runs through the block table; a view
-off a 16-byte boundary is first copied into a fresh buffer by
-`build.tma_ready`, and the GQA group is at most 64 heads);
-float32 q and int8 / fp8 pools run the CUDA-core kernel, since TF32 would
-keep too few bits for float32's 2e-5 and dequantizing into bf16 would add
-a rounding. Neither stands in for the other.
+or raises. The dtypes pick the kernel: bf16 / f16 q (the serving path) run
+the tensor-core kernel (wgmma, the GQA group at most 64 heads), over a pool
+of q's dtype (TMA tiles, the pool gathered in 8-row runs through the block
+table) or over an int8 / fp8 pool with its float32 scales (the block's
+threads read the 1-byte rows and convert them exactly to q's dtype; the
+scales multiply S's and P's columns in float32); a view off a 16-byte
+boundary is first copied into a fresh buffer by `build.tma_ready`.
+float32 q, over a float32, int8 or fp8 pool, runs the CUDA-core kernel,
+since TF32 would keep too few bits for float32's 2e-5. Neither stands in
+for the other.
 `ref.paged_prefill_tiled_ref` orders the tensor-core kernel's work on the
 CPU. `paged_prefill_attention.launches` counts kernel launches,
 `paged_prefill_attention.quant_launches` those of them over int8 / fp8
@@ -26,6 +28,13 @@ from repro_torch.kernels.build import FLOAT_DTYPES, HEAD_DIMS, QUANT_DTYPES
 # csrc/paged_prefill.cu: a tensor-core block's 64 rows hold whole positions
 # of one GQA group
 WGMMA_MAX_GROUP = 64
+
+
+def route(q_dtype) -> str:
+    """The kernel a CUDA call launches, from q's dtype alone: "wgmma" for
+    bf16 / f16 q (over a pool of q's dtype or an int8 / fp8 pool),
+    "cuda_cores" for float32 q (over any pool)."""
+    return "cuda_cores" if q_dtype == torch.float32 else "wgmma"
 
 
 def _check(q, k_suf, v_suf, k_pool, v_pool, block_tables, starts, lengths,
@@ -100,26 +109,27 @@ def paged_prefill_attention(q, k_suf, v_suf, k_pool, v_pool, block_tables,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    tensor_cores = q.dtype != torch.float32 and k_pool.dtype == q.dtype
+    tensor_cores = route(q.dtype) == "wgmma"
     if tensor_cores:
         if H // KV > WGMMA_MAX_GROUP:
             raise ValueError(f"paged_prefill_attention: {H // KV} query "
                              f"heads per KV head; the tensor-core kernel "
                              f"takes at most {WGMMA_MAX_GROUP}")
-        # TMA reads all five: a view off a 16-byte boundary is copied
-        # first (for a pool, the whole pool)
+        # TMA reads q, the suffix and a 16-bit pool, 16-byte loads a 1-byte
+        # pool: a view off a 16-byte boundary is copied first (for a pool,
+        # the whole pool)
         q, k_suf, v_suf, k_pool, v_pool = build.tma_ready(
             q, k_suf, v_suf, k_pool, v_pool)
     with torch.cuda.device(q.device):
         if tensor_cores:
             err = build.load("paged_prefill", "paged_prefill_wgmma")(
                 q.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
-                k_pool.data_ptr(), v_pool.data_ptr(),
-                block_tables.data_ptr(), starts.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(),
-                build.DTYPE_CODES[q.dtype], N, Ls, H, KV, hd, P, bs,
-                block_tables.shape[1], int(window), hd ** -0.5,
-                build.stream())
+                k_pool.data_ptr(), v_pool.data_ptr(), build.ptr(k_scale),
+                build.ptr(v_scale), block_tables.data_ptr(),
+                starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype],
+                N, Ls, H, KV, hd, P, bs, block_tables.shape[1], int(window),
+                hd ** -0.5, build.stream())
         else:
             err = build.load("paged_prefill")(
                 q.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),

@@ -283,13 +283,22 @@ def paged_prefill_tiled_ref(q, k_suf, v_suf, k_pool, v_pool, block_tables,
     `key_tile`, an online softmax across tiles in float32, and P rounded
     to q's dtype before P.V, once (p_split=False) or as a hi + lo pair
     (p_split=True, what the kernel does). V rows no query of the row may
-    see are zeroed, as the kernel zeroes them in shared memory. Returns
-    (N, Ls, H, hd) in q's dtype."""
+    see are zeroed, as the kernel zeroes them in shared memory. Over an
+    int8 / fp8 pool the codes enter the products as they are (exact in
+    q's dtype), each score column of a pool tile is multiplied by its k
+    scale before the softmax, and each column of P by its v scale before
+    the rounding (the sum l takes P unscaled), as the kernel does; the
+    scales of V rows no query may see are zeroed with them. Returns (N,
+    Ls, H, hd) in q's dtype."""
     N, Ls, H, hd = q.shape
     KV = k_suf.shape[2]
     dt, dev = q.dtype, q.device
-    kp = _gather_pool(k_pool, k_scale, block_tables)     # (N, KV, S, hd)
-    vp = _gather_pool(v_pool, v_scale, block_tables)
+    kp = _gather_pool(k_pool, None, block_tables)        # (N, KV, S, hd)
+    vp = _gather_pool(v_pool, None, block_tables)
+    S = kp.shape[2]
+    if k_scale is not None:                              # (N, KV, S)
+        ksc, vsc = (t[block_tables.long()].reshape(N, S, KV).transpose(1, 2)
+                    for t in (k_scale, v_scale))
     ks, vs = k_suf.float().transpose(1, 2), v_suf.float().transpose(1, 2)
     qf = q.float().reshape(N, Ls, KV, H // KV, hd).permute(0, 2, 3, 1, 4)
     i = torch.arange(Ls, device=dev)
@@ -298,29 +307,40 @@ def paged_prefill_tiled_ref(q, k_suf, v_suf, k_pool, v_pool, block_tables,
     l = torch.zeros_like(m)
     acc = torch.zeros_like(qf)
     tiles = []
-    for t0 in range(0, kp.shape[2], key_tile):
-        t = torch.arange(t0, min(t0 + key_tile, kp.shape[2]), device=dev)
+    # pool tiles past every row's starts are skipped, as the kernel skips
+    # them: a tile with no valid key leaves m, l and acc bit for bit as
+    # they were
+    s_end = min(S, int(starts.max())) if N else 0
+    for t0 in range(0, s_end, key_tile):
+        t = torch.arange(t0, min(t0 + key_tile, S), device=dev)
         ok = (t[None, None, :] < starts[:, None, None]).expand(N, Ls, -1)
         if window > 0:
             ok = ok & (t[None, None, :] > qpos[:, :, None] - window)
-        tiles.append((kp[:, :, t], vp[:, :, t], ok))
+        sc = None if k_scale is None else (ksc[:, :, t], vsc[:, :, t])
+        tiles.append((kp[:, :, t], vp[:, :, t], sc, ok))
     for u0 in range(0, Ls, key_tile):
         u = torch.arange(u0, min(u0 + key_tile, Ls), device=dev)
         ok = ((u[None, None, :] <= i[None, :, None])
               & (u[None, None, :] < (lengths - starts)[:, None, None]))
         if window > 0:
             ok = ok & (u[None, None, :] > i[None, :, None] - window)
-        tiles.append((ks[:, :, u], vs[:, :, u], ok))
-    for kt, vt, ok in tiles:
+        tiles.append((ks[:, :, u], vs[:, :, u], None, ok))
+    for kt, vt, sc, ok in tiles:
         valid = ok[:, None, None]                        # (N, 1, 1, Ls, n)
-        vt = torch.where(ok.any(1)[:, None, :, None], vt,
-                         torch.zeros_like(vt))
-        s = torch.einsum("nkgqh,nksh->nkgqs", qf, kt) * hd ** -0.5
+        seen = ok.any(1)[:, None, :]                     # (N, 1, n)
+        vt = torch.where(seen[..., None], vt, torch.zeros_like(vt))
+        s = torch.einsum("nkgqh,nksh->nkgqs", qf, kt)
+        if sc is not None:
+            s = s * sc[0][:, :, None, None, :]
+        s = s * hd ** -0.5
         s = torch.where(valid, s, torch.full_like(s, -1e30))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
         l = l * alpha + p.sum(-1, keepdim=True)
+        if sc is not None:
+            t_v = torch.where(seen, sc[1], torch.zeros_like(sc[1]))
+            p = p * t_v[:, :, None, None, :]
         hi = p.to(dt).float()
         pr = hi + (p - hi).to(dt).float() if p_split else hi
         acc = acc * alpha + torch.einsum("nkgqs,nksh->nkgqh", pr, vt)

@@ -711,11 +711,19 @@ class Scheduler:
         suffix is rejected with an actionable error (suffix_bucket)
         rather than falling through to an oversized jit variant."""
         self._shed_hopeless()
+        # rids preempted below in this call for a higher waiting class. In
+        # aged order such a victim (older than the requests it made room
+        # for) may come first, take its lane back and be preempted again,
+        # without end: the reference's admit loops so once a step outlasts
+        # priority_aging_s (src/repro/serving/scheduler.py). This call does
+        # not admit them again; every other admission is the reference's.
+        evicted: set = set()
         while True:
             if self._queue and not self._free_slots():
                 top = max(r.priority for r in self._queue)
                 if not self._preempt_below(top):
                     return
+                evicted.add(self._queue[-1].rid)   # preempt queued it last
             free = self._free_slots()
             if not free or not self._queue:
                 return
@@ -724,7 +732,8 @@ class Scheduler:
             bucket = None
             chunked = False
             taken: set = set()            # id() of admitted requests
-            order = self._admission_order()
+            order = [r for r in self._admission_order()
+                     if r.rid not in evicted]
             j = 0
             while j < len(order) and len(plans) < cap:
                 req = order[j]

@@ -13,7 +13,8 @@ at float32 1e-5 (1 + |twin|), bf16 2 ulps, and its float32 state bit for
 bit, and its y bit for bit to ref.rwkv6_scan_split_ref (the kernel's
 order of the sum). The tensor-core flash kernel (bf16 / f16) is held at
 2e-2 at every head dim, the tensor-core paged_prefill kernel at 2 bf16
-ulps at every head dim and block size; paged decode's split is held bit
+ulps at every head dim and block size, over 16-bit and int8 / fp8 pools
+(NaN codes and scales in masked slots adding nothing); paged decode's split is held bit
 for bit where the output must not move (a row alone or in any batch, a
 non-finite pool past ctx, ctx = 1 giving the token's V row), and each
 wrapper that reads with TMA gives the aligned call's bits on bf16 views
@@ -759,6 +760,133 @@ def test_paged_prefill_wgmma_ignores_nonfinite_masked_pool(cuda, bs, dtype):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dirty).all())
     torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+# paged_prefill over int8 / fp8 pools: bf16 / f16 q on the tensor-core
+# kernel (the codes converted exactly to q's dtype, the scales on S's and
+# P's columns), float32 q on the CUDA-core kernel
+_QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _quantized(args, pool):
+    """The case's pools quantized as the engine lands them
+    (attention.quantize_kv); returns (args, k_scale, v_scale)."""
+    from repro_torch.models.attention import quantize_kv
+    (kq, ksc), (vq, vsc) = (quantize_kv(p_.float(), _QUANT[pool])
+                            for p_ in args[3:5])
+    return (*args[:3], kq, vq, *args[5:]), ksc, vsc
+
+
+@pytest.mark.parametrize("hd", [16, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("bs", [4, 16, 2048])
+def test_paged_prefill_wgmma_quantized_pool_matches_twin(cuda, hd, dtype,
+                                                         pool, bs):
+    """Every case (windows 0 and 64) over a quantized pool within 2 bf16
+    ulps of the float32 twin and bit-equal across two launches; lengths
+    == 0 rows give zeros; each call one launch, counted in launches and
+    in quant_launches."""
+    rng = np.random.default_rng(hd * 10 + bs + len(pool))
+    for name, (starts, counts, Ls) in _PREFILL_CASES.items():
+        args, ksc, vsc = _quantized(
+            _prefill_args(rng, dtype, cuda, hd, bs, starts, counts, Ls), pool)
+        for window in (0, 64):
+            kw = dict(k_scale=ksc, v_scale=vsc, window=window)
+            before = (paged_prefill_attention.launches,
+                      paged_prefill_attention.quant_launches)
+            got = paged_prefill_attention(*args, **kw)
+            torch.cuda.synchronize()
+            assert (paged_prefill_attention.launches,
+                    paged_prefill_attention.quant_launches) == (
+                        before[0] + 1, before[1] + 1)
+            want = ref.paged_prefill_ref(*args, ksc, vsc, window=window)
+            assert got.dtype == dtype and bool(torch.isfinite(got).all())
+            assert _bf16_ulps(got, want) <= 2, (name, window)
+            assert torch.equal(got, paged_prefill_attention(*args, **kw))
+            for n, (s_, c_) in enumerate(zip(starts, counts)):
+                if s_ == 0 and c_ == 0:
+                    assert torch.all(got[n] == 0)
+
+
+@pytest.mark.parametrize("bs", [4, 16, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+def test_paged_prefill_wgmma_quantized_ignores_nan_in_masked_slots(
+        cuda, bs, dtype, pool):
+    """NaN scales (and, in an fp8 pool, NaN codes) in every pool slot a
+    row may not see leave the result bit for bit the same: the kernel
+    stages code 0 and scale 0 there, since 0 times NaN is NaN on the
+    tensor cores."""
+    rng = np.random.default_rng(bs + 7)
+    starts, counts, Ls = [20, 0, 61, 5], [32, 32, 3, 0], 32
+    args, ksc, vsc = _quantized(_prefill_args(rng, dtype, cuda, 64, bs,
+                                              starts, counts, Ls), pool)
+    q, ks, vs, kp, vp, bt, st, ln = args
+    clean = paged_prefill_attention(*args, k_scale=ksc, v_scale=vsc)
+    used = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda)
+    for n, s_ in enumerate(starts):
+        t = torch.arange(s_, device=cuda)
+        used[bt[n, t // bs].long(), t % bs] = True
+    kd, vd, ksd, vsd = kp.clone(), vp.clone(), ksc.clone(), vsc.clone()
+    ksd[~used] = float("nan")
+    vsd[~used] = float("nan")
+    if pool == "fp8":
+        kd.view(torch.uint8)[~used] = 0x7F
+        vd.view(torch.uint8)[~used] = 0xFF
+    dirty = paged_prefill_attention(q, ks, vs, kd, vd, bt, st, ln,
+                                    k_scale=ksd, v_scale=vsd)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+def test_paged_prefill_float32_q_over_quantized_pool_on_cuda_cores(cuda,
+                                                                   pool):
+    """float32 q over an int8 / fp8 pool: the CUDA-core kernel (the
+    tensor-core entry refuses float32 q, the CUDA-core entry 16-bit q),
+    within float32's 2e-5 of the twin, one launch, one quantized."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_prefill import route
+    assert route(torch.float32) == "cuda_cores"
+    assert route(torch.bfloat16) == route(torch.float16) == "wgmma"
+    rng = np.random.default_rng(11)
+    args, ksc, vsc = _quantized(_prefill_args(
+        rng, torch.float32, cuda, 64, 16, *_PREFILL_CASES["admission"]),
+        pool)
+    before = (paged_prefill_attention.launches,
+              paged_prefill_attention.quant_launches)
+    got = paged_prefill_attention(*args, k_scale=ksc, v_scale=vsc)
+    torch.cuda.synchronize()
+    assert (paged_prefill_attention.launches,
+            paged_prefill_attention.quant_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    torch.testing.assert_close(
+        got, ref.paged_prefill_ref(*args, ksc, vsc), atol=2e-5, rtol=2e-5)
+    q, ks, vs, kp, vp, bt, st, ln = args
+    out = torch.empty_like(q)
+    codes = build.DTYPE_CODES
+    N, Ls, H_, hd = q.shape
+    P, bs, KV_, _ = kp.shape
+    shape = (N, Ls, H_, KV_, hd)
+    # the tensor-core entry refuses float32 q ...
+    err = build.load("paged_prefill", "paged_prefill_wgmma")(
+        q.data_ptr(), ks.data_ptr(), vs.data_ptr(), kp.data_ptr(),
+        vp.data_ptr(), ksc.data_ptr(), vsc.data_ptr(), bt.data_ptr(),
+        st.data_ptr(), ln.data_ptr(), out.data_ptr(), codes[torch.float32],
+        codes[kp.dtype], *shape, P, bs, bt.shape[1], 0, hd ** -0.5,
+        build.stream())
+    assert err != 0
+    # ... and the CUDA-core entry bf16 q
+    qb, ksb, vsb = (t.bfloat16() for t in (q, ks, vs))
+    err = build.load("paged_prefill")(
+        qb.data_ptr(), ksb.data_ptr(), vsb.data_ptr(), kp.data_ptr(),
+        vp.data_ptr(), ksc.data_ptr(), vsc.data_ptr(), bt.data_ptr(),
+        st.data_ptr(), ln.data_ptr(), qb.data_ptr(), codes[torch.bfloat16],
+        codes[kp.dtype], *shape, bs, bt.shape[1], 0, hd ** -0.5,
+        build.stream())
+    assert err != 0
 
 
 @pytest.mark.parametrize("shape", [(4, 40, 1, 64), (2, 40, 300, 64),

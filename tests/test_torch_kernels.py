@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import _torch_cpu  # noqa: E402
+from _torch_cpu import time_limit  # noqa: E402,F401
 
 _torch_cpu.share_cores()
 jax = pytest.importorskip("jax")
@@ -29,11 +30,15 @@ from repro.models.attention import \
     chunked_causal_attention as jchunked  # noqa: E402
 from repro.models.attention import \
     streamed_paged_attention as jstreamed  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.kernels import (flash_attention, paged_attention,  # noqa: E402
                                  paged_prefill_attention, ref, svrg_update)
 from repro_torch.kernels import rglru_scan  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.build import FLASH_KEY_TILE, PAGED_CHUNK  # noqa: E402
+from repro_torch.kernels.paged_prefill import \
+    route as prefill_route  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import pad_head_dim  # noqa: E402
 from repro_torch.kernels import rwkv6_scan  # noqa: E402
 
@@ -530,6 +535,171 @@ def test_paged_prefill_nonfinite_masked_pool_adds_nothing(which, bs, M):
     clean, dirty = run(kp, vp), run(kd, vd)
     assert torch.isfinite(dirty.float()).all()
     torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+# paged_prefill over int8 / fp8 pools. The twin with scales against JAX's
+# Pallas kernel in interpret mode, each over pools quantized by its own
+# package's quantize_kv; the tensor-core kernel's quantized order
+# (ref.paged_prefill_tiled_ref with scales: codes exact in q's dtype, the
+# k scale on S's columns, the v scale on P's columns before the hi + lo
+# rounding) within chip_smoke.py's 2-ulp gate at every shape its quantized
+# arms run; NaN codes and scales in masked slots adding nothing.
+_QDT = {"int8": (torch.int8, jnp.int8),
+        "fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn)}
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_paged_prefill_twin_quantized_scales_match_jax(pool, window, hd):
+    rng = np.random.default_rng(hd + window + len(pool))
+    N, Ls, H, KV, bs, M = 3, 16, 4, 2, 4, 24
+    P = N * M + 1
+    q = _rand(rng, N, Ls, H, hd)
+    k_suf, v_suf = _rand(rng, N, Ls, KV, hd), _rand(rng, N, Ls, KV, hd)
+    k_pool, v_pool = _rand(rng, P, bs, KV, hd), _rand(rng, P, bs, KV, hd)
+    bt = (1 + rng.permutation(N * M)).reshape(N, M).astype(np.int32)
+    st = np.asarray([5, 37, 80], np.int32)          # cached prefixes
+    ln = np.asarray([21, 50, 96], np.int32)
+    tdt, jdt = _QDT[pool]
+    (tkq, tks), (tvq, tvs) = (tattn.quantize_kv(_t(p), tdt)
+                              for p in (k_pool, v_pool))
+    (jkq, jks), (jvq, jvs) = (jattn.quantize_kv(jnp.asarray(p), jdt)
+                              for p in (k_pool, v_pool))
+    got = ref.paged_prefill_ref(_t(q), _t(k_suf), _t(v_suf), tkq, tvq,
+                                _t(bt), _t(st), _t(ln), tks, tvs,
+                                window=window).numpy()
+    pallas = np.asarray(jprefill(q, k_suf, v_suf, jkq, jvq, bt, st, ln,
+                                 k_scale=jks, v_scale=jvs, window=window,
+                                 bq=8, interpret=True))
+    assert np.isfinite(got).all()
+    for n in range(N):                        # each row's real suffix
+        s = int(ln[n] - st[n])
+        np.testing.assert_allclose(got[n, :s], pallas[n, :s], **TOL)
+
+
+def _quantize_case(args, pool, engine=True):
+    """The case's pools as int8 / fp8 codes with float32 scales: quantized
+    as the engine lands them, or (engine=False) random codes with scales
+    in [0, 1/64), as chip_smoke.py's first quantized arms draw them."""
+    tdt = _QDT[pool][0]
+    kp, vp = args[3:5]
+    if engine:
+        (kq, ks), (vq, vs) = (tattn.quantize_kv(p.float(), tdt)
+                              for p in (kp, vp))
+    else:
+        g = torch.Generator().manual_seed(len(pool))
+        if pool == "int8":
+            kq, vq = (torch.randint(-127, 128, kp.shape, generator=g,
+                                    dtype=torch.int8) for _ in range(2))
+        else:
+            kq, vq = ((torch.randn(kp.shape, generator=g) * 64).to(tdt)
+                      for _ in range(2))
+        ks, vs = (torch.rand(kp.shape[:3], generator=g) / 64
+                  for _ in range(2))
+    return (*args[:3], kq, vq, *args[5:]), ks, vs
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("case,kw,window", [
+    ("admission", dict(), 0),            # smollm 4 x 128, cached 0/48/200
+    ("admission", dict(), 64),
+    ("admission", dict(dt="f16"), 0),
+    ("admission", dict(engine=False), 0),  # random codes and scales
+    ("bucket16", dict(), 0),
+    ("verify2", dict(), 0),               # speculate=4's verify chains
+    ("verify4", dict(), 0),
+    ("verify5", dict(), 0),
+    ("verify5", dict(dt="f16"), 0),
+    ("small", dict(H=4, KV=2, hd=16), 0),    # the reduced configs
+    ("small", dict(H=32, KV=32, hd=80), 6),  # stablelm-3b
+    ("small", dict(H=10, KV=1, hd=256), 0),  # recurrentgemma-2b
+    ("small", dict(H=10, KV=1, hd=256), 6),
+    ("admission", dict(bs=4, M=128), 0),  # block sizes 4 and 2048
+    ("admission", dict(bs=2048, M=1), 64),
+])
+def test_paged_prefill_quantized_tiled_order_stays_in_the_bf16_gate(
+        pool, case, kw, window):
+    kw = dict(kw)
+    dt = torch.float16 if kw.pop("dt", "bf16") == "f16" else torch.bfloat16
+    engine = kw.pop("engine", True)
+    if case == "admission":
+        starts, counts, Ls = _ADMISSION
+    elif case == "bucket16":
+        starts, counts, Ls = [160, 0, 33, 0], [10, 16, 12, 0], 16
+    elif case.startswith("verify"):
+        starts, counts, Ls = _verify(int(case[-1]))
+    else:
+        kw = {**kw, "bs": 16, "M": 8, "lengths": _SMALL_HD["lengths"]}
+        starts, counts, Ls = _SMALL_HD["starts"], None, 16
+    args = _prefill_bf16_case(len(case) + window, starts, counts, Ls, **kw)
+    if dt is torch.float16:
+        args = (*(a.half() for a in args[:5]), *args[5:])
+    args, ks, vs = _quantize_case(args, pool, engine)
+    got = ref.paged_prefill_tiled_ref(*args, ks, vs, window=window,
+                                      key_tile=FLASH_KEY_TILE, p_split=True)
+    want = ref.paged_prefill_ref(*args, ks, vs, window=window)
+    assert got.dtype == dt
+    assert _bf16_ulps(got, want) <= _TOL_ULPS
+
+
+def test_paged_prefill_quantized_single_rounding_breaks_the_bf16_gate():
+    """The v scale on P's columns before the hi + lo split keeps the
+    16-bit route's 2 ulps; one rounding of P t breaks it as it breaks the
+    16-bit route's."""
+    args, ks, vs = _quantize_case(_prefill_bf16_case(7, *_ADMISSION), "int8")
+    want = ref.paged_prefill_ref(*args, ks, vs)
+    kw = dict(key_tile=FLASH_KEY_TILE)
+    once = ref.paged_prefill_tiled_ref(*args, ks, vs, p_split=False, **kw)
+    split = ref.paged_prefill_tiled_ref(*args, ks, vs, p_split=True, **kw)
+    assert _bf16_ulps(once, want) > 4 * _TOL_ULPS
+    assert _bf16_ulps(split, want) <= _TOL_ULPS
+
+
+@pytest.mark.parametrize("which", ["twin", "tiled"])
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("bs,M", [(16, 32), (4, 128)])
+def test_paged_prefill_quantized_nan_in_masked_slots_adds_nothing(
+        which, pool, bs, M):
+    """NaN scales, and in an fp8 pool NaN codes (0x7F, 0xFF), in every
+    pool slot a row may not see leave the twin and the tensor-core
+    emulation bit for bit the same."""
+    args, ks, vs = _quantize_case(
+        _prefill_bf16_case(3, [20, 0, 61], [32, 32, 3], 32, bs=bs, M=M),
+        pool)
+    q, k_suf, v_suf, kp, vp, bt, st, ln = args
+
+    def run(kp_, vp_, ks_, vs_):
+        a = (q, k_suf, v_suf, kp_, vp_, bt, st, ln, ks_, vs_)
+        if which == "twin":
+            return ref.paged_prefill_ref(*a)
+        return ref.paged_prefill_tiled_ref(*a, key_tile=FLASH_KEY_TILE,
+                                           p_split=True)
+
+    used = torch.zeros(kp.shape[:2], dtype=torch.bool)
+    for n, s in enumerate(st.tolist()):
+        t = torch.arange(s)
+        used[bt[n, t // bs].long(), t % bs] = True
+    kd, vd, ksd, vsd = kp.clone(), vp.clone(), ks.clone(), vs.clone()
+    ksd[~used] = float("nan")
+    vsd[~used] = float("nan")
+    if pool == "fp8":
+        kd.view(torch.uint8)[~used] = 0x7F
+        vd.view(torch.uint8)[~used] = 0xFF
+        assert torch.isnan(kd.float()).any() and torch.isnan(vd.float()).any()
+    clean, dirty = run(kp, vp, ks, vs), run(kd, vd, ksd, vsd)
+    assert torch.isfinite(dirty.float()).all()
+    torch.testing.assert_close(dirty, clean, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "wgmma"), (torch.float16, "wgmma"),
+    (torch.float32, "cuda_cores")])
+def test_paged_prefill_route(dtype, kernel):
+    """The CUDA kernel a call takes is fixed by q's dtype alone: 16-bit q
+    on the tensor cores over any pool (its own dtype, int8, fp8), float32
+    q on CUDA cores."""
+    assert prefill_route(dtype) == kernel
 
 
 # The RWKV6 kernel (csrc/rwkv6_scan.cu) gives each value column's N key

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import _torch_cpu  # noqa: E402
+from _torch_cpu import time_limit  # noqa: E402,F401
 
 _torch_cpu.share_cores()
 jax = pytest.importorskip("jax")

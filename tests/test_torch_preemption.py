@@ -27,6 +27,7 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.sampling import SamplingParams  # noqa: E402
 
 import _torch_cpu  # noqa: E402
+from _torch_cpu import time_limit  # noqa: E402,F401
 
 _torch_cpu.share_cores()
 
@@ -255,8 +256,19 @@ def test_starvation_freedom_under_high_priority_stream(engine, smollm):
     highs = [Request(rid=i, prompt=rng.integers(
         0, cfg.vocab_size, 8).astype(np.int32), max_new_tokens=4,
         arrival=0.0, priority=3) for i in range(1, 7)]
-    old_aging = engine.scheduler.priority_aging_s
-    engine.scheduler.priority_aging_s = 0.01   # age fast: bound the test
+    sched = engine.scheduler
+    old_now, old_aging = sched._now, sched.priority_aging_s
+    # the run clock moves 0.01 s a step and the low request ages a class
+    # a step, so the test takes the same steps on any host. On the wall
+    # clock its course followed the host's speed: where steps took over
+    # 10 ms, the aged low request led the admission order once a lane was
+    # preempted for a waiting high one, took the lane back and was
+    # preempted again, for ever inside one admit() (the reference's
+    # tests/test_preemption.py copy of this test can hang so);
+    # Scheduler.admit no longer re-admits such a victim in the same call
+    clock = [0.0]
+    sched._now = lambda: clock[0]
+    sched.priority_aging_s = 0.01
     try:
         engine.reset_prefix_cache()
         engine.submit(low)
@@ -267,6 +279,7 @@ def test_starvation_freedom_under_high_priority_stream(engine, smollm):
         while engine.has_work:
             engine.step()
             steps += 1
+            clock[0] += 0.01
             if steps <= 3 and steps < len(highs):
                 engine.submit(highs[2 + steps])   # keep pressure coming
             done.update((c.rid, c.tokens) for c in
@@ -277,7 +290,7 @@ def test_starvation_freedom_under_high_priority_stream(engine, smollm):
         np.testing.assert_array_equal(
             done[0], _oracle(params, cfg, low.prompt, low.max_new_tokens))
     finally:
-        engine.scheduler.priority_aging_s = old_aging
+        sched._now, sched.priority_aging_s = old_now, old_aging
 
 
 def test_serve_cli_priority_flags_reach_the_engine(monkeypatch):

@@ -9,6 +9,7 @@ import math
 import numpy as np
 import pytest
 
+from _torch_cpu import time_limit  # noqa: F401
 from repro_torch.serving.slo import QuantileSketch
 
 
