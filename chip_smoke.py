@@ -90,11 +90,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
   4. forward full-width smollm-135m lm.forward on 2 x 256 tokens: finite
              logits, the flash kernel launched;
   5. engine  full-width smollm-135m (30 layers, d_model 576, seeded random
-             weights) through ServingEngine: synthetic (16 prompts of
-             16-96 tokens), shared-prefix (a 64-token prefix, prefix cache
-             hits) and repetitive (speculate=4) streams, 16 new tokens;
-             every completion checked against generate() under the margin
-             rule; the paged kernels launched; then a sampled stream
+             weights) through ServingEngine: synthetic (16 prompts, 4
+             each of 16, 40, 64 and 96 tokens), shared-prefix (8 of a
+             64-token prefix and 20-token suffixes, prefix cache hits) and
+             repetitive (speculate=4; 24 and 48 tokens) streams, 16 new
+             tokens; every completion checked against generate() (one
+             batch a prompt length) under the margin rule; the paged
+             kernels launched; then a sampled stream
              (temperature 0.8, top-k 50, top-p 0.95, speculate 4;
              tokens/s, launches per dispatch);
      engine_quant  the same model with float32 weights on activation-dtype,
@@ -112,6 +114,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
              bit-equal to its host copy, promotion widths on the bucket
              grid, tokens equal to the device-only run's up to a
              divergence inside the bf16 margin rule;
+     engine_cluster  the serving cluster on the same bf16 weights, cast
+             once: replicas built one at a time, each adding its pools and
+             nothing else to torch.cuda.memory_allocated() (within 16
+             MiB); multi_tenant_requests (16 over 4 tenants, 16 new tokens,
+             all at t=0) through one engine, a Router of 2 replicas under
+             round-robin / least-loaded / prefix-affinity and of 4 under
+             prefix-affinity: every arm's tokens under the margin rule
+             against generate(), every block back, placements summing to
+             16, launches by dispatch; a drain arm (replica 1 disabled
+             after its first step: its queue requeues, all 16 complete);
+             an autoscaled cluster (1 to 3 replicas) on a burst of 32 at
+             t=0: a scale-out, all complete under the rule;
+     serve_cli_cluster  the serve CLI at full width, twice: --replicas 2
+             --router prefix (multi-tenant; trace and metrics exports) and
+             --autoscale --slo-autoscale --slo-shed with a tight objective
+             and deadline and the flight recorder (diurnal): exit 0,
+             exports and dump valid, metrics at schema v2 with the SLO
+             sketches, completions plus shed requests equal the requests;
      train   full-width smollm-135m training: float32 card vs CPU (one
              MBProx and one AdamW step at 2 x 64), the config's bf16
              activations over float32 masters at 16 x 512 (10 MBProx and
@@ -181,9 +201,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              widths and profiled rwkv6-3b and recurrentgemma decode steps,
              through generate()'s lm.decode_step and through the engine
              (4 lanes; device busy vs wall, top kernels); the smollm
-             engine's decode step is profiled greedy and sampled.
+             engine's decode step is profiled greedy and sampled, and a
+             sweep of engine_cluster's 2 replicas (8 lanes each, stepped
+             in turn as the router steps them).
 Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8,
-train_small, train and the engine phases (their forwards, generate() and engine runs) and
+train_small, train and the engine phases (their forwards, generate() and
+engine runs; engine_cluster's per arm) and
 read just after, so the launches reported are the main paths' own; the
 paged kernels also count their launches over int8 / fp8 pools. The last lines are the card's name and
 power limit, the kernels JSON line and {"ok": true, "device": {...}}.
@@ -1480,17 +1503,31 @@ def _first_divergence(a, b):
     return None if len(a) == len(b) else n
 
 
-def check_against_generate(params, cfg, reqs, done, dev, bound):
-    """The margin rule (_margin_rule) against generate() run on each
-    request alone. Also returns generate()'s gaps at every generated
-    position."""
+def _batched_refs(params, cfg, reqs, dev):
+    """generate() over the whole stream in one batch (its prompts are of
+    one length): {rid: (tokens, top-1/top-2 gaps)}, the margin rule's
+    reference."""
+    import numpy as np
     from repro_torch.launch.serve import generate
-    refs = {}
+    prompts = np.stack([r.prompt for r in reqs])
+    gen = max(r.max_new_tokens for r in reqs)
+    toks, margins = generate(params, cfg, prompts, gen, device=dev,
+                             return_margins=True)
+    toks, margins = toks.cpu().numpy(), margins.cpu().numpy()
+    return {r.rid: (toks[i, :r.max_new_tokens], margins[i, :r.max_new_tokens])
+            for i, r in enumerate(reqs)}
+
+
+def check_against_generate(params, cfg, reqs, done, dev, bound):
+    """The margin rule (_margin_rule) against generate(), run once for
+    each prompt length on the requests of that length as one batch. Also
+    returns generate()'s gaps at every generated position."""
+    groups = {}
     for r in reqs:
-        toks, margins = generate(params, cfg, r.prompt[None],
-                                 r.max_new_tokens, device=dev,
-                                 return_margins=True)
-        refs[r.rid] = (toks[0].cpu().numpy(), margins[0].cpu().numpy())
+        groups.setdefault(len(r.prompt), []).append(r)
+    refs = {}
+    for group in groups.values():
+        refs.update(_batched_refs(params, cfg, group, dev))
     rec = _margin_rule(done, refs, bound, "engine vs generate()")
     rec["gaps"] = [float(x) for c in sorted(done, key=lambda c: c.rid)
                    for x in refs[c.rid][1]]
@@ -2523,6 +2560,17 @@ def phase_forward(params, cfg, dev):
     return {"ms": secs * 1e3, "launches": counts}
 
 
+def _interleaved(make, lengths, per, seed, **kw):
+    """`per` requests of `make` (a workload generator) at each prompt
+    length, interleaved (one of each length in turn), rids 0 .. n-1."""
+    groups = [make(per, prompt_len=n, seed=seed + i, **kw)
+              for i, n in enumerate(lengths)]
+    out = [g[j] for j in range(per) for g in groups]
+    for i, r in enumerate(out):
+        r.rid = i
+    return out
+
+
 def phase_engine(params, cfg, dev):
     """Three streams through ServingEngine. Launch counters are zeroed
     before each stream and read after it: each stream must launch
@@ -2541,16 +2589,18 @@ def phase_engine(params, cfg, dev):
     # generate(), the streams' reference, primes its cache a token at a
     # time, so the prompts and new tokens are cut to a third of the
     # tokens they had (32-256 / 160 + 8-64 / 48-96 prompts, 32 new) to
-    # keep the script inside its clock
+    # keep the script inside its clock; and the prompts take a few
+    # lengths, interleaved, so that generate() checks each length's
+    # requests as one batch (check_against_generate)
     streams = [
-        ("synthetic", {}, synthetic_requests(
-            16, vocab_size=V, prompt_len=(16, 96), max_new=(16, 16),
-            seed=0)),
+        ("synthetic", {}, _interleaved(
+            synthetic_requests, (16, 40, 64, 96), 4, vocab_size=V,
+            max_new=(16, 16), seed=0)),
         ("shared_prefix", {}, shared_prefix_requests(
-            8, vocab_size=V, prefix_len=64, suffix_len=(8, 32),
+            8, vocab_size=V, prefix_len=64, suffix_len=20,
             max_new=(16, 16), seed=1)),
-        ("repetitive_speculate4", {"speculate": 4}, repetitive_requests(
-            4, vocab_size=V, period=6, prompt_len=(24, 48),
+        ("repetitive_speculate4", {"speculate": 4}, _interleaved(
+            repetitive_requests, (24, 48), 2, vocab_size=V, period=6,
             max_new=(16, 16), seed=2)),
     ]
     engines = {0: ServingEngine(params, cfg, **kw),
@@ -3711,6 +3761,391 @@ def phase_engine_tiered(params, cfg, dev):
     return rec, totals
 
 
+# the cluster phase's engine settings (engine phase's, with room for the
+# profile's 128-token prompts)
+CLUSTER_KW = dict(num_slots=8, block_size=16, max_seq_len=160,
+                  prefix_cache=True)
+# a replica built beside others must add its pools and nothing else: the
+# growth of torch.cuda.memory_allocated() across its construction within
+# this of its cache_bytes (a second copy of smollm-135m's bf16 weights
+# would add 257 MiB)
+REPLICA_MEM_SLACK = 16 * 2 ** 20
+
+
+def _cluster_launches(tag, engines, counts, n_attn):
+    """The per-dispatch launch formula summed over a cluster's engines
+    (no speculation): paged_prefill once a layer a prefill dispatch,
+    paged_attention once a layer a decode step, both launched."""
+    want = {k: 0 for k in counts}
+    want["paged_prefill"] = n_attn * sum(e.runner.prefill_dispatches
+                                         for e in engines)
+    want["paged_attention"] = n_attn * sum(e.steps for e in engines)
+    if counts != want or not counts["paged_prefill"] \
+            or not counts["paged_attention"]:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} "
+                             f"from the dispatch counts")
+    return counts
+
+
+def _blocks_back(tag, engines):
+    for e in engines:
+        held = e.allocator.num_blocks - 1 - e.allocator.num_free
+        if held:
+            raise AssertionError(f"{tag}: an engine holds {held} blocks "
+                                 f"after its run")
+
+
+def phase_engine_cluster(params, cfg, dev):
+    """The serving cluster on full-width smollm-135m (bf16 weights cast
+    once; every replica's runner holds them as they are). Replicas are
+    built one at a time and torch.cuda.memory_allocated() read around
+    each: its growth must be its cache_bytes within REPLICA_MEM_SLACK.
+    The stream: multi_tenant_requests, 16 requests over 4 tenants (48-token
+    system prompts, 16-token suffixes), 16 new tokens, all at t=0, through
+    one ServingEngine, a Router of 2 replicas under each policy and of 4
+    under prefix-affinity (prefix caches cold before each arm): every arm's
+    tokens under the margin rule against generate() (MARGIN_BOUND), every
+    block back, placements summing to 16, launches by the per-dispatch
+    formula; tokens/s and the cached prompt tokens printed. A drain arm
+    disables replica 1 after its first step: its queued requests requeue
+    and all 16 complete under the same rule. Then an autoscaled cluster
+    (AutoscalePolicy(min_replicas=1, max_replicas=3), standby replicas
+    1-2) on bursty_requests(32), all at t=0: at least one scale-out, all
+    32 complete under the rule. Which replica, how many scale-outs: timing
+    decides them, so they are printed, not held. Returns (record, paged
+    launches, the two replicas for the cluster decode profile)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serving.autoscaler import Autoscaler, AutoscalePolicy
+    from repro_torch.serving.engine import (ServingEngine, bursty_requests,
+                                            multi_tenant_requests, summarize,
+                                            synthetic_requests)
+    from repro_torch.serving.replica import Replica
+    from repro_torch.serving.router import POLICIES, Router, summarize_cluster
+    V, L = cfg.vocab_size, cfg.n_layers
+    kw = dict(CLUSTER_KW, device=dev)
+
+    def stream():
+        return multi_tenant_requests(16, vocab_size=V, n_tenants=4,
+                                     prefix_len=48, suffix_len=16,
+                                     max_new=(16, 16), seed=21)
+
+    def burst():
+        reqs = bursty_requests(32, vocab_size=V, prompt_len=64,
+                               max_new=(16, 16), seed=22)
+        for r in reqs:
+            r.arrival = 0.0
+        return reqs
+
+    def warm(eng):                     # cuBLAS handles, the allocator
+        eng.run(synthetic_requests(2, vocab_size=V, prompt_len=(20, 40),
+                                   max_new=(4, 4), seed=9))
+        eng.reset_prefix_cache()
+
+    torch.cuda.synchronize()
+    single = ServingEngine(params, cfg, **kw)
+    warm(single)
+    replicas, memory = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        rep = Replica(params, cfg, replica_id=i, **kw)
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - m0
+        memory.append({"replica": i, "allocated_growth": grew,
+                       "cache_bytes": rep.engine.cache_bytes})
+        if abs(grew - rep.engine.cache_bytes) > REPLICA_MEM_SLACK:
+            raise AssertionError(
+                f"replica {i}: memory_allocated grew by {grew} bytes, its "
+                f"pools are {rep.engine.cache_bytes}: something beside the "
+                f"pools (a copy of the weights?) was allocated")
+        if rep.engine.runner.params["embed"].data_ptr() != \
+                params["embed"].data_ptr():
+            raise AssertionError(f"replica {i} holds its own weights")
+        warm(rep.engine)
+        replicas.append(rep)
+    grown = [(m["allocated_growth"], m["cache_bytes"]) for m in memory]
+    print(f"[engine_cluster] memory_allocated growth per replica vs its "
+          f"cache_bytes: {grown}")
+
+    refs = _batched_refs(params, cfg, stream(), dev)
+    gaps = np.concatenate([g for _, g in refs.values()])
+    if np.median(gaps) <= MARGIN_BOUND:
+        raise AssertionError(f"generate()'s median gap {np.median(gaps)} is "
+                             f"not above the margin bound {MARGIN_BOUND}")
+    launches = {"paged_attention": 0, "paged_prefill": 0}
+    rec = {"memory": memory, "arms": {},
+           "generate_median_gap": float(np.median(gaps))}
+
+    def arm(tag, runner, engines, reqs, refs, router=None):
+        for e in engines:
+            e.reset_prefix_cache()
+        kernels.reset_launch_counts()
+        done = runner.run(reqs)
+        torch.cuda.synchronize()
+        counts = _cluster_launches(tag, engines, kernels.launch_counts(), L)
+        for k in launches:
+            launches[k] += counts[k]
+        _blocks_back(tag, engines)
+        if len(done) != len(reqs):
+            raise AssertionError(f"{tag}: {len(done)} of {len(reqs)} "
+                                 f"completed")
+        rule = _margin_rule(done, refs, MARGIN_BOUND, f"{tag} vs generate()")
+        stats = (summarize_cluster(done, runner.wall_time, runner)
+                 if router else summarize(done, runner.wall_time, runner))
+        cl = stats.get("cluster", {})
+        placed = cl.get("placed", [len(done)])
+        if sum(placed) != len(reqs):
+            raise AssertionError(f"{tag}: placements {placed}")
+        cached = cl.get("cached_prompt_tokens",
+                        stats["prefill"]["cached_tokens"]
+                        if "prefill" in stats else None)
+        where = [(d["rid"], d["at"], round(d["margin"], 4))
+                 for d in rule["diverged_within_bound"]]
+        print(f"[engine_cluster] {tag}: {stats['tokens_per_s']} tokens/s, "
+              f"ttft p50 {stats['ttft_p50_ms']} ms p99 "
+              f"{stats['ttft_p99_ms']} ms; placed {placed}; cached prompt "
+              f"tokens {cached}; vs generate() {rule['exact']}/"
+              f"{rule['requests']} exact, divergences within the bound: "
+              f"{where}; launches paged_prefill {counts['paged_prefill']}, "
+              f"paged_attention {counts['paged_attention']}")
+        rec["arms"][tag] = {"stats": stats, "vs_generate": rule,
+                            "launches": counts, "placed": placed,
+                            "cached_prompt_tokens": cached}
+        return done, stats
+
+    arm("single_engine", single, [single], stream(), refs)
+    for policy in POLICIES:
+        router = Router(replicas[:2], policy=policy)
+        arm(f"2_replicas_{policy}", router,
+            [r.engine for r in replicas[:2]], stream(), refs, router)
+    router = Router(replicas, policy="prefix-affinity")
+    arm("4_replicas_prefix-affinity", router, [r.engine for r in replicas],
+        stream(), refs, router)
+
+    # drain: replica 1 is disabled after its first step; its queue moves
+    reqs = stream()
+    router = Router(replicas[:2], policy="round-robin")
+    engines = [r.engine for r in replicas[:2]]
+    for rep in replicas[:2]:
+        rep.reset_prefix_cache()
+        rep.begin_run()
+    kernels.reset_launch_counts()
+    for r in reqs:
+        router.submit(r)
+    router.place()
+    replicas[1].step()
+    router.place()
+    orphans = router.disable(1)
+    while router.has_work:
+        router.place()
+        for rep in replicas[:2]:
+            if rep.has_work:
+                rep.step()
+    torch.cuda.synchronize()
+    router.enable(1)
+    done = [c for rep in replicas[:2] for c in rep.take_completions()]
+    counts = _cluster_launches("drain", engines, kernels.launch_counts(), L)
+    for k in launches:
+        launches[k] += counts[k]
+    _blocks_back("drain", engines)
+    if not orphans or len(done) != len(reqs) \
+            or {c.rid for c in done} != {r.rid for r in reqs}:
+        raise AssertionError(f"drain: {len(orphans)} requeued, {len(done)} "
+                             f"of {len(reqs)} completed")
+    rule = _margin_rule(done, refs, MARGIN_BOUND, "drain vs generate()")
+    print(f"[engine_cluster] drain: replica 1 disabled after one step, "
+          f"{len(orphans)} queued requests requeued, replica 1 finished "
+          f"{replicas[1].placed} it had admitted; {len(done)}/16 complete, "
+          f"{rule['exact']} exact vs generate()")
+    rec["drain"] = {"requeued": len(orphans), "kept": replicas[1].placed,
+                    "vs_generate": rule, "launches": counts}
+
+    # the autoscaled cluster: one replica, two in standby
+    reqs = burst()
+    brefs = _batched_refs(params, cfg, reqs, dev)
+    router = Router(replicas[:1], policy="least-loaded")
+    asc = Autoscaler(router, policy=AutoscalePolicy(min_replicas=1,
+                                                    max_replicas=3),
+                     standby=replicas[1:3])
+    engines = [r.engine for r in replicas[:3]]
+    for e in engines:
+        e.reset_prefix_cache()
+    kernels.reset_launch_counts()
+    done = router.run(reqs)
+    torch.cuda.synchronize()
+    counts = _cluster_launches("autoscale", engines, kernels.launch_counts(),
+                               L)
+    for k in launches:
+        launches[k] += counts[k]
+    _blocks_back("autoscale", engines)
+    summary = asc.summary()
+    stats = summarize_cluster(done, router.wall_time, router)
+    rule = _margin_rule(done, brefs, MARGIN_BOUND, "autoscale vs generate()")
+    print(f"[engine_cluster] autoscale (bursty, 32 at t=0): "
+          f"{stats['tokens_per_s']} tokens/s, ttft p50 "
+          f"{stats['ttft_p50_ms']} ms p99 {stats['ttft_p99_ms']} ms; "
+          f"{rule['exact']}/{rule['requests']} exact vs generate(); "
+          f"summary {json.dumps(summary)}")
+    if summary["scale_out_events"] < 1 or len(done) != len(reqs):
+        raise AssertionError(f"autoscale: {summary['scale_out_events']} "
+                             f"scale-outs, {len(done)} of {len(reqs)} "
+                             f"completed")
+    rec["autoscale"] = {"summary": summary, "stats": stats,
+                        "vs_generate": rule, "launches": counts}
+    rec["launches"] = launches
+    print(f"[engine_cluster] paged launches over the phase: {launches}")
+    return rec, launches, replicas[:2]
+
+
+def _cli_stats(proc):
+    text = proc.stdout[proc.stdout.index("{"):proc.stdout.rindex("}") + 1]
+    return json.loads(text)
+
+
+def phase_serve_cli_cluster():
+    """The port's serve CLI at full width in processes of its own, on the
+    card: (1) --replicas 2 --router prefix on multi-tenant traffic with
+    --trace-out / --metrics-out; (2) --autoscale (1 to 3 replicas) with
+    --slo-autoscale, a tight --slo-ttft-ms, --slo-shed, a tight
+    --deadline-ms and --flight-recorder on diurnal traffic, with
+    --metrics-out. Both exit 0; their exports and the recorder's dump are
+    valid under the port's validators, the metrics of (2) at schema v2
+    with the SLO sketches; completions plus shed requests equal the
+    requests; the replicas shared one copy of the weights."""
+    from repro_torch.serving.observability import (METRICS_SCHEMA,
+                                                   validate_metrics_dump,
+                                                   validate_trace_events)
+    out = BUILD / "serve_cli_cluster"
+    out.mkdir(parents=True, exist_ok=True)
+    runs = {
+        "replicas_prefix": (16, [
+            "--replicas", "2", "--router", "prefix",
+            "--workload", "multi-tenant", "--tenants", "4",
+            "--prompt-len", "16", "--max-new", "8", "16",
+            "--trace-out", str(out / "trace.json"),
+            "--metrics-out", str(out / "metrics.json")]),
+        "autoscale_slo": (24, [
+            "--autoscale", "--min-replicas", "1", "--max-replicas", "3",
+            "--slo-autoscale", "--slo-ttft-ms", "250", "--slo-shed",
+            "--deadline-ms", "1000", "--workload", "diurnal",
+            "--rate-min", "8", "--rate-max", "64", "--diurnal-period", "1",
+            "--prompt-len", "32", "--max-new", "8", "16",
+            "--flight-recorder", str(out / "flight.json"),
+            "--metrics-out", str(out / "metrics_slo.json")]),
+    }
+    rec = {}
+    for name, (n, flags) in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--full-width",
+             "--requests", str(n), *flags], cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"serve CLI {name} failed (exit "
+                                 f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+        stats = _cli_stats(proc)
+        cl = stats["cluster"]
+        shed = stats.get("shed_requests", 0)
+        scaler = {k: v for k, v in cl.get("autoscaler", {}).items()
+                  if k != "policy"}
+        slo = {k: stats["slo"][k] for k in ("breaches", "peak_burn",
+                                            "ttft_p50_ms")
+               } if "slo" in stats else None
+        print(f"[serve_cli_cluster] {name}: exit 0 in {secs:.1f} s (process "
+              f"start included); {stats['requests']} completed + {shed} shed "
+              f"of {n}; {stats['tokens_per_s']} tokens/s; placed "
+              f"{cl['placed']}, cached prompt tokens "
+              f"{cl['cached_prompt_tokens']}; autoscaler "
+              f"{json.dumps(scaler)}; slo {json.dumps(slo)}")
+        if stats["requests"] + shed != n or stats["device"] != "cuda" \
+                or stats["shared_weights"] is not True:
+            raise AssertionError(f"serve CLI {name}: {stats['requests']} "
+                                 f"completed + {shed} shed of {n} on "
+                                 f"{stats['device']}, shared weights "
+                                 f"{stats['shared_weights']}")
+        rec[name] = {"seconds": secs, "stats": stats}
+    checks = [("trace", validate_trace_events, out / "trace.json"),
+              ("flight recorder dump", validate_trace_events,
+               out / "flight.json"),
+              ("metrics", validate_metrics_dump, out / "metrics.json"),
+              ("SLO metrics", validate_metrics_dump,
+               out / "metrics_slo.json")]
+    for what, validate, path in checks:
+        doc = json.loads(path.read_text())
+        errs = validate(doc)
+        if errs:
+            raise AssertionError(f"serve CLI {what} ({path.name}) invalid: "
+                                 f"{errs[:3]}")
+    slo = json.loads((out / "metrics_slo.json").read_text())
+    if slo["schema"] != METRICS_SCHEMA or not slo.get("sketches"):
+        raise AssertionError(f"the SLO run's metrics dump is at "
+                             f"{slo['schema']} with "
+                             f"{len(slo.get('sketches', []))} sketches")
+    fr = json.loads((out / "flight.json").read_text())
+    print(f"[serve_cli_cluster] exports valid: trace, metrics, metrics "
+          f"{slo['schema']} with {len(slo['sketches'])} sketches, flight "
+          f"recorder {fr['otherData']['flight_recorder']['events']} events, "
+          f"{len(fr['otherData']['flight_recorder']['anomalies'])} anomalies")
+    rec["sketches"] = len(slo["sketches"])
+    return rec
+
+
+def profile_cluster(replicas, vocab, n_sweeps=4):
+    """Where one cluster sweep's time goes: the replicas each with every
+    lane decoding (prompts of 128, all admitted first), n_sweeps sweeps
+    (each replica steps once, in turn, as Router.run does) under
+    torch.profiler. Returns wall ms per sweep, device-busy ms per sweep,
+    the idle share and launches per sweep."""
+    from repro_torch.serving.engine import synthetic_requests
+    new = 3 * n_sweeps + 8
+    for rep in replicas:
+        rep.reset_prefix_cache()
+        for r in synthetic_requests(rep.num_slots, vocab_size=vocab,
+                                    prompt_len=128, max_new=(new, new),
+                                    seed=5 + rep.replica_id):
+            rep.submit(r)
+        rep.begin_run()
+    while any(rep.snapshot().queue_depth for rep in replicas):
+        for rep in replicas:
+            rep.step()
+    for _ in range(2):
+        for rep in replicas:
+            rep.step()
+    torch.cuda.synchronize()
+
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(n_sweeps):
+            for rep in replicas:
+                rep.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_sweeps
+
+    kern, wall = _profiled(window)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n_sweeps
+    launches = sum(e.count for e in kern) / n_sweeps
+    while any(rep.has_work for rep in replicas):
+        for rep in replicas:
+            if rep.has_work:
+                rep.step()
+    for rep in replicas:
+        rep.take_completions()
+    rec = {"replicas": len(replicas),
+           "lanes": sum(r.num_slots for r in replicas),
+           "wall_ms_per_sweep": wall, "device_busy_ms_per_sweep": busy,
+           "idle_share": 1.0 - busy / wall,
+           "kernel_launches_per_sweep": launches}
+    print(f"[profile] smollm-135m cluster sweep ({len(replicas)} replicas x "
+          f"{replicas[0].num_slots} lanes, each replica one step in turn): "
+          f"wall {wall:.2f} ms, device busy {busy:.3f} ms (idle "
+          f"{rec['idle_share']:.1%}), {launches:.0f} kernel launches per "
+          f"sweep")
+    return rec
+
+
 
 def profile_decode(eng, vocab, n_steps=4, sampling=None):
     """Where one decode step's time goes: every lane decoding (prompts of
@@ -3826,6 +4261,10 @@ def main(argv=None):
         "engine_quant", phase_engine_quant, params, cfg, dev)
     record["engine_tiered"], tiered_launches = phase(
         "engine_tiered", phase_engine_tiered, params, cfg, dev)
+    record["engine_cluster"], cluster_launches, cluster_replicas = phase(
+        "engine_cluster", phase_engine_cluster, params, cfg, dev)
+    record["serve_cli_cluster"] = phase("serve_cli_cluster",
+                                        phase_serve_cli_cluster)
     record["train"] = phase("train", phase_train, dev)
     record["core"], profile_core = phase("core", phase_core, dev)
     record["recurrentgemma"], rg_master, rg_params = phase(
@@ -3859,6 +4298,10 @@ def main(argv=None):
     record["sampled_decode_profile"] = phase(
         "sampled_decode_profile", profile_decode, engine, cfg.vocab_size, 4,
         SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5))
+    record["cluster_decode_profile"] = phase(
+        "cluster_decode_profile", profile_cluster, cluster_replicas,
+        cfg.vocab_size)
+    del cluster_replicas
     record["core_profile"] = phase("core_profile", profile_core)
     rw_cfg = get_config("rwkv6-3b")
     record["rwkv6_decode_profile"] = phase(
@@ -3892,11 +4335,13 @@ def main(argv=None):
                 record["engine"]["launches"]["paged_attention"]
                 + quant_launches["paged_attention"]
                 + tiered_launches["paged_attention"]
+                + cluster_launches["paged_attention"]
                 + rg["generate"]["launches"]["paged_attention"]
                 + rg_engine["paged_attention"],
                 "paged_prefill": record["engine"]["launches"]["paged_prefill"]
                 + quant_launches["paged_prefill"]
                 + tiered_launches["paged_prefill"]
+                + cluster_launches["paged_prefill"]
                 + rg_engine["paged_prefill"],
                 "svrg_update": record["core"]["svrg_update_launches"],
                 "rglru_scan": rg["forward"]["launches"]["rglru_scan"]

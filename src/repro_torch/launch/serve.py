@@ -31,14 +31,29 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --workload \
         shared-prefix --n-prefixes 4 --kv-dtype int8 --host-cache-blocks 32
 
+    # a cluster: a router over N engine stacks on one device (each with its
+    # own pools and prefix cache; one copy of the weights), and elastic
+    # autoscaling over warm standby stacks:
+    PYTHONPATH=src python -m repro_torch.launch.serve --replicas 2 \
+        --router prefix --workload multi-tenant --tenants 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload bursty \
+        --autoscale --min-replicas 1 --max-replicas 3 --priorities 0 1
+
+    # the SLO layer: a TTFT objective (latency sketches, burn rates),
+    # deadline shedding, burn-rate autoscaling and the flight recorder:
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload diurnal \
+        --slo-ttft-ms 100 --slo-shed --deadline-ms 500 \
+        --autoscale --slo-autoscale --flight-recorder flight.json
+
 The CLI serves the `.reduced()` config (like the JAX CLI) through the
-single-replica engine (`--mode engine`, the default) or generate()'s
-fixed batch (`--mode naive`); `--full-width` serves the published config.
-The engine serves smollm-135m, recurrentgemma-2b and rwkv6-3b (and the
+engine (`--mode engine`, the default: one engine, or a router over
+`--replicas` engines, or an autoscaled cluster) or generate()'s fixed
+batch (`--mode naive`); `--full-width` serves the published config. The
+engine serves smollm-135m, recurrentgemma-2b and rwkv6-3b (and the
 other attention-only archs), greedy or sampled, on activation-dtype or
-int8 / fp8 pools, with or without the host spill tier. The router,
-autoscaler, SLO and flight-recorder flags belong to later slices and stop
-the CLI with an error naming them.
+int8 / fp8 pools, with or without the host spill tier. The weights are
+cast to the compute dtype once, before any engine is built, so every
+replica of a cluster runs on one device copy of them.
 
 `generate()` is the reference path: it primes a dense KV cache one token
 at a time and decodes a fixed batch in lockstep; the engine's greedy
@@ -49,6 +64,7 @@ output must equal it token for token. Sampled, it draws as the JAX
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -65,11 +81,16 @@ from repro_torch.serving.engine import (ServingEngine, bursty_requests,
                                         repetitive_requests,
                                         shared_prefix_requests, summarize,
                                         synthetic_requests)
-from repro_torch.serving.sampling import SamplingParams
-from repro_torch.serving.observability import (NULL_OBS, Observability,
+from repro_torch.serving.autoscaler import Autoscaler, AutoscalePolicy
+from repro_torch.serving.observability import (NULL_OBS, FlightRecorder,
+                                               Observability,
                                                export_metrics, export_trace,
                                                validate_metrics_dump,
                                                validate_trace_events)
+from repro_torch.serving.replica import Replica
+from repro_torch.serving.router import Router, summarize_cluster
+from repro_torch.serving.sampling import SamplingParams
+from repro_torch.serving.slo import SLOPolicy, SLOSignal, SLOTracker
 
 
 @torch.inference_mode()
@@ -136,8 +157,15 @@ def _sampling_from_args(args):
 def _make_workload(args, cfg):
     rate = float("inf") if args.rate <= 0 else args.rate
     plen = _prompt_len_spec(args.prompt_len)
+    sampling = _sampling_from_args(args)
+    if args.deadline_ms is not None:
+        # stamp a per-request soft TTFT deadline: decoding is unchanged;
+        # under --slo-shed the scheduler sheds requests that cannot make
+        # it and admits tighter deadlines first within a priority class
+        base = sampling if sampling is not None else SamplingParams()
+        sampling = dataclasses.replace(base, deadline_ms=args.deadline_ms)
     common = dict(vocab_size=cfg.vocab_size, max_new=tuple(args.max_new),
-                  sampling=_sampling_from_args(args), seed=args.seed)
+                  sampling=sampling, seed=args.seed)
     if args.workload == "shared-prefix":
         return shared_prefix_requests(
             args.requests, prefix_len=args.prefix_len, suffix_len=plen,
@@ -169,41 +197,113 @@ def _make_workload(args, cfg):
                               **common)
 
 
-# flags of the JAX CLI whose layers are ported in later slices: each stops
-# the CLI with the layer's name when set away from its default
-_LATER = {
-    "replicas": ("replica router", lambda v: v != 1),
-    "autoscale": ("autoscaler", bool),
-    "slo_ttft_ms": ("SLO layer", lambda v: v is not None),
-    "slo_latency_ms": ("SLO layer", lambda v: v is not None),
-    "slo_shed": ("SLO layer", bool),
-    "slo_autoscale": ("SLO layer", bool),
-    "deadline_ms": ("SLO layer", lambda v: v is not None),
-    "flight_recorder": ("flight recorder", lambda v: v is not None),
-}
+def _engine_kwargs(args, max_seq_len, device):
+    return dict(num_slots=args.slots, block_size=args.block_size,
+                max_seq_len=max_seq_len, prefix_cache=args.prefix_cache,
+                prefill_buckets=args.prefill_buckets,
+                prefill_max_batch=args.prefill_batch,
+                prefill_chunk=args.prefill_chunk,
+                speculate=args.speculate, draft=args.draft,
+                ngram=args.ngram, kv_dtype=args.kv_dtype,
+                host_cache_blocks=args.host_cache_blocks,
+                priority_aging=args.priority_aging,
+                # widen the top-k side output when the CLI asks for more
+                # alternatives than the engine default carries
+                max_logprobs=max(args.logprobs, 8), device=device)
+
+
+def _slo_from_args(args):
+    """(SLOPolicy, SLOTracker) when any SLO flag asks for the layer,
+    else (None, None) — the default path carries zero SLO state."""
+    slo_on = (args.slo_ttft_ms is not None
+              or args.slo_latency_ms is not None
+              or args.slo_shed or args.slo_autoscale)
+    if not slo_on:
+        return None, None
+    policy = SLOPolicy(
+        ttft_objective_ms=(args.slo_ttft_ms if args.slo_ttft_ms is not None
+                           else 200.0),
+        latency_objective_ms=args.slo_latency_ms,
+        error_budget=args.slo_budget)
+    return policy, SLOTracker(policy)
+
+
+def _build_cluster(args, cfg, params, obs, slo_tracker, kwargs):
+    """(router, replicas) for --autoscale or --replicas N, else None."""
+    if args.autoscale:
+        # elastic cluster: the router starts with min_replicas enabled
+        # stacks; the rest are built up front and parked in the
+        # autoscaler's standby pool, to be activated (warm) when
+        # sustained queue pressure demands it and drained back when the
+        # burst passes
+        n_max = max(args.max_replicas, args.min_replicas)
+        replicas = [Replica(params, cfg, replica_id=i, obs=obs, **kwargs)
+                    for i in range(n_max)]
+        router = Router(replicas[:args.min_replicas], policy=args.router,
+                        obs=obs)
+        policy = AutoscalePolicy(
+            min_replicas=args.min_replicas, max_replicas=n_max,
+            queue_high=args.queue_high, queue_low=args.queue_low,
+            cooldown_s=args.scale_cooldown)
+        controller = (SLOSignal(slo_tracker, policy, obs=obs)
+                      if args.slo_autoscale else None)
+        Autoscaler(router, policy=policy,
+                   standby=replicas[args.min_replicas:], obs=obs,
+                   controller=controller)
+        return router, replicas
+    if args.replicas > 1:
+        replicas = [Replica(params, cfg, replica_id=i, obs=obs, **kwargs)
+                    for i in range(args.replicas)]
+        return Router(replicas, policy=args.router, obs=obs), replicas
+    return None
 
 
 def _run_engine(args, cfg, params, device):
     reqs = _make_workload(args, cfg)
     max_prompt = max(len(r.prompt) for r in reqs)
-    tracing = bool(args.trace_out or args.metrics_out)
-    obs = Observability() if tracing else NULL_OBS
-    engine = ServingEngine(
-        params, cfg, num_slots=args.slots, block_size=args.block_size,
-        max_seq_len=max_prompt + max(args.max_new) + 1,
-        prefix_cache=args.prefix_cache,
-        prefill_buckets=args.prefill_buckets,
-        prefill_max_batch=args.prefill_batch,
-        prefill_chunk=args.prefill_chunk, speculate=args.speculate,
-        draft=args.draft, ngram=args.ngram, kv_dtype=args.kv_dtype,
-        host_cache_blocks=args.host_cache_blocks,
-        priority_aging=args.priority_aging,
-        # widen the top-k side output when the CLI asks for more
-        # alternatives than the engine default carries
-        max_logprobs=max(args.logprobs, 8), obs=obs, device=device)
-    done = engine.run(reqs)
-    stats = summarize(done, engine.wall_time, engine)
+    kwargs = _engine_kwargs(args, max_prompt + max(args.max_new) + 1, device)
+    _, slo_tracker = _slo_from_args(args)
+    # the recorder is on only when an export was asked for — the default
+    # NULL_OBS path records nothing and adds no work (and outputs are
+    # bit-identical either way). --flight-recorder implies the recorder:
+    # the ring is fed by the same instruments.
+    recorder = (FlightRecorder(dump_path=args.flight_recorder)
+                if args.flight_recorder else None)
+    tracing = bool(args.trace_out or args.metrics_out
+                   or args.flight_recorder)
+    obs = Observability(recorder=recorder) if tracing else NULL_OBS
+    if slo_tracker is not None:
+        kwargs["slo_tracker"] = slo_tracker
+        kwargs["slo_shed"] = args.slo_shed
+        if obs.enabled:
+            obs.slo = slo_tracker    # root view: metrics_dump sketches
+    cluster = _build_cluster(args, cfg, params, obs, slo_tracker, kwargs)
+    if cluster is not None:
+        router, replicas = cluster
+        done = router.run(reqs)
+        stats = summarize_cluster(done, router.wall_time, router)
+    else:
+        engine = ServingEngine(params, cfg, obs=obs, **kwargs)
+        replicas = []
+        done = engine.run(reqs)
+        stats = summarize(done, engine.wall_time, engine)
+    if slo_tracker is not None and "slo" not in stats:
+        # cluster paths: summarize_cluster has no engine handle, so the
+        # shared tracker's snapshot is attached here
+        stats["slo"] = slo_tracker.snapshot()
     stats["device"] = str(device)
+    if replicas:
+        # one device copy of the weights under every replica's runner
+        stats["shared_weights"] = _shared_weights(replicas)
+    if args.flight_recorder:
+        doc = recorder.dump()
+        errs = validate_trace_events(doc)
+        if errs:
+            raise SystemExit(f"invalid flight-recorder dump: {errs[:3]}")
+        fr = doc["otherData"]["flight_recorder"]
+        print(f"flight recorder: {fr['events']} events "
+              f"({fr['dropped']} dropped, {len(fr['anomalies'])} "
+              f"anomalies) to {args.flight_recorder}")
     if args.trace_out:
         doc = export_trace(obs, args.trace_out)
         errs = validate_trace_events(doc)
@@ -216,11 +316,27 @@ def _run_engine(args, cfg, params, device):
         errs = validate_metrics_dump(doc)
         if errs:
             raise SystemExit(f"invalid metrics dump: {errs[:3]}")
-        print(f"wrote metrics to {args.metrics_out}")
+        print(f"wrote metrics ({len(doc['counters'])} counters, "
+              f"{len(doc['series'])} series samples) to {args.metrics_out}")
     print(json.dumps(stats, indent=1))
     if done:
         sample = min(done, key=lambda c: c.rid)
         print(f"sample (req {sample.rid}): {sample.tokens[:16]}")
+
+
+def _shared_weights(replicas) -> bool:
+    """Whether every replica's runner holds the same tensor (one
+    data_ptr) for every weight leaf."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    ptrs = [[t.data_ptr() for t in leaves(r.engine.runner.params)]
+            for r in replicas]
+    return all(p == ptrs[0] for p in ptrs)
 
 
 def _naive_prompts(args, cfg):
@@ -316,29 +432,86 @@ def main(argv=None):
     ap.add_argument("--host-cache-blocks", type=int, default=0,
                     help="host-RAM spill tier capacity in KV blocks "
                          "(0 = off)")
-    ap.add_argument("--trace-out", default=None, metavar="PATH")
-    ap.add_argument("--metrics-out", default=None, metavar="PATH")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="model replicas behind the cluster router "
+                         "(each a full engine stack; 1 = no router)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="elastic cluster: start --min-replicas, scale "
+                         "out to --max-replicas under sustained queue "
+                         "pressure and drain back when idle (overrides "
+                         "--replicas)")
+    ap.add_argument("--min-replicas", type=int, default=1,
+                    help="enabled replicas at run start (--autoscale)")
+    ap.add_argument("--max-replicas", type=int, default=3,
+                    help="replica ceiling; the surplus stacks are built "
+                         "up front as the warm standby pool "
+                         "(--autoscale)")
+    ap.add_argument("--queue-high", type=float, default=2.0,
+                    help="per-replica queue depth that accumulates "
+                         "toward a scale-out (--autoscale)")
+    ap.add_argument("--queue-low", type=float, default=1.0,
+                    help="per-replica load at or below which idleness "
+                         "accumulates toward a scale-in (--autoscale)")
+    ap.add_argument("--scale-cooldown", type=float, default=0.25,
+                    help="minimum seconds between scaling decisions "
+                         "(--autoscale)")
+    ap.add_argument("--router", default="least-loaded",
+                    choices=["rr", "least-loaded", "prefix"],
+                    help="replica placement policy: round-robin, "
+                         "least-loaded (slot+queue occupancy), or "
+                         "prefix-affinity (BlockAllocator match_prefix "
+                         "probe)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                    help="TTFT objective in ms: turns on the SLO layer "
+                         "(streaming latency sketches + burn-rate "
+                         "windows; see repro_torch.serving.slo)")
+    ap.add_argument("--slo-latency-ms", type=float, default=None,
+                    help="end-to-end latency objective in ms (optional "
+                         "second SLO besides TTFT)")
+    ap.add_argument("--slo-budget", type=float, default=0.1,
+                    help="error budget: tolerated fraction of requests "
+                         "over objective (burn rate 1.0 = spending "
+                         "exactly this budget)")
+    ap.add_argument("--slo-shed", action="store_true",
+                    help="SLO-aware admission: order by deadline slack "
+                         "within a priority class and shed requests "
+                         "whose --deadline-ms cannot be met (OFF by "
+                         "default — without it admission order and "
+                         "outputs are untouched)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request soft TTFT deadline in ms after "
+                         "arrival (stamped on every request; acted on "
+                         "only under --slo-shed)")
+    ap.add_argument("--slo-autoscale", action="store_true",
+                    help="drive --autoscale decisions from the TTFT "
+                         "burn rate (SLOSignal) instead of queue depth")
+    ap.add_argument("--flight-recorder", default=None, metavar="PATH",
+                    help="always-on bounded ring of recent trace events; "
+                         "dumps a Perfetto trace to PATH on anomalies "
+                         "(TTFT breach, preemption storm, eviction "
+                         "thrash) and at end of run. Enables the "
+                         "observability recorder.")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace_event JSON of "
+                         "the run (request lifecycle spans per slot, "
+                         "dispatch timeline; open in ui.perfetto.dev). "
+                         "Enables the observability recorder.")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry dump JSON (counters/"
+                         "gauges/histograms + SchedulerStats time series). "
+                         "Enables the observability recorder.")
     ap.add_argument("--seed", type=int, default=0)
-    # JAX CLI flags whose layers come in later slices (see _LATER)
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--autoscale", action="store_true")
-    ap.add_argument("--slo-ttft-ms", type=float, default=None)
-    ap.add_argument("--slo-latency-ms", type=float, default=None)
-    ap.add_argument("--slo-shed", action="store_true")
-    ap.add_argument("--slo-autoscale", action="store_true")
-    ap.add_argument("--deadline-ms", type=float, default=None)
-    ap.add_argument("--flight-recorder", default=None)
     args = ap.parse_args(argv)
-    for flag, (layer, is_set) in _LATER.items():
-        if is_set(getattr(args, flag)):
-            raise SystemExit(f"--{flag.replace('_', '-')}: the {layer} is "
-                             f"not ported to PyTorch yet (a later slice)")
+    if args.slo_autoscale and not args.autoscale:
+        raise SystemExit("--slo-autoscale requires --autoscale")
 
     cfg = get_config(args.arch)
     if not args.full_width:
         cfg = cfg.reduced()
     device = resolve_device(args.device)
-    params = lm.init_params(0, cfg, device=device)
+    # the compute dtype once, up front: every engine's runner (and every
+    # replica of a cluster) then holds these very tensors
+    params = lm.cast_params(lm.init_params(0, cfg, device=device), cfg)
     if args.mode == "engine":
         _run_engine(args, cfg, params, device)
     else:

@@ -52,9 +52,12 @@ Bucketed prefill works for every architecture: right-padded rows are
 length-masked (see models/lm.py) so recurrent final states stay exact.
 
 PyTorch port: a copy of `repro.serving.engine` against the torch runner,
-with two differences:
+with three differences:
   * `ServingEngine` gains `device=` (default CUDA; without a GPU it raises
     unless device="cpu" is given);
+  * it also gains `now_fn=`, the clock (default time.perf_counter), so
+    that a test can run the engine, a cluster's replicas and its router
+    on one deterministic step clock;
   * `step()` hands the decode batch's active lanes to `runner.decode`.
     The JAX step advances every slot's recurrent state, so a lane that
     sits a decode step out mid-way through a chunked prefill (the
@@ -72,7 +75,8 @@ import dataclasses
 import math
 import time
 import warnings
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
@@ -138,6 +142,10 @@ class ServingEngine:
                        burn rate is then cluster-wide); wins over
                        slo_policy
     device             where the model and pools live (default CUDA)
+    now_fn             the clock, a callable giving seconds (default
+                       time.perf_counter); an injected clock (a test's
+                       step clock) is never slept on: an idle engine
+                       reads it again until the next arrival
     slo_shed           enable deadline-aware admission: requests whose
                        `SamplingParams.deadline_ms` cannot be met are
                        shed (finish_reason "shed") and admission
@@ -168,6 +176,7 @@ class ServingEngine:
                  slo_tracker: Optional[SLOTracker] = None,
                  slo_shed: bool = False,
                  obs: Observability = NULL_OBS,
+                 now_fn: Optional[Callable[[], float]] = None,
                  device=None):
         if cfg.frontend != "none":
             raise NotImplementedError(
@@ -212,7 +221,8 @@ class ServingEngine:
         self.slo_shed = bool(slo_shed)
         self._g_burn_fast = self.obs.gauge("slo_burn_rate_fast_gauge")
         self._g_burn_slow = self.obs.gauge("slo_burn_rate_slow_gauge")
-        self._t0 = time.perf_counter()  # engine clock origin (reset by run)
+        self.now_fn = now_fn or time.perf_counter
+        self._t0 = self.now_fn()      # engine clock origin (reset by run)
         # runner first: the allocator's host spill tier moves payloads
         # through the runner's fetch/upload callbacks
         self.runner = ModelRunner(
@@ -262,14 +272,14 @@ class ServingEngine:
     def _now(self) -> float:
         """Seconds on the engine clock (fresh reading — timestamps must be
         taken AFTER the blocking device work they account for)."""
-        return time.perf_counter() - self._t0
+        return self.now_fn() - self._t0
 
     def begin_run(self, t0: Optional[float] = None) -> None:
         """Reset the engine clock and per-run telemetry counters. `t0`
-        (a time.perf_counter reading) lets a cluster router give every
+        (a reading of `now_fn`) lets a cluster router give every
         replica one shared clock origin so timestamps are comparable
         across replicas; None starts the clock now."""
-        self._t0 = time.perf_counter() if t0 is None else t0
+        self._t0 = self.now_fn() if t0 is None else t0
         self.steps = 0
         self.busy_lane_steps = 0
         self.scheduler.reset_stats()      # telemetry is per run
@@ -357,7 +367,8 @@ class ServingEngine:
                 idx += 1
             if not self.has_work:
                 # idle until the next arrival
-                time.sleep(min(pending[idx].arrival - now, 0.05))
+                if self.now_fn is time.perf_counter:
+                    time.sleep(min(pending[idx].arrival - now, 0.05))
                 continue
             self.step()
             yield

@@ -16,7 +16,10 @@ of its tests then fails by itself once it has run TEST_LIMIT_S seconds,
 instead of holding the whole run until the run's own clock cuts it (a cut
 run reports nothing past the cut). The longest port test takes ~40 s
 alone on 8 cores; the limit leaves six times that for a host shared with
-other runs."""
+other runs.
+
+`StepClock` is the clock engine, SLO and cluster tests inject (`now_fn=`)
+so that no test loop is driven by the wall clock."""
 import os
 import signal
 import threading
@@ -55,3 +58,19 @@ def time_limit(request):
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, previous)
+
+
+class StepClock:
+    """A deterministic clock for engine and cluster tests (their `now_fn`):
+    every reading moves it `dt` seconds, so a run's timeline follows its
+    code path and not the host's speed, and the engine's and router's
+    idle waits never sleep on it. Give one instance to every engine of a
+    cluster and to its router."""
+
+    def __init__(self, dt: float = 1e-3):
+        self.dt = dt
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += self.dt
+        return self.t

@@ -375,16 +375,26 @@ def test_serve_cli_engine_serves_recurrent_archs(arch, capsys):
                                   ["--slo-ttft-ms", "100"],
                                   ["--temperature", "0.5"],
                                   ["--flight-recorder", "x.json"]])
-def test_serve_cli_later_slice_flags_stop(flag, capsys):
-    """The router, autoscaler, SLO and flight-recorder flags stop the CLI;
-    --temperature, whose slice has landed, serves sampled requests."""
+def test_serve_cli_later_slice_flags_stop(flag, capsys, tmp_path,
+                                          monkeypatch):
+    """The flags of later slices no longer stop the CLI, since those
+    slices have landed: --temperature serves sampled requests, and the
+    router, autoscaler, SLO and flight-recorder flags serve through their
+    layers (tests/test_torch_serve_cli.py tests each of them)."""
+    monkeypatch.chdir(tmp_path)           # the flight recorder's dump
+    tserve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
+                 "--prompt-len", "6", "--max-new", "2", "4", *flag])
+    out = capsys.readouterr().out
+    stats = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    assert stats["requests"] == 3 and stats["device"] == "cpu"
     if flag[0] == "--temperature":
-        tserve.main(["--device", "cpu", "--requests", "3", "--slots", "2",
-                     "--prompt-len", "6", "--max-new", "2", "4", *flag])
-        assert '"sampled_requests": 3' in capsys.readouterr().out
-        return
-    with pytest.raises(SystemExit, match="not ported"):
-        tserve.main(["--device", "cpu", *flag])
+        assert '"sampled_requests": 3' in out
+    if flag[0] in ("--replicas", "--autoscale"):
+        assert "cluster" in stats
+    if flag[0] == "--slo-ttft-ms":
+        assert stats["slo"]["policy"]["ttft_objective_ms"] == 100.0
+    if flag[0] == "--flight-recorder":
+        assert (tmp_path / "x.json").exists()
 
 
 @pytest.mark.parametrize("flags", [
