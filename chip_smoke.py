@@ -16,7 +16,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              head, hd 256: flash at 2304 tokens with window 2048 and
              without, paged decode over one 2048-slot block per row) and at
              the other head dims the configs have (16, 80; paged_prefill
-             also 256; flash also 128), paged decode's batch invariance
+             also 256; flash also 128), at grok-1-314b's (48 heads over 8
+             KV heads, hd 128: paged decode over 8 lanes up to 256 tokens,
+             paged_prefill's 4 x 128 admission and 8 x 16-token suffixes
+             after 64 cached tokens on the tensor cores, flash at 4 x 128
+             and 8 x 80 tokens and its backward at 2 x 128, each timed
+             beside its twin), paged decode's batch invariance
              (each row alone bit-equal to its batch row), paged_prefill in
              bf16 and f16 (the tensor-core kernel; block sizes 16, 4 and
              2048; NaN / inf in the masked pool slots), bf16 and f16 over
@@ -81,6 +86,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              tiny-vocab marginal of verify_tokens (total variation < 0.03,
              accept rate within 0.02 of q(d)), position keys and accept
              uniforms on the card bit-equal to the CPU's;
+     small_moe  the reduced float32 grok-1-314b (4 experts, top-2) and
+             llama4 (16 experts, top-1) through the engine on the card
+             against the engine on the CPU (a mixed stream with a shared
+             prefix, chunked prompts and capacity drops; grok also at
+             speculate=4): tokens equal up to a divergence where the CPU's
+             routing margin for that request so far (k-th minus (k+1)-th
+             router probability) or its top-1/top-2 logit gap is <= 1e-3;
      train_small  the reduced float32 smollm's training: three MBProx and
              three AdamW steps on the card against the same steps on the
              CPU, then tests/test_system.py's loss-drop run (60 MBProx
@@ -134,8 +146,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              sketches, completions plus shed requests equal the requests;
      train   full-width smollm-135m training: float32 card vs CPU (one
              MBProx and one AdamW step at 2 x 64), the config's bf16
-             activations over float32 masters at 16 x 512 (10 MBProx and
-             6 AdamW outer steps: tokens/s, ms a step, peak memory, one
+             activations over float32 masters at 16 x 512 (6 MBProx and
+             4 AdamW outer steps, 10 and 6 before the MoE slice's cut:
+             tokens/s, ms a step, peak memory, one
              profiled outer step; the first 5 losses against a float32
              card run), and the train CLI's checkpoint / resume on the card
              (the resumed losses against an uninterrupted run, the card's
@@ -188,8 +201,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
              vs stepwise decode <= 0.125 and bf16 vs float32 <= 0.86 on the
              first token's logits, as the port runs (the bounds are twice
              the JAX package's own gaps, measured by
-             benchmarks/torch_rwkv6_bf16_reference.py);
-     serve_cli_rwkv6  the naive serve CLI for rwkv6-3b at full width;
+             benchmarks/torch_rwkv6_bf16_reference.py) (the naive serve
+             CLI at full width runs once, for recurrentgemma-2b, in phase
+             7; its second run, for rwkv6-3b, was cut for the MoE phase's
+             time);
+     engine_moe  full-width grok-1-314b (d_model 6144, 48 / 8 heads of
+             128, 8 experts of d_ff 32768, top-2, vocab 131072, bf16) with
+             its depth cut to 2 layers (11.45 B params; JAX's seed-0
+             weights drawn by lm.init_params on the card, timed; beside
+             rwkv6-3b's bf16 weights, which its profiles keep) through
+             ServingEngine (8 slots,
+             block 16, max_seq_len 256): (a) 16 requests, 4 each of 16 /
+             32 / 64 / 128 tokens, 16 new, under the bf16 margin rule
+             against lm.prefill at each prompt's length + lm.decode_step,
+             (b) 8 requests on a 64-token shared prefix with 16-token
+             suffixes (prefix hits route only the suffix: tokens exact /
+             diverged, not gated); the token-expert assignments each arm
+             drops past capacity (moe.tally), tokens/s, TTFT, TPOT, peak
+             memory, both paged kernels launched per dispatch, every block
+             back;
   9. timings kernel device time (torch.profiler; where no profiler
              window holds every call's kernels, CUDA events around calls
              queued behind a spin kernel), twin and library device time
@@ -203,7 +233,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (4 lanes; device busy vs wall, top kernels); the smollm
              engine's decode step is profiled greedy and sampled, and a
              sweep of engine_cluster's 2 replicas (8 lanes each, stepped
-             in turn as the router steps them).
+             in turn as the router steps them), and engine_moe's decode
+             step (8 lanes) beside the bytes of weights it reads.
 Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8,
 train_small, train and the engine phases (their forwards, generate() and
 engine runs; engine_cluster's per arm) and
@@ -427,12 +458,22 @@ def _times(fn, reps=20, tries=2):
     return dev, wall, None if dev is None else "spaced"
 
 
+# a twin slower than this a call is timed over SLOW_REPS calls: the
+# recurrent scans' twins at prompt lengths take 20-260 ms a call
+SLOW_MS = 10.0
+SLOW_REPS = 3
+
+
 def _times_spaced_first(fn, reps=20):
     """_times for a twin or a library call: their many small launches
     rarely all land in one profiler window, and each window costs about a
     second of host time, so CUDA events behind a spin kernel come first
-    and one profiler window only where those cannot be taken."""
-    wall = _time_ms(fn, reps)
+    and one profiler window only where those cannot be taken. A call
+    slower than SLOW_MS is timed over SLOW_REPS calls."""
+    warmup = 5
+    if _time_ms(fn, 1, warmup=1) > SLOW_MS:
+        reps, warmup = SLOW_REPS, 0
+    wall = _time_ms(fn, reps, warmup)
     dev = _spaced_ms(fn, reps, wall)
     if dev is not None:
         return dev, wall, "spaced"
@@ -675,7 +716,25 @@ def phase_kernels(dev):
     bound, by = _bound_ms(nbytes, 4 * H * hd * n_tok)
     # batch invariance, which the engine's greedy identity with generate()
     # rests on: every row alone equals its row of the batch bit for bit
-    for name, a in (("engine B=8", args), ("hd256 group10 B=4", rg)):
+    # grok-1-314b's decode (engine_moe): 48 query heads over 8 KV heads
+    # (group 6), hd 128, bf16 pools in 16-token blocks, 8 lanes up to the
+    # engine's max_seq_len of 256
+    gm = 256 // bs
+    gctx = i32([0, 1, 17, 64, 100, 144, 200, 255])
+    gk = (rn(8, 48, 128), rn(8 * gm + 1, bs, 8, 128),
+          rn(8 * gm + 1, bs, 8, 128), tables_for(8, gm), gctx)
+    arm(arms, "paged_attention grok-1 hd128 group6 B=8 bf16",
+        paged_attention(*gk), ref.paged_attention_ref(*gk))
+    g_tok = int(gctx.sum())
+    gb = _bound_ms(2 * _nbytes(gk[0]) + _nbytes(gk[3], gk[4])
+                   + 2 * g_tok * 8 * 128 * 2, 4 * 48 * 128 * g_tok)
+    grok_pa_arm = dict(label="grok-1-314b's decode: 48 / 8 heads, hd 128, "
+                             "B=8, ctx 0..255, bf16 pools",
+                       _fns=(lambda a=gk: paged_attention(*a),
+                             lambda a=gk: ref.paged_attention_ref(*a), None),
+                       bound_ms=gb[0], bound_by=gb[1])
+    for name, a in (("engine B=8", args), ("hd256 group10 B=4", rg),
+                    ("grok-1 hd128 group6 B=8", gk)):
         full = paged_attention(*a)
         for b_ in range(a[0].shape[0]):
             alone = paged_attention(a[0][b_:b_ + 1], a[1], a[2],
@@ -776,7 +835,8 @@ def phase_kernels(dev):
               lambda a=args: ref.paged_attention_ref(*a), None),
         bound_ms=bound, bound_by=by,
         shape=dict(B=B, H=H, KV=KV, hd=hd, bs=bs, M=M, ctx=ctx.tolist()),
-        _extra=[rg_arm, w_arm, *wq_arms, pa_unaligned], **worst(arms)))
+        _extra=[rg_arm, w_arm, *wq_arms, pa_unaligned, grok_pa_arm],
+        **worst(arms)))
 
     # -- paged_prefill, at each shape the engine gives it: an admission of
     # 4 x 128 (a fresh prompt, a cached prefix, a long cached prefix and a
@@ -961,6 +1021,26 @@ def phase_kernels(dev):
             pp_extra.append(prefill_timed(
                 f"{where}, engine-quantized {qname} pool with f32 scales, "
                 f"bf16 (the tensor-core kernel)", cq, **qkw))
+    # grok-1-314b's admissions (engine_moe): 48 query heads over 8 KV
+    # heads (group 6), hd 128, bf16, the tensor-core kernel; 4 x 128 (three
+    # fresh prompts and a batch-padding row) and arm (b)'s prefix hits, 8
+    # x 16-token suffixes after 64 cached tokens
+    def grok_case(starts, counts, Ls, m=256 // bs):
+        n = len(starts)
+        st = i32(starts)
+        return (rn(n, Ls, 48, 128), rn(n, Ls, 8, 128), rn(n, Ls, 8, 128),
+                rn(n * m + 1, bs, 8, 128), rn(n * m + 1, bs, 8, 128),
+                tables_for(n, m), st, st + i32(counts))
+
+    for gname, gc in (("4x128", grok_case([0, 0, 0, 0], [128, 128, 100, 0],
+                                          128)),
+                      ("8x16 after 64 cached", grok_case([64] * 8, [16] * 8,
+                                                         16))):
+        arm(arms, f"paged_prefill grok-1 hd128 group6 {gname} bf16",
+            paged_prefill_attention(*gc), ref.paged_prefill_ref(*gc))
+        pp_extra.append(prefill_timed(
+            f"grok-1-314b's {gname}: 48 / 8 heads, hd 128, bf16 (the "
+            f"tensor-core kernel)", gc))
     bound, by = prefill_bound(args)
     # the admission with q, the suffix and both pools off a 16-byte
     # boundary: the wrapper copies all five before the TMA reads
@@ -1024,6 +1104,22 @@ def phase_kernels(dev):
                           lambda: F.scaled_dot_product_attention(
                               *f128, is_causal=True, enable_gqa=True)),
                     bound_ms=fb128[0], bound_by=fb128[1])
+    # grok-1-314b's lm.prefill (engine_moe's reference route): 48 query
+    # heads over 8 KV heads, hd 128, 4 x 128 and 8 x 80 tokens
+    g128 = (rn(4, 48, 128, 128), rn(4, 8, 128, 128), rn(4, 8, 128, 128))
+    g80 = (rn(8, 48, 80, 128), rn(8, 8, 80, 128), rn(8, 8, 80, 128))
+    for gname, ga in (("4x48/8x128", g128), ("8x48/8x80", g80)):
+        arm(arms, f"flash_attention grok-1 {gname} hd128 causal=True",
+            flash_attention(*ga), ref.flash_attention_ref(*ga))
+    gfb = _bound_ms(2 * _nbytes(g128[0]) + _nbytes(*g128[1:]),
+                    4 * 4 * 48 * 128 * 128 * 129 // 2)
+    grok_fl_arm = dict(label="grok-1-314b's prefill: 4 x 48 / 8 heads x 128, "
+                             "hd 128, causal, bf16",
+                       _fns=(lambda: flash_attention(*g128),
+                             lambda: ref.flash_attention_ref(*g128),
+                             lambda: F.scaled_dot_product_attention(
+                                 *g128, is_causal=True, enable_gqa=True)),
+                       bound_ms=gfb[0], bound_by=gfb[1])
     fl_unaligned = unaligned_arm(
         f"flash_attention 2x{S} causal bf16", flash_attention,
         ref.flash_attention_ref, (q, k, v), (0, 1, 2), (bound, by))
@@ -1037,7 +1133,7 @@ def phase_kernels(dev):
                   q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=bound, bound_by=by,
         shape=dict(B=2, H=H, KV=KV, S=S, hd=hd),
-        _extra=[fl_arm, f128_arm, fl_unaligned],
+        _extra=[fl_arm, f128_arm, fl_unaligned, grok_fl_arm],
         **worst(arms)))
 
     # -- flash_attention_bwd: the gradient of every attention layer of
@@ -1126,6 +1222,11 @@ def phase_kernels(dev):
     bwd_extra = [bwd_timed("2 x 9/3 x 512, hd 64, causal, float32", bwd_f32),
                  dict(bwd_timed(f"1 x 10/1 x {Sr}, hd 256, window {Wr}, bf16",
                                 bwd_rg, window=Wr, mask=mask), _reps=5)]
+    # grok-1-314b's attention at hd 128, group 6 (MoE training's shape)
+    bwd_grok = bwd_arm("2x48/8x128 hd128 causal bf16",
+                       bwd_inputs(2, 48, 8, 128, 128, bf))
+    bwd_extra.append(bwd_timed("grok-1-314b's 2 x 48/8 x 128, hd 128, "
+                               "causal, bf16", bwd_grok))
     # the other head dims: checked, not timed (the timings phase's length)
     for hd_, (h_, kv_) in ((16, (4, 2)), (80, (8, 8)), (128, (16, 4))):
         for causal, w in ((True, 0), (False, 0), (True, 48)):
@@ -1885,8 +1986,8 @@ def _profile_step(step_fn, tag):
 def phase_train(dev):
     """Full-width smollm-135m: (a) float32, card against CPU (2 x 64,
     n_micro 2, one MBProx and one AdamW step); (b) the config's bf16
-    activations over float32 masters at 16 x 512, n_micro 2: 10 MBProx and
-    6 AdamW outer steps (tokens/s, ms per step, peak memory, one profiled
+    activations over float32 masters at 16 x 512, n_micro 2: 6 MBProx and
+    4 AdamW outer steps (tokens/s, ms per step, peak memory, one profiled
     step), the first 5 MBProx losses against a float32 card run on the
     same batches; (c) the train CLI's checkpoint and resume: 4 steps with
     a checkpoint, resumed to 6, against 6 uninterrupted; the card's
@@ -1926,20 +2027,20 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
     from repro_torch.tree import tree_leaves
     # (b)
     master = lm.init_params(0, cfg, device=dev)
-    batches = _train_batches(cfg, 11, 16, 512, 2)
+    batches = _train_batches(cfg, 7, 16, 512, 2)
     sched = Schedule(peak=3e-3, warmup=5, total=20)
-    lrs = [sched(i) for i in range(11)]
+    lrs = [sched(i) for i in range(7)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, p, secs = _train_run(cfg, master, dev, "mbprox", batches[:10],
-                                 lrs[:10], timed=True)
+    losses, p, secs = _train_run(cfg, master, dev, "mbprox", batches[:6],
+                                 lrs[:6], timed=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = 16 * 512
     step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
     l32, _ = _train_run(cfg32, master, dev, "mbprox", batches[:5], lrs[:5])
     gap = max(abs(a - b) for a, b in zip(losses[:5], l32))
-    adam, _, asecs = _train_run(cfg, master, dev, "baseline", batches[:6],
-                                lrs[:6], timed=True)
+    adam, _, asecs = _train_run(cfg, master, dev, "baseline", batches[:4],
+                                lrs[:4], timed=True)
     finite = all(math.isfinite(x) for x in losses + adam + l32)
     ok = finite and gap <= TRAIN_BF16_ATOL
     adam_ms = 1e3 * sorted(asecs[1:])[len(asecs[1:]) // 2]
@@ -1949,7 +2050,7 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
           f"{tokens / step_ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB "
           f"allocated")
     print(f"[train] first 5 losses bf16 vs float32 on the card: {l32} "
-          f"(max gap {gap:.4g}, tolerance {TRAIN_BF16_ATOL}); AdamW 6 steps"
+          f"(max gap {gap:.4g}, tolerance {TRAIN_BF16_ATOL}); AdamW 4 steps"
           f" {[round(x, 4) for x in adam]} median {adam_ms:.1f} ms "
           f"({tokens / adam_ms * 1e3:.0f} tokens/s); all finite {finite} "
           f"{'ok' if ok else 'FAIL'}")
@@ -1961,7 +2062,7 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
 
     def one_step():
         state["p"], state["s"], _ = step(state["p"], state["s"],
-                                         to_device(batches[10], dev), lrs[10])
+                                         to_device(batches[6], dev), lrs[6])
 
     prof = _profile_step(one_step, "train")
     rec["bf16"] = {"batch": [16, 512], "n_micro": 2, "mbprox_losses": losses,
@@ -2473,6 +2574,331 @@ def phase_engine_recurrent(master, params, cfg, dev, tag):
         raise AssertionError(f"{tag} bf16: logprobs not finite or positive")
     rec["bf16"] = {"stats": stats}
     return rec, totals
+
+
+# ----------------------------------------------------------------------------
+# MoE: reduced grok-1-314b / llama4 card vs CPU, and full-width grok-1-314b
+# (2 layers) through the engine
+# ----------------------------------------------------------------------------
+
+def _margin_run(eng, reqs):
+    """eng.run(reqs), with every emitted token's routing margin: the
+    smallest k-th minus (k+1)-th router probability of any MoE decision
+    made for its request up to the step that emitted it (moe.tally with
+    margins around each dispatch; a row or lane is known by the
+    scheduler's slot, an admission's row by its prompt). Returns (completions
+    by rid, {rid: [margin per emitted token]})."""
+    import numpy as np
+    from repro_torch.models import moe
+    rid_of = {r.prompt.tobytes(): r.rid for r in reqs}
+    runner, sched = eng.runner, eng.scheduler
+    orig = {n: getattr(runner, n) for n in ("prefill", "decode", "verify")}
+    step_min = {}
+
+    def wrap(name, rids_of):
+        def call(*a, **kw):
+            rids = rids_of(*a)
+            with moe.tally(margins=True) as t:
+                out = orig[name](*a, **kw)
+            if t.row_margins:
+                m = torch.stack(t.row_margins).amin(0).tolist()
+                for rid, v in zip(rids, m):
+                    if rid is not None:
+                        step_min[rid] = min(step_min.get(rid, math.inf), v)
+            return out
+        return call
+
+    def lanes(*_):
+        return [None if s is None else s.req.rid for s in sched._slots]
+
+    def rows(rows):
+        # a chunk's row holds its prompt up to the chunk's end, in a slot
+        # the scheduler has already given it; a whole prompt's slot is
+        # taken once the dispatch returns
+        return [rid_of[np.asarray(r.tokens, np.int32).tobytes()]
+                if sched._slots[r.slot] is None
+                else sched._slots[r.slot].req.rid for r in rows]
+
+    runner.prefill = wrap("prefill", rows)
+    runner.decode = wrap("decode", lanes)
+    runner.verify = wrap("verify", lanes)
+    margins, run_min = {r.rid: [] for r in reqs}, {}
+    try:
+        for r in reqs:
+            eng.submit(r)
+        eng.begin_run()
+        while eng.has_work:
+            step_min.clear()
+            eng.step()
+            now = {s.req.rid: len(s.out) for s in sched._slots
+                   if s is not None}
+            now.update({c.rid: len(c.tokens) for c in sched.completions})
+            for rid, n in now.items():
+                run_min[rid] = min(run_min.get(rid, math.inf),
+                                   step_min.get(rid, math.inf))
+                margins[rid] += [run_min[rid]] * (n - len(margins[rid]))
+    finally:
+        for n, fn in orig.items():
+            setattr(runner, n, fn)
+    done = {c.rid: c for c in sched.completions}
+    sched.completions = []
+    return done, margins
+
+
+def phase_small_moe(dev):
+    """The reduced float32 grok-1-314b (4 experts, top-2) and llama4 (16
+    experts, top-1) through ServingEngine (4 slots, block 4, prefix cache,
+    chunks of 16) on the card against the same engine on the CPU: a mixed
+    stream (a shared prefix, chunked 18- and 30-token prompts; prefills
+    drop assignments past capacity), and for grok also speculate=4 on a
+    repetitive stream. Tokens equal up to a divergence where the CPU's
+    routing margin for that request so far, or its top-1/top-2 logit gap
+    at the token, is <= MARGIN_BOUND_F32; every block back."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.device import to_device
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
+    kw = dict(num_slots=4, block_size=4, max_seq_len=64, prefill_chunk=16,
+              prefix_cache=True)
+    rec = {}
+    for tag, cfg in (("grok", get_config("grok-1-314b").reduced()),
+                     ("llama4", get_config("llama4-maverick-400b-a17b")
+                      .reduced(n_experts=16))):
+        params = lm.init_params(0, cfg, device="cpu")
+        cuda_params = to_device(params, dev)
+        V = cfg.vocab_size
+        rng = np.random.default_rng(11)
+        prefix = rng.integers(0, V, 12).astype(np.int32)
+        mixed = [rng.integers(0, V, n).astype(np.int32)
+                 for n in (9, 15, 30, 3)]
+        mixed[1:1] = [np.concatenate([prefix, rng.integers(0, V, n)
+                                      .astype(np.int32)]) for n in (4, 6)]
+        pattern = rng.integers(0, V, 4).astype(np.int32)
+        streams = [("mixed", 0, mixed)]
+        if tag == "grok":
+            streams.append(("repetitive", 4, [np.tile(pattern, 5)[:n]
+                                              for n in (14, 18, 11)]))
+        for name, spec, prompts in streams:
+            runs = {}
+            for where, p_ in (("cpu", params), ("cuda", cuda_params)):
+                eng = ServingEngine(p_, cfg, speculate=spec,
+                                    device="cpu" if where == "cpu" else dev,
+                                    **kw)
+                free0 = eng.allocator.num_free
+                runs[where] = _margin_run(eng, [
+                    Request(rid=i, prompt=p, max_new_tokens=12,
+                            sampling=SamplingParams(logprobs=2))
+                    for i, p in enumerate(prompts)])
+                if eng.allocator.num_free != free0:
+                    raise AssertionError(f"small_moe {tag} {name} "
+                                         f"({where}): blocks not returned")
+            (cpu, margins), (card, _) = runs["cpu"], runs["cuda"]
+            exact, excused = 0, []
+            for rid, c in sorted(cpu.items()):
+                i = _first_divergence(card[rid].tokens, c.tokens)
+                if i is None:
+                    exact += 1
+                    continue
+                top = c.top_logprobs[i]
+                gap = float(top[0] - top[1])
+                excused.append({"rid": rid, "at": i, "logit_gap": gap,
+                                "routing_margin": margins[rid][i]})
+                if min(gap, margins[rid][i]) > MARGIN_BOUND_F32:
+                    raise AssertionError(
+                        f"small_moe {tag} {name}: request {rid} leaves the "
+                        f"CPU's tokens at {i}, where the CPU's logit gap is "
+                        f"{gap:.3g} and its routing margin so far "
+                        f"{margins[rid][i]:.3g} (bound {MARGIN_BOUND_F32})")
+            low = sum(m <= MARGIN_BOUND_F32 for ms in margins.values()
+                      for m in ms)
+            total = sum(len(ms) for ms in margins.values())
+            rec[f"{tag}_{name}"] = {
+                "requests": len(cpu), "speculate": spec, "exact": exact,
+                "diverged_within_bound": excused,
+                "tokens_after_a_small_routing_margin": [low, total]}
+            print(f"[small_moe] {tag} {name} (speculate {spec}): engine "
+                  f"cuda vs cpu {exact}/{len(cpu)} exact, divergences "
+                  f"within the bound {excused}; {low} of {total} tokens "
+                  f"follow a routing margin <= {MARGIN_BOUND_F32}")
+    return rec
+
+
+# full-width grok-1-314b, the depth cut to 2 layers, through the engine
+MOE_ARCH = "grok-1-314b"
+MOE_LAYERS = 2
+MOE_KW = dict(num_slots=8, block_size=16, max_seq_len=256,
+              prefix_cache=True)
+
+
+def _moe_requests(V):
+    """Arm (a)'s stream: 16 requests at t = 0, 4 each of 16 / 32 / 64 / 128
+    tokens (each length a bucket of its own; lengths interleaved), 16 new
+    tokens, prompts from numpy.random.default_rng(0)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, V, n).astype(np.int32),
+                    max_new_tokens=16)
+            for i, n in enumerate((16, 32, 64, 128) * 4)]
+
+
+def _weight_read_bytes(params):
+    """Bytes of weights one decode step reads: every tensor but the
+    embedding table (of which it reads a row a lane). Each expert stack is
+    read whole, since every expert computes its capacity slots."""
+    from repro_torch.tree import tree_leaves
+    e = params["embed"]
+    return (sum(t.numel() * t.element_size() for t in tree_leaves(params))
+            - e.numel() * e.element_size())
+
+
+def phase_engine_moe(dev):
+    """Full-width grok-1-314b (d_model 6144, 48 / 8 heads of 128, 8
+    experts of d_ff 32768, top-2, vocab 131072, bf16) with its depth cut
+    to 2 layers, JAX's seed-0 weights drawn by lm.init_params on the card
+    (timed), through ServingEngine (8 slots, block 16, max_seq_len 256,
+    speculate 0, prefix cache on). (a) The identity arm (_moe_requests)
+    under the bf16 margin rule against lm.prefill at each prompt's own
+    length (one batch a length) and lm.decode_step (_prefill_refs); the
+    token-expert assignments each dropped; tokens/s, TTFT, TPOT; both
+    paged kernels launched once per layer per dispatch. (b) The
+    shared-prefix arm: 8 requests on one 64-token prefix with 16-token
+    suffixes, whose prefix hits route only the suffix: tokens exact /
+    diverged against the same reference route, drops; every block back.
+    Returns (record, the engine, the params) for the decode profile."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+    from repro_torch.serving.engine import (ServingEngine,
+                                            shared_prefix_requests,
+                                            summarize, synthetic_requests)
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = lm.init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    weight_bytes = _weight_read_bytes(params)
+    print(f"[engine_moe] {cfg.name} at {cfg.n_layers} layers: {n_params:,} "
+          f"params, {n_bytes / 2**30:.2f} GiB, drawn by lm.init_params on "
+          f"the card in {init_s:.1f} s")
+    V = cfg.vocab_size
+    eng = ServingEngine(params, cfg, device=dev, **MOE_KW)
+    eng.run(synthetic_requests(2, vocab_size=V, prompt_len=(20, 40),
+                               max_new=(4, 4), seed=9))      # warm-up
+    eng.reset_prefix_cache()
+    torch.cuda.synchronize()
+    free0 = eng.allocator.num_free
+    rec = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "params": n_params, "param_bytes": n_bytes,
+                      "init_s": init_s,
+                      "weight_read_bytes_per_step": weight_bytes}}
+    launches = {}
+    arms = (("identity", _moe_requests(V)),
+            ("shared_prefix", shared_prefix_requests(
+                8, vocab_size=V, prefix_len=64, suffix_len=16,
+                max_new=(16, 16), seed=1)))
+    for name, reqs in arms:
+        kernels.reset_launch_counts()
+        with moe.tally() as t:
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assigned, dropped = t.read()
+        stats = summarize(done, eng.wall_time, eng)
+        prefills = stats["prefill"]["dispatches"]
+        want = {"paged_prefill": cfg.n_layers * prefills,
+                "paged_attention": cfg.n_layers * eng.steps,
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0}
+        if counts != want:
+            raise AssertionError(f"engine_moe {name}: launches {counts}, "
+                                 f"expected {want} from the dispatches")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if len(done) != len(reqs) or eng.allocator.num_free != free0:
+            raise AssertionError(f"engine_moe {name}: {len(done)} of "
+                                 f"{len(reqs)} completed, "
+                                 f"{eng.allocator.num_free} of {free0} "
+                                 f"blocks free")
+        # the reference route: its lm.prefill launches flash_attention,
+        # its decode_step paged_attention over the dense cache
+        kernels.reset_launch_counts()
+        with moe.tally() as rt:
+            refs = _prefill_refs(params, cfg, reqs, dev)
+        ref_counts = kernels.launch_counts()
+        r_assigned, r_dropped = rt.read()
+        if name == "identity":
+            vs = _margin_rule(done, refs, MARGIN_BOUND,
+                              "engine_moe vs lm.prefill + decode_step")
+            for k in ("flash_attention", "paged_attention"):
+                launches[k] += ref_counts[k]
+        else:
+            vs = {"requests": len(done), "exact": sum(
+                _first_divergence(c.tokens, refs[c.rid][0]) is None
+                for c in done)}
+        gaps = np.concatenate([refs[c.rid][1] for c in done])
+        stats.update(launches=counts, reference_launches=ref_counts,
+                     decode_steps=eng.steps,
+                     drops={"assigned": assigned, "dropped": dropped,
+                            "share": dropped / assigned},
+                     reference_drops={"assigned": r_assigned,
+                                      "dropped": r_dropped,
+                                      "share": r_dropped / r_assigned},
+                     vs_reference=vs,
+                     reference_gap_median=float(np.median(gaps)))
+        rec[name] = stats
+        within = [(d["rid"], d["at"], round(d["margin"], 4))
+                  for d in vs.get("diverged_within_bound", [])]
+        print(f"[engine_moe] {name}: {stats['requests']} requests, "
+              f"{stats['generated_tokens']} tokens, {stats['tokens_per_s']} "
+              f"tokens/s, ttft p50 {stats['ttft_p50_ms']} ms p99 "
+              f"{stats['ttft_p99_ms']} ms, tpot p50 {stats['tpot_p50_ms']} "
+              f"ms; prefix hits {stats['prefix_cache']['hit_requests']}; "
+              f"{prefills} prefill, {eng.steps} decode dispatches; launches "
+              f"{counts}; dropped {dropped} of {assigned} token-expert "
+              f"assignments ({dropped / assigned:.2%}; the reference route "
+              f"{r_dropped} of {r_assigned}); vs lm.prefill + decode_step "
+              f"{vs['exact']}/{vs['requests']} exact"
+              + (f", divergences within the bound (request, token, gap) "
+                 f"{within}" if name == "identity" else "")
+              + f"; the reference's median top-1/top-2 gap "
+                f"{np.median(gaps):.4f}")
+    if rec["identity"]["reference_gap_median"] <= MARGIN_BOUND:
+        raise AssertionError(f"engine_moe: the reference's median gap "
+                             f"{rec['identity']['reference_gap_median']} "
+                             f"is not above the margin bound {MARGIN_BOUND}")
+    rec["launches"] = launches
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"[engine_moe] peak torch.cuda.max_memory_allocated "
+          f"{rec['peak_memory_bytes'] / 2**30:.2f} GiB; weights a decode "
+          f"step reads {weight_bytes / 1e9:.3f} GB, "
+          f"{weight_bytes / PEAK_BYTES_S * 1e3:.3f} ms at "
+          f"{PEAK_BYTES_S / 1e12} TB/s")
+    return rec, eng, params
+
+
+def profile_moe_decode(eng, params):
+    """profile_decode of engine_moe's engine (8 lanes decoding 128-token
+    prompts) beside the step's weight-read bound."""
+    rec = profile_decode(eng, eng.cfg.vocab_size)
+    nbytes = _weight_read_bytes(params)
+    rec["weight_read_bound_ms"] = nbytes / PEAK_BYTES_S * 1e3
+    rec["weight_read_bytes"] = nbytes
+    print(f"[profile] {eng.cfg.name} ({eng.cfg.n_layers} layers) decode "
+          f"step's weight-read bound: {nbytes / 1e9:.3f} GB in "
+          f"{rec['weight_read_bound_ms']:.3f} ms, "
+          f"{rec['weight_read_bound_ms'] / rec['device_busy_ms_per_step']:.1%}"
+          f" of the device-busy {rec['device_busy_ms_per_step']:.3f} ms; "
+          f"wall {rec['wall_ms_per_step']:.2f} ms")
+    return rec
 
 
 def profile_lm_decode(params, cfg, dev, n_steps=4):
@@ -4249,6 +4675,7 @@ def main(argv=None):
                                  "small_rwkv")
     record["small_sampled"] = phase("small_sampled", phase_small_sampled,
                                     dev)
+    record["small_moe"] = phase("small_moe", phase_small_moe, dev)
     record["train_small"] = phase("train_small", phase_train_small, dev)
     record["serve_cli_default"] = phase("serve_cli_default",
                                         phase_serve_cli_default)
@@ -4288,8 +4715,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     record["rwkv6_4_layers"] = phase("rwkv6_4_layers", phase_rwkv6_4_layers,
                                      dev)
-    record["serve_cli_rwkv6"] = phase("serve_cli_rwkv6", phase_serve_cli,
-                                      dev, "rwkv6-3b")
+    record["engine_moe"], moe_engine, moe_params = phase(
+        "engine_moe", phase_engine_moe, dev)
     # profiled last: torch.profiler's hooks stay behind in the process
     phase("timings", phase_timings, kern)
     record["decode_profile"] = phase("decode_profile", profile_decode,
@@ -4302,6 +4729,10 @@ def main(argv=None):
         "cluster_decode_profile", profile_cluster, cluster_replicas,
         cfg.vocab_size)
     del cluster_replicas
+    record["moe_decode_profile"] = phase(
+        "moe_decode_profile", profile_moe_decode, moe_engine, moe_params)
+    del moe_engine, moe_params
+    torch.cuda.empty_cache()
     record["core_profile"] = phase("core_profile", profile_core)
     rw_cfg = get_config("rwkv6-3b")
     record["rwkv6_decode_profile"] = phase(
@@ -4324,11 +4755,13 @@ def main(argv=None):
                       max_seq_len=2560, device=dev), rg_cfg.vocab_size)
     del rg_params
     rg, rw = record["recurrentgemma"], record["rwkv6"]
+    mo = record["engine_moe"]["launches"]
     tr = (record["train_small"]["launches"], record["train"]["launches"])
     launches = {"flash_attention":
                 record["forward"]["launches"]["flash_attention"]
                 + rg["forward"]["launches"]["flash_attention"]
-                + sum(t["flash_attention"] for t in tr),
+                + sum(t["flash_attention"] for t in tr)
+                + mo["flash_attention"],
                 "flash_attention_bwd":
                 sum(t["flash_attention_bwd"] for t in tr),
                 "paged_attention":
@@ -4337,12 +4770,12 @@ def main(argv=None):
                 + tiered_launches["paged_attention"]
                 + cluster_launches["paged_attention"]
                 + rg["generate"]["launches"]["paged_attention"]
-                + rg_engine["paged_attention"],
+                + rg_engine["paged_attention"] + mo["paged_attention"],
                 "paged_prefill": record["engine"]["launches"]["paged_prefill"]
                 + quant_launches["paged_prefill"]
                 + tiered_launches["paged_prefill"]
                 + cluster_launches["paged_prefill"]
-                + rg_engine["paged_prefill"],
+                + rg_engine["paged_prefill"] + mo["paged_prefill"],
                 "svrg_update": record["core"]["svrg_update_launches"],
                 "rglru_scan": rg["forward"]["launches"]["rglru_scan"]
                 + rg["generate"]["launches"]["rglru_scan"]

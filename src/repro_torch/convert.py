@@ -14,8 +14,9 @@ inverse (port trees back to the JAX layout with numpy leaves), and
 params layout (a params tree, or an optimizer state of such trees) into
 the JAX layout and back with tensor leaves: the checkpoint format, which
 the two packages share, stores the JAX layout. It handles every
-architecture's tree (recurrent, MoE, frontends) even where the port's
-models do not run it yet.
+architecture's tree (recurrent, MoE with its (E, D, F) / (E, F, D) expert
+stacks, frontends), the frontends' too, which the port's models do not
+run yet.
 """
 from __future__ import annotations
 

@@ -23,6 +23,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch rwkv6-3b --full-width --mode naive
 
+    # the MoE archs (top-k capacity-routed experts): grok-1-314b, and
+    # llama4-maverick-400b-a17b (MoE every second layer), reduced:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-maverick-400b-a17b --mode naive
+
     # sampled decoding (per-request threefry streams, JAX's draws) with
     # stop tokens and top-k logprobs; int8 / fp8 KV pools with the host
     # spill tier:
@@ -49,15 +55,19 @@ The CLI serves the `.reduced()` config (like the JAX CLI) through the
 engine (`--mode engine`, the default: one engine, or a router over
 `--replicas` engines, or an autoscaled cluster) or generate()'s fixed
 batch (`--mode naive`); `--full-width` serves the published config. The
-engine serves smollm-135m, recurrentgemma-2b and rwkv6-3b (and the
-other attention-only archs), greedy or sampled, on activation-dtype or
+engine serves smollm-135m, recurrentgemma-2b, rwkv6-3b, the MoE archs
+(grok-1-314b, llama4-maverick-400b-a17b) and the other attention-only
+archs, greedy or sampled, on activation-dtype or
 int8 / fp8 pools, with or without the host spill tier. The weights are
 cast to the compute dtype once, before any engine is built, so every
 replica of a cluster runs on one device copy of them.
 
 `generate()` is the reference path: it primes a dense KV cache one token
 at a time and decodes a fixed batch in lockstep; the engine's greedy
-output must equal it token for token. Sampled, it draws as the JAX
+output must equal it token for token, except for an MoE arch where a
+prefill drops tokens past capacity: the engine routes a prompt's suffix
+at its bucket length, generate() one token at a time (capacity 1), as
+in the JAX package, whose engine the port's follows. Sampled, it draws as the JAX
 `generate()` does: one `split` of the key a step, then
 `categorical(sub, logits / temperature)`.
 """

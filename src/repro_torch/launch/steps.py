@@ -48,19 +48,21 @@ def make_baseline_train_step(cfg: ModelConfig):
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
                                                device=p.device), params)
         n_micro = next(tree_leaves(batch)).shape[0]
-        losses = []
+        losses, metrics = [], []
         for i in range(n_micro):
-            (l, _), g = mbprox_lib.value_and_grad(
+            (l, m), g = mbprox_lib.value_and_grad(
                 loss_fn, params, tree_map(lambda x: x[i], batch))
             with torch.no_grad():
                 grads = tree_map(lambda a, gi: a + gi.to(a.dtype), grads, g)
             losses.append(l)
+            metrics.append(m)
         with torch.no_grad():
             grads = tree_map(lambda g: g / n_micro, grads)
             grads, gnorm = clip_by_global_norm(grads, 1.0)
             params, opt_state = opt.update(grads, opt_state, params, lr)
         return params, opt_state, {"loss": torch.stack(losses).mean(),
-                                   "gnorm": gnorm}
+                                   "gnorm": gnorm,
+                                   **mbprox_lib.mean_metrics(metrics)}
 
     return train_step, opt
 

@@ -12,7 +12,11 @@ technique, `optim/mbprox.py`) or the AdamW baseline, on CUDA unless
 `--device` names another device. Batches are drawn on the CPU from
 threefry keys fold_in(PRNGKey(seed + 1), step) (JAX's batches) and moved
 to the device. Checkpoints (every 50 steps and at the end) use the JAX
-package's file format, so either package resumes the other's run.
+package's file format, so either package resumes the other's run. For an
+arch with MoE layers (grok-1-314b, llama4-maverick-400b-a17b) each logged
+step also prints the load-balancing and router z-loss terms (moe_aux,
+moe_zloss, averaged over the step's microbatches), which the loss
+includes as the JAX train_loss does (0.01 and 1e-4 of them).
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ def train(arch: str, steps: int, *, optimizer: str = "mbprox",
         step_fn, opt = steps_lib.make_baseline_train_step(cfg)
         opt_state = opt.init(params)
     sched = Schedule(peak=lr, warmup=max(5, steps // 20), total=steps)
+    has_moe = "moe" in cfg.prefix_pattern + cfg.block_pattern
 
     start = 0
     if ckpt_dir and resume:
@@ -76,7 +81,10 @@ def train(arch: str, steps: int, *, optimizer: str = "mbprox",
         losses.append(float(metrics["loss"]))
         if step % log_every == 0 or step == steps - 1:
             dt = time.time() - t0
-            print(f"step {step:5d} loss {losses[-1]:.4f} "
+            moe_terms = (f"moe_aux {float(metrics['moe_aux']):.4f} "
+                         f"moe_zloss {float(metrics['moe_zloss']):.4f} "
+                         if has_moe else "")
+            print(f"step {step:5d} loss {losses[-1]:.4f} {moe_terms}"
                   f"({dt:.1f}s)", flush=True)
         if ckpt_dir and (step + 1) % 50 == 0:
             ckpt_lib.save(ckpt_dir, step, {"params": params,

@@ -14,13 +14,21 @@ and the decode / paged states follow the same tree. The JAX package's
 Entry points match the JAX module: init_params, cast_params, forward,
 train_loss, prefill, init_decode_state, decode_step, prefill_paged,
 decode_step_paged, decode_verify_paged and commit_decode_state. Attention layers ("attn",
-"attn_local"), RG-LRU layers ("rec", recurrentgemma) and RWKV6 layers
-("rwkv", rwkv6) are ported, on every path. In the paged state (the serving
-engine's) attention layers hold block pools and recurrent layers
-slot-indexed state, (num_slots, ...) per leaf. "moe" blocks and the vision
+"attn_local"), MoE layers ("moe": attention, then the routed experts of
+`models/moe.py`; grok-1, llama4), RG-LRU layers ("rec", recurrentgemma)
+and RWKV6 layers ("rwkv", rwkv6) are ported, on every path. In the paged
+state (the serving engine's) attention and MoE layers hold block pools and
+recurrent layers slot-indexed state, (num_slots, ...) per leaf. The vision
 / audio frontends raise NotImplementedError until their slice. Decode
 state (dense caches, paged pools, recurrent state) is updated in place,
 and every function that takes a state returns the same object.
+
+MoE capacity follows the tokens a call routes in each batch row, as in
+the JAX module: a paged prefill routes the row's suffix at its bucket
+length and a verify its chain, while decode routes one token (capacity 1,
+no drops). So where a prefill drops tokens the engine does not equal
+generate(), which primes its cache a token at a time; it equals the JAX
+engine.
 
 One difference from the JAX module: decode_step_paged takes `active`, the
 lanes the scheduler put in the step. The JAX step advances every slot's
@@ -38,11 +46,11 @@ import torch.utils.checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, recurrent
+from repro_torch.models import attention, moe, recurrent
 from repro_torch.models.layers import (init_embed, init_mlp, mlp, rms_norm,
                                        softmax_xent)
 
-ATTN_KINDS = ("attn", "attn_local")
+ATTN_KINDS = ("attn", "attn_local", "moe")
 RECURRENT_KINDS = ("rec", "rwkv")
 
 
@@ -50,12 +58,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(the MoE-and-frontends slice)")
+            f"(the frontends slice)")
     for kind in cfg.prefix_pattern + cfg.block_pattern:
-        if kind == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE blocks are not ported yet (the "
-                f"MoE-and-frontends slice)")
         if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(kind)
 
@@ -99,10 +103,13 @@ def _init_block(key, cfg: ModelConfig, kind: str):
                                             cfg.head_dim, dt),
                 "cmix": recurrent.init_rwkv_channel_mix(k2, D, cfg.d_ff,
                                                         dt)}
-    return {**norms,
-            "attn": attention.init_attention(k1, D, cfg.n_heads,
-                                             cfg.n_kv_heads, cfg.head_dim,
-                                             dt),
+    attn = attention.init_attention(k1, D, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, dt)
+    if kind == "moe":
+        return {**norms, "attn": attn,
+                "moe": moe.init_moe(k2, D, cfg.d_ff, cfg.n_experts, dt,
+                                    cfg.mlp_kind)}
+    return {**norms, "attn": attn,
             "mlp": init_mlp(k2, D, cfg.d_ff, dt, cfg.mlp_kind)}
 
 
@@ -161,6 +168,18 @@ def _head(params, cfg: ModelConfig, h):
 def _mlp_residual(p, x, cfg: ModelConfig):
     return x + mlp(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
                    cfg.mlp_kind)
+
+
+def _ffn_residual(kind: str, p, x, cfg: ModelConfig, n_valid=None):
+    """The second half of an attention or MoE layer, residual included:
+    the MLP, or the routed experts. Returns (x, the MoE aux dict, or None
+    for an MLP). n_valid: (B,) each row's real tokens (moe.tally reads
+    it)."""
+    if kind != "moe":
+        return _mlp_residual(p, x, cfg), None
+    y, aux = moe.moe_block(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                           cfg, kind=cfg.mlp_kind, n_valid=n_valid)
+    return x + y, aux
 
 
 def _recurrent_layer(kind: str, p, h, cfg: ModelConfig, state=None,
@@ -227,9 +246,10 @@ def _write_state(st, new, active=None):
 
 def _seq_layer(kind: str, p, h, cfg: ModelConfig, positions,
                collect_kv: bool = False, lengths=None):
-    """One layer over a full sequence: (h, its state when collect_kv)."""
+    """One layer over a full sequence: (h, its state when collect_kv, the
+    MoE aux dict or None)."""
     if kind in RECURRENT_KINDS:
-        return _recurrent_layer(kind, p, h, cfg, lengths=lengths)
+        return _recurrent_layer(kind, p, h, cfg, lengths=lengths) + (None,)
     o = attention.attention_block(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), positions, cfg,
         window=_window(cfg, kind), return_kv=collect_kv)
@@ -237,40 +257,64 @@ def _seq_layer(kind: str, p, h, cfg: ModelConfig, positions,
     if collect_kv:
         o, (k, v) = o
         kv = {"k": k, "v": v}
-    return _mlp_residual(p, h + o, cfg), kv
+    h, aux = _ffn_residual(kind, p, h + o, cfg, lengths)
+    return h, kv, aux
+
+
+def _add_aux(acc, aux):
+    """acc (moe_aux, moe_zloss) plus a layer's aux dict (None: nothing)."""
+    if aux is None:
+        return acc
+    return acc[0] + aux["moe_aux"], acc[1] + aux["moe_zloss"]
 
 
 def _run_blocks_seq(params, cfg: ModelConfig, h, positions,
                     collect_kv: bool = False, lengths=None,
                     remat: bool = False):
     """All layers over a full sequence. Returns (h, per-layer states when
-    collect_kv else None): {"k", "v"} for attention layers, {"rec": {"h",
-    "conv"}} for RG-LRU layers, {"tmix": {"shift", "S"}, "cmix"} for RWKV6
-    layers. `lengths` freezes recurrent layers past each row's true length
-    (attention needs no mask: trailing pads are causally invisible).
-    remat=True recomputes each superblock in the backward pass
-    (torch.utils.checkpoint, non-reentrant), as the JAX path wraps each in
-    jax.checkpoint; prefix layers run as they are, as there."""
-    if remat:
-        for kind, p in zip(cfg.prefix_pattern, params["prefix"]):
-            h, _ = _seq_layer(kind, p, h, cfg, positions)
-
-        def superblock(h, s):
-            for pi, kind in enumerate(cfg.block_pattern):
-                h, _ = _seq_layer(kind, params["blocks"][f"p{pi}"][s], h,
-                                  cfg, positions)
-            return h
-
-        for s in range(cfg.n_super):
-            h = torch.utils.checkpoint.checkpoint(superblock, h, s,
-                                                  use_reentrant=False)
-        return h, None
+    collect_kv else None, aux): states {"k", "v"} for attention and MoE
+    layers, {"rec": {"h", "conv"}} for RG-LRU layers, {"tmix": {"shift",
+    "S"}, "cmix"} for RWKV6 layers; aux {"moe_aux", "moe_zloss"}, float32
+    scalars summed over the MoE layers as the JAX path sums them (prefix
+    layers one by one, then each superblock's own sum). `lengths` freezes
+    recurrent layers past each row's true length (attention needs no mask:
+    trailing pads are causally invisible; MoE routes them after the row's
+    tokens, which they cannot displace). remat=True recomputes each
+    superblock in the backward pass (torch.utils.checkpoint,
+    non-reentrant), as the JAX path wraps each in jax.checkpoint; prefix
+    layers run as they are, as there."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
     kvs: List = []
-    for kind, p in _layers(params, cfg):
-        h, st = _seq_layer(kind, p, h, cfg, positions, collect_kv, lengths)
+
+    def layer(kind, p, h, acc):
+        h, st, aux = _seq_layer(kind, p, h, cfg, positions, collect_kv,
+                                lengths)
         if collect_kv:
             kvs.append(st)
-    return h, (kvs if collect_kv else None)
+        return h, _add_aux(acc, aux)
+
+    acc = (zero, zero)
+    for kind, p in zip(cfg.prefix_pattern, params["prefix"]):
+        h, acc = layer(kind, p, h, acc)
+
+    def superblock(h, s):
+        sub = (zero, zero)
+        for pi, kind in enumerate(cfg.block_pattern):
+            h, sub = layer(kind, params["blocks"][f"p{pi}"][s], h, sub)
+        return (h,) + sub
+
+    per_super = []
+    for s in range(cfg.n_super):
+        out = (torch.utils.checkpoint.checkpoint(superblock, h, s,
+                                                 use_reentrant=False)
+               if remat else superblock(h, s))
+        h = out[0]
+        per_super.append(out[1:])
+    if per_super:
+        acc = tuple(a + torch.stack(t).sum()
+                    for a, t in zip(acc, zip(*per_super)))
+    aux = {"moe_aux": acc[0], "moe_zloss": acc[1]}
+    return h, (kvs if collect_kv else None), aux
 
 
 def _positions(B: int, S: int, device):
@@ -279,25 +323,27 @@ def _positions(B: int, S: int, device):
 
 def forward(params, cfg: ModelConfig, batch, remat: bool = False):
     """Full-sequence logits. batch: {"tokens": (B, S) int}. Returns
-    (logits (B, S, V), aux) — aux carries the JAX path's (zero) MoE
-    losses. remat: recompute each superblock in the backward pass."""
+    (logits (B, S, V), aux): aux {"moe_aux", "moe_zloss"}, the MoE layers'
+    load-balancing and router z-losses summed over layers (float32 zeros
+    for a model without them). remat: recompute each superblock in the
+    backward pass."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     h = _embed(params, cfg, tokens)
-    h, _ = _run_blocks_seq(params, cfg, h,
-                           _positions(*tokens.shape, tokens.device),
-                           remat=remat)
+    h, _, aux = _run_blocks_seq(params, cfg, h,
+                                _positions(*tokens.shape, tokens.device),
+                                remat=remat)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, h), {"moe_aux": 0.0, "moe_zloss": 0.0}
+    return _head(params, cfg, h), aux
 
 
 def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
     """Mean next-token cross-entropy of batch {"tokens", "targets"} (both
-    (B, S) int) plus the MoE terms, as the JAX train_loss. Returns (total,
-    {"xent", "moe_aux", "moe_zloss"}); the MoE terms are zeros, since the
-    dense attention archs are the ones that train here. Differentiable
-    through the flash kernel (its backward is a kernel too)."""
+    (B, S) int) plus the MoE terms, as the JAX train_loss: total = xent +
+    0.01 moe_aux + 1e-4 moe_zloss. Returns (total, {"xent", "moe_aux",
+    "moe_zloss"}). Differentiable through the flash kernel (its backward is
+    a kernel too) and the MoE layers' products."""
     for kind in cfg.prefix_pattern + cfg.block_pattern:
         if kind in RECURRENT_KINDS:
             raise NotImplementedError(
@@ -306,8 +352,6 @@ def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
                 f"'Recurrent training')")
     logits, aux = forward(params, cfg, batch, remat=remat)
     loss = softmax_xent(logits, batch["targets"]).mean()
-    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
-    aux = {k: zero + v for k, v in aux.items()}
     total = loss + 0.01 * aux["moe_aux"] + 1e-4 * aux["moe_zloss"]
     return total, {"xent": loss, **aux}
 
@@ -325,18 +369,20 @@ def _to_tree(cfg: ModelConfig, per_layer: List):
 def prefill(params, cfg: ModelConfig, batch):
     """Single-shot prefill: (logits (B, S, V), cache) where cache mirrors
     init_decode_state's tree with each attention layer's rope'd
-    {"k", "v"} of shape (B, S, KV, hd), each RG-LRU layer's final
-    {"rec": {"h", "conv"}} and each RWKV6 layer's final {"tmix": {"shift",
-    "S"}, "cmix"}. A "lengths" entry in batch ((B,) true lengths of
-    right-padded rows) freezes the recurrent layers past each row's length;
-    attention needs no mask."""
+    {"k", "v"} of shape (B, S, KV, hd) (MoE layers too), each RG-LRU
+    layer's final {"rec": {"h", "conv"}} and each RWKV6 layer's final
+    {"tmix": {"shift", "S"}, "cmix"}. A "lengths" entry in batch ((B,) true
+    lengths of right-padded rows) freezes the recurrent layers past each
+    row's length; attention needs no mask. MoE routes all S positions of a
+    row with capacity at S."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     h = _embed(params, cfg, tokens)
-    h, kvs = _run_blocks_seq(params, cfg, h,
-                             _positions(*tokens.shape, tokens.device),
-                             collect_kv=True, lengths=batch.get("lengths"))
+    h, kvs, _ = _run_blocks_seq(params, cfg, h,
+                                _positions(*tokens.shape, tokens.device),
+                                collect_kv=True,
+                                lengths=batch.get("lengths"))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, h), _to_tree(cfg, kvs)
 
@@ -430,7 +476,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos: int):
         o, _ = attention.decode_attention_block(
             p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, pos, cfg,
             window=_window(cfg, kind))
-        h = _mlp_residual(p, h + o, cfg)
+        h, _ = _ffn_residual(kind, p, h + o, cfg)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, h)[:, 0], state
 
@@ -441,14 +487,17 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos: int):
 
 def _attn_layer_paged(p, kind, h, st, cfg: ModelConfig, positions,
                       block_tables, starts, lengths, cached_lens):
-    """One attention layer of a suffix prefill or verify, residuals
+    """One attention or MoE layer of a suffix prefill or verify, residuals
     included: attends to the cached prefix through the block table and
-    scatters the suffix K/V into the pools."""
+    scatters the suffix K/V into the pools. A MoE layer routes each row's
+    Ls positions (its lengths - starts real tokens, then padding) with
+    capacity at Ls."""
     o, _ = attention.paged_prefill_attention_block(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, positions,
         block_tables, starts, lengths, cached_lens, cfg,
         window=_window(cfg, kind))
-    return _mlp_residual(p, h + o, cfg)
+    h, _ = _ffn_residual(kind, p, h + o, cfg, lengths - starts)
+    return h
 
 
 def prefill_paged(params, cfg: ModelConfig, state, tokens, lengths,
@@ -555,7 +604,8 @@ def decode_step_paged(params, cfg: ModelConfig, state, tokens, positions,
     pools (a lane that sits out writes to the null block its table row
     points at); recurrent layers take the dense one-token step, and write
     their new state only where `active` is true, so a lane that sits out
-    keeps its state. Returns (logits (B, V), state)."""
+    keeps its state. MoE layers route each lane's token alone (capacity
+    1). Returns (logits (B, V), state)."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
@@ -567,6 +617,6 @@ def decode_step_paged(params, cfg: ModelConfig, state, tokens, positions,
         o, _ = attention.paged_decode_attention_block(
             p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), st, positions,
             block_tables, cfg, window=_window(cfg, kind))
-        h = _mlp_residual(p, h + o, cfg)
+        h, _ = _ffn_residual(kind, p, h + o, cfg, active)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, h)[:, 0], state

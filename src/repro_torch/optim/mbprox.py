@@ -82,6 +82,14 @@ def _micro(batch, i: int):
     return tree_map(lambda x: x[i], batch)
 
 
+def mean_metrics(metrics):
+    """The loss function's metrics (a list of dicts of scalars, one a
+    microbatch) averaged over the microbatches: for lm.train_loss, xent and
+    the MoE terms the train step logs."""
+    return {k: torch.stack([torch.as_tensor(m[k]) for m in metrics]).mean()
+            for k in metrics[0]}
+
+
 def make_mbprox_step(loss_fn: Callable, mp_cfg: MBProxConfig,
                      pmean: Callable = pmean):
     """Returns mbprox_train_step(params, inner_state, batch, lr)
@@ -89,7 +97,9 @@ def make_mbprox_step(loss_fn: Callable, mp_cfg: MBProxConfig,
 
     loss_fn(params, microbatch) -> (loss, metrics); microbatch is a tree
     whose leaves have a leading microbatch-batch dim.
-    `batch` leaves: (n_micro, B_micro, ...).
+    `batch` leaves: (n_micro, B_micro, ...). The step's metrics are the
+    mean loss and loss_fn's metrics averaged over the inner steps
+    (`mean_metrics`; the JAX step returns the loss alone).
     """
     inner_opt = sgd(momentum=mp_cfg.inner_momentum)
 
@@ -97,11 +107,12 @@ def make_mbprox_step(loss_fn: Callable, mp_cfg: MBProxConfig,
         """inner_passes epochs of momentum-SGD on the prox subproblem."""
         anchor = params
         n_micro = next(tree_leaves(batch)).shape[0]
-        losses = []
+        losses, metrics = [], []
         for _ in range(mp_cfg.inner_passes):
             for i in range(n_micro):
-                (l, _), g = value_and_grad(loss_fn, params,
+                (l, m), g = value_and_grad(loss_fn, params,
                                            _micro(batch, i))
+                metrics.append(m)
                 with torch.no_grad():
                     # prox pull + DANE correction
                     g = _tree_add(g, _tree_sub(params, anchor),
@@ -111,7 +122,8 @@ def make_mbprox_step(loss_fn: Callable, mp_cfg: MBProxConfig,
                     params, inner_state = inner_opt.update(
                         g, inner_state, params, lr)
                 losses.append(l)
-        return params, inner_state, torch.stack(losses).mean()
+        return (params, inner_state,
+                {"loss": torch.stack(losses).mean(), **mean_metrics(metrics)})
 
     def local_subproblem(params, inner_state, local_batch, lr):
         """One data shard's local prox solve, then the average (eq. 34)."""
@@ -125,25 +137,17 @@ def make_mbprox_step(loss_fn: Callable, mp_cfg: MBProxConfig,
             correction = _tree_sub(g_glob, g_loc)
         else:
             correction = None
-        params, inner_state, loss = solve(params, inner_state, local_batch,
-                                          lr, correction)
+        params, inner_state, metrics = solve(params, inner_state,
+                                             local_batch, lr, correction)
         # average the local solutions (eq. 34)           # all-reduce #2
         params = tree_map(pmean, params)
         inner_state = tree_map(pmean, inner_state)
-        return params, inner_state, pmean(loss)
+        return params, inner_state, tree_map(pmean, metrics)
 
     def sync_subproblem(params, inner_state, batch, lr):
         """Synchronous inexact prox (per-step gradient all-reduce)."""
         return solve(params, inner_state, batch, lr, None)
 
     if mp_cfg.variant == "sync":
-        def step(params, inner_state, batch, lr):
-            p, s, l = sync_subproblem(params, inner_state, batch, lr)
-            return p, s, {"loss": l}
-        return step
-
-    def step(params, inner_state, batch, lr):
-        p, s, l = local_subproblem(params, inner_state, batch, lr)
-        return p, s, {"loss": l}
-
-    return step
+        return sync_subproblem
+    return local_subproblem

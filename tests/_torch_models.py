@@ -13,11 +13,11 @@ from repro_torch import convert
 
 
 @functools.lru_cache(maxsize=None)
-def reduced_models(arch="smollm-135m"):
+def reduced_models(arch="smollm-135m", **overrides):
     """(JAX config, JAX params, port config, port params) of arch's
-    reduced config."""
-    jcfg = jconfigs.get_config(arch).reduced()
-    tcfg = tconfigs.get_config(arch).reduced()
+    reduced config, with `overrides` (e.g. n_experts=16) on both."""
+    jcfg = jconfigs.get_config(arch).reduced(**overrides)
+    tcfg = tconfigs.get_config(arch).reduced(**overrides)
     jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = convert.from_jax(jax.device_get(jparams), tcfg)
     return jcfg, jparams, tcfg, tparams

@@ -22,7 +22,8 @@ from repro_torch.models import lm as tlm  # noqa: E402
 
 ALL_ARCHS = list(jconfigs.ARCHS)
 MODEL_ARCHS = jconfigs.list_archs()
-SUPPORTED = ["smollm-135m", "codeqwen1.5-7b", "minitron-4b", "stablelm-3b"]
+SUPPORTED = ["smollm-135m", "codeqwen1.5-7b", "minitron-4b", "stablelm-3b",
+             "grok-1-314b", "llama4-maverick-400b-a17b"]
 
 
 def test_registry_matches():
@@ -103,13 +104,12 @@ def test_full_width_smollm_count_and_dtypes():
     assert cfg.act_dtype == torch.bfloat16 and cfg.p_dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "paligemma-3b",
-                                  "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
 def test_unported_archs_raise(arch):
-    """Each arch whose model is not ported (MoE, the vision and audio
-    frontends) raises. recurrentgemma-2b and rwkv6-3b run every path,
-    the paged engine's included (tests/test_torch_lm.py,
-    tests/test_torch_engine.py)."""
+    """Each arch whose model is not ported (the vision and audio
+    frontends) raises. recurrentgemma-2b, rwkv6-3b and the MoE archs run
+    every path, the paged engine's included (tests/test_torch_lm.py,
+    tests/test_torch_engine.py, tests/test_torch_moe*.py)."""
     cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
         tlm.init_params(0, cfg, device="cpu")
@@ -164,6 +164,39 @@ def test_rwkv_tree_converts_leaf_for_leaf():
     np.testing.assert_array_equal(
         got["blocks"]["p0"][0]["cmix"]["w_v"].numpy(),
         jparams["blocks"]["p0"]["cmix"]["w_v"][0])
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("grok-1-314b", {}), ("llama4-maverick-400b-a17b", {"n_experts": 16})],
+    ids=["grok-1-314b", "llama4-16e"])
+def test_moe_tree_converts_leaf_for_leaf(arch, over):
+    """The JAX MoE tree (each MoE layer's router (D, E) float32 and its
+    expert stacks w_gate / w_up (E, D, F), w_down (E, F, D)) converts to
+    exactly the port's own init tree: the same keys, shapes and dtypes,
+    every layer unstacked, values equal; and back (to_jax) to JAX's tree
+    leaf for leaf, bit for bit."""
+    cfg = tconfigs.get_config(arch).reduced(**over)
+    jparams = jax.device_get(jlm.init_params(
+        jax.random.PRNGKey(0), jconfigs.get_config(arch).reduced(**over)))
+    got = convert.from_jax(jparams, cfg)
+    want = tlm.init_params(0, cfg, device="cpu")
+    assert list(_leaves(got)) == list(_leaves(want))
+    pi = cfg.block_pattern.index("moe")
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    moe = got["blocks"][f"p{pi}"][1]["moe"]
+    assert {k: tuple(v.shape) for k, v in moe.items()} == {
+        "router": (D, E), "w_gate": (E, D, F), "w_up": (E, D, F),
+        "w_down": (E, F, D)}
+    assert moe["router"].dtype == torch.float32
+    np.testing.assert_array_equal(
+        moe["w_down"].numpy(), jparams["blocks"][f"p{pi}"]["moe"]["w_down"][1])
+    back = convert.to_jax(got, cfg)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(jparams))
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(back),
+                            jax.tree_util.tree_leaves(jparams)):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
 
 
 def test_init_params_needs_a_device_without_gpu():
