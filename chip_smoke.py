@@ -64,7 +64,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
              1 x 10/1 x 2304, hd 256, window 2048 and at hd 16 / 80 / 128
              (causal, not, window 48), bf16 on the forward kernel's o and
              saved log-sum-exps as training runs it, two launches
-             bit-equal, timed beside SDPA's forward + backward;
+             bit-equal, timed beside SDPA's forward + backward; the
+             flash kernels' bidirectional prefix arm, forward and
+             backward, at paligemma-3b's 2 x 8 / 1 heads x 320, hd 256,
+             prefix 256 (bf16 on the forward's saved log-sum-exps, and
+             float32 on the CUDA cores) and with a prefix of 100
+             straddling a 64-row tile (2 x 4 / 2 x 200, hd 64, windows 0
+             and 48), each timed beside SDPA with the same boolean mask;
+             paged decode at generate()'s dense-cache shapes of
+             paligemma-3b (hd 256, group 8) and musicgen-medium (hd 64,
+             group 1);
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
@@ -93,6 +102,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              speculate=4): tokens equal up to a divergence where the CPU's
              routing margin for that request so far (k-th minus (k+1)-th
              router probability) or its top-1/top-2 logit gap is <= 1e-3;
+     small_frontends  the reduced float32 paligemma-3b (a vision prefix of
+             8 patches, 4 heads over 1 KV head) and musicgen-medium (4
+             codebooks) on the card against the same models on the CPU:
+             forward logits (1e-4), train_loss and every gradient (the
+             flash backward's prefix arm), greedy generate() under the
+             float32 margin rule;
      train_small  the reduced float32 smollm's training: three MBProx and
              three AdamW steps on the card against the same steps on the
              CPU, then tests/test_system.py's loss-drop run (60 MBProx
@@ -188,7 +203,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
              cache, which phase 7 holds to generate()), float32 at
              speculate=4 with partial scripted drafts, and bf16 (tokens/s,
              TTFT, TPOT, finite logprobs, every block returned), launches
-             counted per dispatch; then the naive serve CLI once;
+             counted per dispatch;
+     paligemma  full-width paligemma-3b (18 layers, 8 / 1 heads of 256,
+             vocab 257216; 2.51 B seeded params, bf16; the earlier models'
+             weights freed first): 2 x (256 seeded patch embeddings + 64
+             text tokens) through lm.prefill (the flash prefix arm), 32
+             greedy decode_steps from its cache, the tokens held by the
+             bf16 margin rule against one lm.forward over the prefix,
+             prompt and generated text; prefill ms, ms a decode step, peak
+             memory; one bf16 train_loss forward + backward at B = 2 (the
+             backward's prefix arm at full width), its ms and peak;
+     musicgen  full-width musicgen-medium (48 layers, 24 heads of 64, 4
+             codebooks of 2048; 1.38 B seeded params, bf16): generate() on
+             2 x 32 x 4 seeded prompts + 32 new, held per codebook by the
+             bf16 margin rule against one lm.forward; tokens/s, ms a step;
+             the naive serve CLI once at full width;
   8. rwkv6   full-width rwkv6-3b (32 layers, 3.07 B seeded random params,
              bf16; the other models' weights freed first): lm.forward on 1 x
              2048 tokens (32 rwkv6_scan launches), generate() on 4 x 64 + 32
@@ -202,9 +231,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              first token's logits, as the port runs (the bounds are twice
              the JAX package's own gaps, measured by
              benchmarks/torch_rwkv6_bf16_reference.py) (the naive serve
-             CLI at full width runs once, for recurrentgemma-2b, in phase
-             7; its second run, for rwkv6-3b, was cut for the MoE phase's
-             time);
+             CLI at full width runs once, for musicgen-medium; its runs
+             for rwkv6-3b and recurrentgemma-2b were cut for the MoE and
+             frontends phases' time: both models' generate() runs in
+             their phases);
      engine_moe  full-width grok-1-314b (d_model 6144, 48 / 8 heads of
              128, 8 experts of d_ff 32768, top-2, vocab 131072, bf16) with
              its depth cut to 2 layers (11.45 B params; JAX's seed-0
@@ -236,7 +266,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              in turn as the router steps them), and engine_moe's decode
              step (8 lanes) beside the bytes of weights it reads.
 Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8,
-train_small, train and the engine phases (their forwards, generate() and
+train_small, train, small_frontends, paligemma (prefill, decode, the
+train step), musicgen (generate(), its reference forward) and the engine
+phases (their forwards, generate() and
 engine runs; engine_cluster's per arm) and
 read just after, so the launches reported are the main paths' own; the
 paged kernels also count their launches over int8 / fp8 pools. The last lines are the card's name and
@@ -491,6 +523,20 @@ def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _flash_mask(S, causal=True, window=0, prefix=0, device="cpu"):
+    """The flash kernels' (S, S) mask on S tokens (kernels/ref.py:
+    flash_visible): what SDPA takes as attn_mask for the same work."""
+    from repro_torch.kernels.ref import flash_visible
+    pos = torch.arange(S, device=device)
+    return flash_visible(pos[:, None], pos[None, :], causal, window, prefix)
+
+
+def _visible_pairs(S, causal=True, window=0, prefix=0):
+    """The (query, key) pairs the flash masks let through on S tokens: the
+    work a bound counts."""
+    return int(_flash_mask(S, causal, window, prefix).sum())
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -733,6 +779,27 @@ def phase_kernels(dev):
                        _fns=(lambda a=gk: paged_attention(*a),
                              lambda a=gk: ref.paged_attention_ref(*a), None),
                        bound_ms=gb[0], bound_by=gb[1])
+    # generate()'s dense-cache decode of the frontends' archs (identity
+    # tables, one block of S_max a row): paligemma-3b's 8 query heads over
+    # 1 KV head at hd 256 (the phase's 256 patches + 64 text tokens + 32
+    # new), musicgen-medium's 24 heads of hd 64 over 24 KV heads (32 + 32)
+    fe_arms = []
+    for fname, fh, fkv, fhd, s_max, fctx in (
+            ("paligemma hd256 group8", 8, 1, 256, 353, [352, 321]),
+            ("musicgen hd64 group1", 24, 24, 64, 65, [64, 33])):
+        fa_ = (rn(2, fh, fhd), rn(2, s_max, fkv, fhd), rn(2, s_max, fkv, fhd),
+               i32([[0], [1]]), i32(fctx))
+        arm(arms, f"paged_attention {fname} generate() dense B=2 bf16",
+            paged_attention(*fa_), ref.paged_attention_ref(*fa_))
+        f_tok = sum(fctx)
+        fb_ = _bound_ms(2 * _nbytes(fa_[0]) + _nbytes(fa_[3], fa_[4])
+                        + 2 * f_tok * fkv * fhd * 2, 4 * fh * fhd * f_tok)
+        fe_arms.append(dict(
+            label=f"{fname}'s generate() decode: {fh} / {fkv} heads, hd "
+                  f"{fhd}, B=2, ctx {fctx[0]}/{fctx[1]}, bf16 (PR 30)",
+            _fns=(lambda a=fa_: paged_attention(*a),
+                  lambda a=fa_: ref.paged_attention_ref(*a), None),
+            bound_ms=fb_[0], bound_by=fb_[1]))
     for name, a in (("engine B=8", args), ("hd256 group10 B=4", rg),
                     ("grok-1 hd128 group6 B=8", gk)):
         full = paged_attention(*a)
@@ -835,7 +902,8 @@ def phase_kernels(dev):
               lambda a=args: ref.paged_attention_ref(*a), None),
         bound_ms=bound, bound_by=by,
         shape=dict(B=B, H=H, KV=KV, hd=hd, bs=bs, M=M, ctx=ctx.tolist()),
-        _extra=[rg_arm, w_arm, *wq_arms, pa_unaligned, grok_pa_arm],
+        _extra=[rg_arm, w_arm, *wq_arms, pa_unaligned, grok_pa_arm,
+                *fe_arms],
         **worst(arms)))
 
     # -- paged_prefill, at each shape the engine gives it: an admission of
@@ -1120,6 +1188,56 @@ def phase_kernels(dev):
                              lambda: F.scaled_dot_product_attention(
                                  *g128, is_causal=True, enable_gqa=True)),
                        bound_ms=gfb[0], bound_by=gfb[1])
+    # paligemma-3b's prefix-LM attention (lm.prefill / forward /
+    # train_loss): 2 x 8 query heads over 1 KV head x 320 tokens, hd 256,
+    # its 256 vision patches a bidirectional prefix; bf16 on the tensor
+    # cores writing the lse (as under autograd) and float32 on the CUDA
+    # cores; then a prefix straddling a 64-row tile (4 / 2 heads, hd 64,
+    # 200 tokens, prefix 100), without and with window 48. Each timed
+    # beside SDPA with the same boolean mask, k / v expanded to every head
+    from repro_torch.kernels.flash_attention import _forward as flash_fwd
+
+    def prefix_timed(label, qkv, prefix, window=0):
+        q_, k_, v_ = qkv
+        B_, H_, S_, hd_ = q_.shape
+        ke, ve = (t.repeat_interleave(H_ // k_.shape[1], dim=1)
+                  for t in (k_, v_))
+        mask = _flash_mask(S_, True, window, prefix, dev)
+        b_ = _bound_ms(2 * _nbytes(q_) + _nbytes(k_, v_),
+                       4 * B_ * H_ * hd_ * _visible_pairs(S_, True, window,
+                                                          prefix),
+                       "f32" if q_.dtype == torch.float32 else "bf16")
+        return dict(label=label + " (PR 30)",
+                    _fns=(lambda: flash_attention(q_, k_, v_, window=window,
+                                                  prefix_len=prefix),
+                          lambda: ref.flash_attention_ref(
+                              q_, k_, v_, window=window, prefix_len=prefix),
+                          lambda: F.scaled_dot_product_attention(
+                              q_, ke, ve, attn_mask=mask)),
+                    bound_ms=b_[0], bound_by=b_[1])
+
+    pg = (rn(2, 8, 320, 256), rn(2, 1, 320, 256), rn(2, 1, 320, 256))
+    pg_lse = torch.empty(2, 8, 320, dtype=torch.float32, device=dev)
+    arm(arms, "flash_attention paligemma 2x8/1x320 hd256 prefix=256 bf16 "
+        "(lse written)", flash_fwd(*pg, True, 0, pg_lse, 256),
+        ref.flash_attention_ref(*pg, prefix_len=256))
+    pg32 = tuple(t.float() for t in pg)
+    arm(arms, "flash_attention paligemma 2x8/1x320 hd256 prefix=256 float32 "
+        "(CUDA cores)", flash_attention(*pg32, prefix_len=256),
+        ref.flash_attention_ref(*pg32, prefix_len=256), f32_tol=2e-5)
+    st = (rn(2, 4, 200, 64), rn(2, 2, 200, 64), rn(2, 2, 200, 64))
+    for w in (0, 48):
+        arm(arms, f"flash_attention 2x4/2x200 hd64 prefix=100 window={w} "
+            f"bf16", flash_attention(*st, window=w, prefix_len=100),
+            ref.flash_attention_ref(*st, window=w, prefix_len=100))
+    prefix_arms = [
+        prefix_timed("paligemma-3b's prefix-LM: 2 x 8 / 1 heads x 320, hd "
+                     "256, prefix 256, bf16", pg, 256),
+        prefix_timed("paligemma-3b's prefix-LM in float32 (CUDA cores)",
+                     pg32, 256),
+        *(prefix_timed(f"a prefix of 100 straddling a 64-row tile: 2 x 4 / "
+                       f"2 heads x 200, hd 64, window {w}, bf16", st, 100,
+                       w) for w in (0, 48))]
     fl_unaligned = unaligned_arm(
         f"flash_attention 2x{S} causal bf16", flash_attention,
         ref.flash_attention_ref, (q, k, v), (0, 1, 2), (bound, by))
@@ -1133,7 +1251,7 @@ def phase_kernels(dev):
                   q, k, v, is_causal=True, enable_gqa=True)),
         bound_ms=bound, bound_by=by,
         shape=dict(B=2, H=H, KV=KV, S=S, hd=hd),
-        _extra=[fl_arm, f128_arm, fl_unaligned, grok_fl_arm],
+        _extra=[fl_arm, f128_arm, fl_unaligned, grok_fl_arm, *prefix_arms],
         **worst(arms)))
 
     # -- flash_attention_bwd: the gradient of every attention layer of
@@ -1147,25 +1265,23 @@ def phase_kernels(dev):
     # so it takes its fastest backend; it then does a little less work
     # than the kernel's per-group dK / dV sums)
     from repro_torch.kernels import flash_attention_bwd
-    from repro_torch.kernels.flash_attention import _forward as flash_fwd
     arms = []
 
     def bwd_inputs(B, H_, KV_, S_, hd_, dt):
         return (rn(B, H_, S_, hd_, dt=dt), rn(B, KV_, S_, hd_, dt=dt),
                 rn(B, KV_, S_, hd_, dt=dt), rn(B, H_, S_, hd_, dt=dt))
 
-    def bwd_arm(name, qkvd, causal=True, window=0):
+    def bwd_arm(name, qkvd, causal=True, window=0, prefix=0):
         """(q, k, v, o, do) and the saved lse (None for float32)."""
         q_, k_, v_, do_ = qkvd
         lse = (None if q_.dtype == torch.float32 else
                torch.empty(q_.shape[:3], dtype=torch.float32, device=dev))
-        o_ = flash_fwd(q_, k_, v_, causal, window, lse)
+        o_ = flash_fwd(q_, k_, v_, causal, window, lse, prefix)
         a_ = (q_, k_, v_, o_, do_)
-        got = flash_attention_bwd(*a_, causal=causal, window=window, lse=lse)
-        again = flash_attention_bwd(*a_, causal=causal, window=window,
-                                    lse=lse)
-        want = ref.flash_attention_bwd_ref(*a_, causal=causal,
-                                           window=window)
+        mk = dict(causal=causal, window=window, prefix_len=prefix)
+        got = flash_attention_bwd(*a_, lse=lse, **mk)
+        again = flash_attention_bwd(*a_, lse=lse, **mk)
+        want = ref.flash_attention_bwd_ref(*a_, **mk)
         for n_, g_, r_, w_ in zip(("dq", "dk", "dv"), got, again, want):
             if not torch.equal(g_, r_):
                 raise AssertionError(f"flash_attention_bwd {name} {n_}: two "
@@ -1185,14 +1301,13 @@ def phase_kernels(dev):
               f"ok")
         return a_, lse
 
-    def bwd_timed(label, a_lse, causal=True, window=0, mask=None):
+    def bwd_timed(label, a_lse, causal=True, window=0, mask=None, prefix=0):
         a_, lse = a_lse
         q_, k_, v_, o_, do_ = a_
         B_, H_, S_, hd_ = q_.shape
         g_ = H_ // k_.shape[1]
         ke, ve = (t.repeat_interleave(g_, dim=1) for t in (k_, v_))
-        pairs = sum(min(i + 1, window) if window else i + 1
-                    for i in range(S_)) if causal else S_ * S_
+        pairs = _visible_pairs(S_, causal, window, prefix)
         b_ = _bound_ms(4 * _nbytes(q_) + 4 * _nbytes(k_),
                        10 * hd_ * B_ * H_ * pairs,
                        "bf16" if q_.dtype != torch.float32 else "f32")
@@ -1206,9 +1321,11 @@ def phase_kernels(dev):
         return dict(label=label,
                     _fns=(lambda: flash_attention_bwd(*a_, causal=causal,
                                                       window=window,
+                                                      prefix_len=prefix,
                                                       lse=lse),
                           lambda: ref.flash_attention_bwd_ref(
-                              *a_, causal=causal, window=window), sdpa),
+                              *a_, causal=causal, window=window,
+                              prefix_len=prefix), sdpa),
                     bound_ms=b_[0], bound_by=b_[1])
 
     S = 512
@@ -1232,6 +1349,25 @@ def phase_kernels(dev):
         for causal, w in ((True, 0), (False, 0), (True, 48)):
             bwd_arm(f"2x{h_}/{kv_}x200 hd{hd_} causal={causal} window={w} "
                     f"bf16", bwd_inputs(2, h_, kv_, 200, hd_, bf), causal, w)
+    # paligemma-3b's prefix-LM backward (train_loss): 2 x 8 / 1 heads x
+    # 320, hd 256, prefix 256, bf16 on the forward's saved lse and float32
+    # on the CUDA cores; a prefix of 100 straddling a 64-row tile at hd 64,
+    # without and with window 48
+    for dt_name, dt in (("bf16", bf), ("float32", torch.float32)):
+        a_pg = bwd_arm(f"paligemma 2x8/1x320 hd256 prefix=256 {dt_name}",
+                       bwd_inputs(2, 8, 1, 320, 256, dt), prefix=256)
+        bwd_extra.append(bwd_timed(
+            f"paligemma-3b's prefix-LM: 2 x 8 / 1 heads x 320, hd 256, "
+            f"prefix 256, {dt_name} (PR 30)", a_pg,
+            mask=_flash_mask(320, True, 0, 256, dev), prefix=256))
+    for w in (0, 48):
+        a_st = bwd_arm(f"2x4/2x200 hd64 prefix=100 window={w} bf16",
+                       bwd_inputs(2, 4, 2, 200, 64, bf), window=w,
+                       prefix=100)
+        bwd_extra.append(bwd_timed(
+            f"a prefix of 100 straddling a 64-row tile: 2 x 4 / 2 heads x "
+            f"200, hd 64, window {w}, bf16 (PR 30)", a_st, window=w,
+            mask=_flash_mask(200, True, w, 100, dev), prefix=100))
     main_t = bwd_timed("", bwd_main)
     out.append(dict(
         name="flash_attention_bwd", route="cuda",
@@ -4627,6 +4763,296 @@ def profile_decode(eng, vocab, n_steps=4, sampling=None):
     return rec
 
 
+# ----------------------------------------------------------------------------
+# the frontends (PR 30): paligemma-3b's vision prefix, musicgen-medium's
+# codebooks
+# ----------------------------------------------------------------------------
+
+def _frontend_batch(cfg, B, S, seed, device):
+    """Seeded inputs (numpy) on `device`: S text tokens and their targets
+    ((B, S, n_codebooks) for audio) and, for vision, B x vision_tokens
+    patch embeddings (vision_dim wide, float32)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shape = (B, S, cfg.n_codebooks) if cfg.frontend == "audio" else (B, S)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape),
+             "targets": rng.integers(0, cfg.vocab_size, shape)}
+    if cfg.frontend == "vision":
+        batch["vision_emb"] = rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _rows_margin_rule(got, ref, ref_m, bound, what):
+    """The margin rule row by row: each row of `got` equals `ref` up to its
+    first divergence (time-major over the codebooks of an audio token),
+    and there the reference's top-1/top-2 gap is <= bound. Returns the
+    first divergences (None: equal)."""
+    firsts = []
+    for r in range(got.shape[0]):
+        a, b = got[r].reshape(-1).cpu(), ref[r].reshape(-1).cpu()
+        i = _first_divergence(a, b)
+        firsts.append(i)
+        if i is not None and float(ref_m[r].reshape(-1)[i]) > bound:
+            raise AssertionError(
+                f"{what} row {r}: leaves the reference at {i} where its "
+                f"top-1/top-2 margin is {float(ref_m[r].reshape(-1)[i]):.5f}"
+                f" > {bound}")
+    return firsts
+
+
+def _teacher_forced_rule(tokens, logits, bound, what):
+    """Greedy tokens against one teacher-forced lm.forward over prompt +
+    generated: tokens[:, j] must be the argmax of logits[:, j] wherever the
+    forward's top-1/top-2 gap there is above `bound` (one margin a codebook
+    for audio); the run also fails unless the forward's median gap is
+    above the bound, which would otherwise excuse a typical token."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = tokens.to(logits.device) != logits.argmax(-1)
+    bad = differ & (gap > bound)
+    median = float(gap.median())
+    rec = {"tokens": int(differ.numel()), "differ": int(differ.sum()),
+           "max_gap_where_differ": float(gap[differ].max())
+           if bool(differ.any()) else None,
+           "gap_median": median, "bound": bound}
+    print(f"[{what}] greedy tokens vs one lm.forward: {rec['differ']} of "
+          f"{rec['tokens']} differ, each where the forward's top-1/top-2 "
+          f"gap is <= {bound} (largest {rec['max_gap_where_differ']}); gap "
+          f"median {median:.4f}")
+    if bool(bad.any()) or median <= bound:
+        raise AssertionError(f"{what}: the bf16 margin rule fails ({rec})")
+    return rec
+
+
+def phase_small_frontends(dev):
+    """Reduced float32 paligemma-3b (8 patches of 32 as a bidirectional
+    prefix, 4 query heads over 1 KV head, hd 16) and musicgen-medium (4
+    codebooks, 4 heads of 16) on the card against the same models on the
+    CPU (the kernels' twins): forward logits within 1e-4; train_loss
+    within TRAIN_LOSS_RTOL and every gradient leaf within 1e-4 of max(1,
+    max |g|) (the flash backward's prefix arm on paligemma); greedy
+    generate() under the float32 margin rule (MARGIN_BOUND_F32)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.device import to_device
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.optim.mbprox import value_and_grad
+    from repro_torch.tree import tree_leaves
+    kernels.reset_launch_counts()
+    rec = {}
+    for arch in ("paligemma-3b", "musicgen-medium"):
+        cfg = get_config(arch).reduced()
+        params = lm.init_params(0, cfg, device="cpu")
+        cuda_params = to_device(params, dev)
+        batch = _frontend_batch(cfg, 2, 24, 1, "cpu")
+        cbatch = {k: v.to(dev) for k, v in batch.items()}
+        want, _ = lm.forward(params, cfg, batch)
+        got, _ = lm.forward(cuda_params, cfg, cbatch)
+        ferr = (got.cpu() - want).abs().max().item()
+
+        def loss_fn(p, m):
+            return lm.train_loss(p, cfg, m)
+
+        (cl, _), cg = value_and_grad(loss_fn, params, batch)
+        (gl, _), gg = value_and_grad(loss_fn, cuda_params, cbatch)
+        lerr = abs(float(gl) - float(cl)) / abs(float(cl))
+        gerr = max((a.cpu() - b).abs().max().item()
+                   / max(1.0, b.abs().max().item())
+                   for a, b in zip(tree_leaves(gg), tree_leaves(cg)))
+        prompts = batch["tokens"][:, :8]
+        toks, _ = generate(cuda_params, cfg, prompts, 16, device=dev,
+                           return_margins=True)
+        ref_t, ref_m = generate(params, cfg, prompts, 16, device="cpu",
+                                return_margins=True)
+        firsts = _rows_margin_rule(toks, ref_t, ref_m, MARGIN_BOUND_F32,
+                                   f"small_frontends {arch} generate()")
+        ok = ferr <= 1e-4 and lerr <= TRAIN_LOSS_RTOL and gerr <= 1e-4
+        print(f"[small_frontends] {arch}: forward {tuple(got.shape)} cuda "
+              f"vs cpu max_abs_err {ferr:.3g} (1e-4); train_loss rel "
+              f"{lerr:.3g} ({TRAIN_LOSS_RTOL}), gradients max {gerr:.3g} "
+              f"of max(1, max |g|) (1e-4); generate() {tuple(toks.shape)} "
+              f"first divergences {firsts} (margin bound "
+              f"{MARGIN_BOUND_F32}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"small_frontends {arch}: the card differs "
+                                 f"from the CPU")
+        rec[arch] = {"forward_max_abs_err": ferr, "loss_rel_err": lerr,
+                     "grad_max_rel_err": gerr,
+                     "generate_first_divergences": firsts}
+    rec["launches"] = kernels.launch_counts()
+    if not all(rec["launches"][k] for k in ("flash_attention",
+                                            "flash_attention_bwd",
+                                            "paged_attention")):
+        raise AssertionError(f"small_frontends: a kernel of the path was not "
+                             f"launched: {rec['launches']}")
+    return rec
+
+
+def phase_paligemma(dev):
+    """Full-width paligemma-3b (18 layers, d_model 2048, 8 query heads over
+    1 KV head of 256, d_ff 16384, vocab 257216; JAX's seed-0 weights drawn
+    on the card, bf16): 2 rows of 256 seeded patch embeddings (1152 wide)
+    + 64 text tokens through lm.prefill (18 flash launches on the prefix
+    arm), 32 greedy decode_steps from its cache (18 paged_attention
+    launches each), the tokens held by the bf16 margin rule against one
+    lm.forward over the prefix + prompt + generated text; then one bf16
+    train_loss forward + backward at B = 2 (the backward's prefix arm at
+    full width). Prefill ms, ms per decode step, train ms and peak memory
+    are recorded; the phase frees its tensors."""
+    from repro_torch import convert, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim.mbprox import value_and_grad
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("paligemma-3b")
+    n_layers, P, N = cfg.n_layers, 64, 32
+    t0 = time.perf_counter()
+    params = lm.cast_params(lm.init_params(0, cfg, device=dev), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = convert.param_count(params)
+    batch = _frontend_batch(cfg, 2, P, 7, dev)
+    prompt = {k: batch[k] for k in ("tokens", "vision_emb")}
+    S_all = cfg.vision_tokens + P
+    print(f"[paligemma] {n_params} params, init + bf16 cast {init_s:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    with torch.inference_mode():
+        lm.prefill(params, cfg, prompt)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pf_counts = kernels.launch_counts()
+        state = lm.decode_state_from_prefill(cfg, cache, S_all + N + 1)
+        del cache
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        out = [tok]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(N):
+            lg, state = lm.decode_step(params, cfg, state, tok, S_all + i)
+            tok = lg.argmax(-1).to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / N
+        dec_counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state
+        gen = torch.stack(out, dim=1)                         # (2, N + 1)
+        ref, _ = lm.forward(params, cfg, {
+            "tokens": torch.cat([prompt["tokens"], gen[:, :N]], dim=1),
+            "vision_emb": prompt["vision_emb"]})
+    if logits.shape != (2, P, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"paligemma: prefill logits {logits.shape} "
+                             f"misshapen or not finite")
+    if (pf_counts["flash_attention"] != n_layers
+            or dec_counts["paged_attention"] != n_layers * N):
+        raise AssertionError(f"paligemma: launches prefill {pf_counts}, "
+                             f"decode {dec_counts}")
+    rule = _teacher_forced_rule(gen, ref[:, P - 1:], MARGIN_BOUND,
+                                "paligemma")
+    print(f"[paligemma] prefill 2 x ({cfg.vision_tokens} patches + {P} "
+          f"tokens): {prefill_ms:.2f} ms; {N} decode steps: {step_ms:.2f} ms "
+          f"a step; peak {peak:.2f} GiB; launches prefill {pf_counts}, "
+          f"decode {dec_counts}")
+    del logits, ref, lg
+    # one bf16 train_loss forward + backward (remat per layer) at B = 2
+    train_ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):                        # the first warms up
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        (loss, _), grads = value_and_grad(
+            lambda p, m: lm.train_loss(p, cfg, m), params, batch)
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+        tr_counts = kernels.launch_counts()
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+        del grads
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[paligemma] bf16 train_loss forward + backward, B = 2: loss "
+          f"{float(loss):.4f}, {train_ms[1]:.1f} ms (first {train_ms[0]:.1f})"
+          f", peak {train_peak:.2f} GiB, launches {tr_counts}")
+    if not finite or tr_counts["flash_attention_bwd"] != n_layers:
+        raise AssertionError(f"paligemma: train_loss not finite ({finite}) "
+                             f"or backward launches {tr_counts}")
+    del params
+    torch.cuda.empty_cache()
+    return {"params": n_params, "init_s": init_s, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": step_ms, "peak_gib": peak,
+            "margin_rule": rule, "train_ms": train_ms[1],
+            "train_first_ms": train_ms[0], "train_peak_gib": train_peak,
+            "launches": {k: pf_counts[k] + dec_counts[k] + tr_counts[k]
+                         for k in pf_counts}}
+
+
+def phase_musicgen(dev):
+    """Full-width musicgen-medium (48 layers, d_model 1536, 24 heads of 64,
+    4 codebooks of 2048; JAX's seed-0 weights drawn on the card, bf16):
+    generate() on 2 x 32 seeded 4-codebook prompts + 32 new (64 steps x 48
+    paged_attention launches), its tokens held per codebook by the bf16
+    margin rule against one lm.forward over prompt + generated (48 flash
+    launches); tokens/s and ms a step recorded; then the naive serve CLI
+    at full width. The phase frees its tensors."""
+    from repro_torch import convert, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_config("musicgen-medium")
+    B, P, N = 2, 32, 32
+    t0 = time.perf_counter()
+    params = lm.cast_params(lm.init_params(0, cfg, device=dev), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = convert.param_count(params)
+    prompts = _frontend_batch(cfg, B, P, 9, dev)["tokens"]
+    generate(params, cfg, prompts[:, :2], 2, device=dev)      # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = generate(params, cfg, prompts, N, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    gen_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        ref, _ = lm.forward(params, cfg, {
+            "tokens": torch.cat([prompts, tokens[:, :N - 1]], dim=1)})
+    fwd_counts = kernels.launch_counts()
+    if tokens.shape != (B, N, cfg.n_codebooks) or ref.shape != (
+            B, P + N - 1, cfg.n_codebooks, cfg.vocab_size):
+        raise AssertionError(f"musicgen: tokens {tuple(tokens.shape)}, "
+                             f"logits {tuple(ref.shape)}")
+    steps = P + N
+    if (gen_counts["paged_attention"] != cfg.n_layers * steps
+            or fwd_counts["flash_attention"] != cfg.n_layers):
+        raise AssertionError(f"musicgen: launches generate() {gen_counts}, "
+                             f"forward {fwd_counts}")
+    rule = _teacher_forced_rule(tokens, ref[:, P - 1:], MARGIN_BOUND,
+                                "musicgen")
+    rec = {"params": n_params, "init_s": init_s, "seconds": secs,
+           "tokens_per_s": B * N / secs, "ms_per_step": secs * 1e3 / steps,
+           "decode_steps": steps, "margin_rule": rule,
+           "launches": {k: gen_counts[k] + fwd_counts[k]
+                        for k in gen_counts}}
+    print(f"[musicgen] {n_params} params, init + bf16 cast {init_s:.2f} s; "
+          f"generate() {B} x {P} x {cfg.n_codebooks} + {N}: {secs:.2f} s, "
+          f"{rec['tokens_per_s']:.1f} tokens/s (of {cfg.n_codebooks} "
+          f"codes), {rec['ms_per_step']:.2f} ms a step; launches "
+          f"{rec['launches']}")
+    del params, ref
+    torch.cuda.empty_cache()
+    rec["serve_cli"] = phase_serve_cli(dev, "musicgen-medium")
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
@@ -4676,6 +5102,8 @@ def main(argv=None):
     record["small_sampled"] = phase("small_sampled", phase_small_sampled,
                                     dev)
     record["small_moe"] = phase("small_moe", phase_small_moe, dev)
+    record["small_frontends"] = phase("small_frontends",
+                                      phase_small_frontends, dev)
     record["train_small"] = phase("train_small", phase_train_small, dev)
     record["serve_cli_default"] = phase("serve_cli_default",
                                         phase_serve_cli_default)
@@ -4700,13 +5128,12 @@ def main(argv=None):
         "engine_recurrentgemma", phase_engine_recurrent, rg_master,
         rg_params, get_config("recurrentgemma-2b"), dev,
         "engine_recurrentgemma")
-    del rg_master, rg_params
+    # the other models' weights leave the card before paligemma-3b's and
+    # rwkv6-3b's
+    del rg_master, rg_params, params
     torch.cuda.empty_cache()
-    record["serve_cli"] = phase("serve_cli", phase_serve_cli, dev,
-                                "recurrentgemma-2b")
-    # the other models' weights leave the card before rwkv6-3b's 17 GiB
-    del params
-    torch.cuda.empty_cache()
+    record["paligemma"] = phase("paligemma", phase_paligemma, dev)
+    record["musicgen"] = phase("musicgen", phase_musicgen, dev)
     record["rwkv6"], rw_master, rwkv_params = phase("rwkv6", phase_rwkv6, dev)
     record["engine_rwkv6"], rw_engine = phase(
         "engine_rwkv6", phase_engine_recurrent, rw_master, rwkv_params,
@@ -4757,20 +5184,25 @@ def main(argv=None):
     rg, rw = record["recurrentgemma"], record["rwkv6"]
     mo = record["engine_moe"]["launches"]
     tr = (record["train_small"]["launches"], record["train"]["launches"])
+    # the frontends' phases: the reduced models on the card, full-width
+    # paligemma-3b and musicgen-medium
+    fe = (record["small_frontends"]["launches"],
+          record["paligemma"]["launches"], record["musicgen"]["launches"])
     launches = {"flash_attention":
                 record["forward"]["launches"]["flash_attention"]
                 + rg["forward"]["launches"]["flash_attention"]
-                + sum(t["flash_attention"] for t in tr)
+                + sum(t["flash_attention"] for t in tr + fe)
                 + mo["flash_attention"],
                 "flash_attention_bwd":
-                sum(t["flash_attention_bwd"] for t in tr),
+                sum(t["flash_attention_bwd"] for t in tr + fe),
                 "paged_attention":
                 record["engine"]["launches"]["paged_attention"]
                 + quant_launches["paged_attention"]
                 + tiered_launches["paged_attention"]
                 + cluster_launches["paged_attention"]
                 + rg["generate"]["launches"]["paged_attention"]
-                + rg_engine["paged_attention"] + mo["paged_attention"],
+                + rg_engine["paged_attention"] + mo["paged_attention"]
+                + sum(t["paged_attention"] for t in fe),
                 "paged_prefill": record["engine"]["launches"]["paged_prefill"]
                 + quant_launches["paged_prefill"]
                 + tiered_launches["paged_prefill"]

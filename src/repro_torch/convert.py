@@ -15,8 +15,8 @@ params layout (a params tree, or an optimizer state of such trees) into
 the JAX layout and back with tensor leaves: the checkpoint format, which
 the two packages share, stores the JAX layout. It handles every
 architecture's tree (recurrent, MoE with its (E, D, F) / (E, F, D) expert
-stacks, frontends), the frontends' too, which the port's models do not
-run yet.
+stacks, the frontends' vision projection and (n_codebooks, V, D) audio
+tables).
 """
 from __future__ import annotations
 

@@ -61,10 +61,11 @@ SIGNATURES = {
     "paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
     "paged_prefill": [_P] * 11 + [_I] * 10 + [_F, _P],
     "paged_prefill_wgmma": [_P] * 11 + [_I] * 11 + [_F, _P],
-    "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P],
-    "flash_attention_wgmma": [_P] * 5 + [_I] * 9 + [_F, _P],
-    "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P],
-    "flash_attention_bwd_wgmma": [_P] * 13 + [_I] * 9 + [_F, _P],
+    # the flash entries end with prefix_len
+    "flash_attention": [_P] * 4 + [_I] * 9 + [_F, _P, _I],
+    "flash_attention_wgmma": [_P] * 5 + [_I] * 9 + [_F, _P, _I],
+    "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_F, _P, _I],
+    "flash_attention_bwd_wgmma": [_P] * 13 + [_I] * 9 + [_F, _P, _I],
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
     "rglru_scan": [_P] * 5 + [_I] * 5 + [_P],
     "rwkv6_scan": [_P] * 9 + [_I] * 5 + [_P],

@@ -35,6 +35,31 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half(x);
 }
 
+// The flash kernels' mask (csrc/flash_attention.cu, flash_attention_bwd.cu;
+// kernels/ref.py:flash_visible): key u is visible to query i when u <= i,
+// or both lie in a bidirectional prefix of `prefix` positions (causal;
+// every key otherwise), and, with window > 0, when u > i - window.
+__device__ __forceinline__ bool flash_sees(int i, int u, int causal,
+                                           int window, int prefix) {
+  return (!causal || u <= i || (i < prefix && u < prefix)) &&
+         (window <= 0 || u > i - window);
+}
+
+// The causal end of the keys that query rows q0 .. q0 + rows - 1 see: past
+// their last row, and past the whole prefix for rows that start inside it.
+__host__ __device__ __forceinline__ int flash_key_end(int q0, int rows,
+                                                      int prefix) {
+  return q0 < prefix && prefix > q0 + rows ? prefix : q0 + rows;
+}
+
+// Whether the tile of query rows q0 .. q0 + rows - 1 and keys u0 ..
+// u0 + cols - 1 lies wholly inside the prefix square, where the causal mask
+// hides nothing.
+__device__ __forceinline__ bool flash_in_prefix(int q0, int rows, int u0,
+                                                int cols, int prefix) {
+  return q0 + rows <= prefix && u0 + cols <= prefix;
+}
+
 // Keys per shared-memory tile in the thread-per-query-row kernels.
 constexpr int TK = 32;
 

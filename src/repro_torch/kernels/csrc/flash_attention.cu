@@ -8,7 +8,14 @@
 // model's local-attention `window` (models/attention.py:
 // chunked_causal_attention): with window > 0, key u is visible to query i
 // only when u > i - window. The TPU kernel has no window; recurrentgemma's
-// attn_local layers need it.
+// attn_local layers need it. Nor has it the model's bidirectional prefix
+// (`prefix` > 0, paligemma's vision tokens; JAX runs that mask in jnp):
+// queries and keys below `prefix` also see one another both ways
+// (common.cuh: flash_sees). A causal tile whose first rows lie inside the
+// prefix runs its keys to the prefix's end, and a tile above the diagonal
+// but wholly inside the prefix square needs no mask; one that straddles
+// the prefix's edge is masked element by element. prefix = 0 is the plain
+// causal kernel.
 //
 // What bounds it on the H100: operations. Attention over S tokens does
 // ~4 * S^2 * hd flops (halved by the causal skip; S * window under a
@@ -96,7 +103,7 @@ __global__ void __launch_bounds__(WGS * 128, 1)
                        const __grid_constant__ CUtensorMap tv,
                        T* __restrict__ out, float* __restrict__ lse,
                        int H, int KV, int Sq, int Sk, int causal, int window,
-                       float scale_log2) {
+                       int prefix, float scale_log2) {
   constexpr int NS = HD / 16;         // k-steps of Q.K^T, panels of a tile
   constexpr int NP = BN / 16;         // k-steps of P.V
   constexpr uint32_t SW32 = 3;        // descriptor mode: 32-byte swizzle
@@ -121,9 +128,9 @@ __global__ void __launch_bounds__(WGS * 128, 1)
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvz = b * KV + h / (H / KV);  // the K/V maps' plane coordinate
   // keys the block visits, and those this warpgroup's rows can see
-  const int k_end = causal ? min(Sk, qb + BQW) : Sk;
+  const int k_end = causal ? min(Sk, rt::flash_key_end(qb, BQW, prefix)) : Sk;
   const int k_lo = window > 0 ? max(0, qb - window + 1) : 0;
-  const int w_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int w_end = causal ? min(Sk, rt::flash_key_end(q0, BQ, prefix)) : Sk;
   const int w_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int j0 = k_lo / BN, j1 = (k_end + BN - 1) / BN;
 
@@ -190,8 +197,11 @@ __global__ void __launch_bounds__(WGS * 128, 1)
       wg::keep(s);
 
       // mask (edge tiles only), online softmax on the fragment
-      const bool edge = u0 + BN > w_end || (causal && u0 + BN - 1 > q0) ||
-                        (window > 0 && u0 <= q0 + BQ - 1 - window);
+      const bool edge =
+          u0 + BN > w_end ||
+          (causal && u0 + BN - 1 > q0 &&
+           !rt::flash_in_prefix(q0, BQ, u0, BN, prefix)) ||
+          (window > 0 && u0 <= q0 + BQ - 1 - window);
       if (edge) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -201,8 +211,8 @@ __global__ void __launch_bounds__(WGS * 128, 1)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int u = u0 + 8 * c + 2 * tq_ + e;
-              const bool ok = u < w_end && (!causal || u <= i) &&
-                              (window <= 0 || u > i - window);
+              const bool ok =
+                  u < w_end && rt::flash_sees(i, u, causal, window, prefix);
               if (!ok) s[4 * c + 2 * r + e] = -INFINITY;
             }
         }
@@ -315,8 +325,8 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int rows,
 template <typename T, int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, int B, int H, int KV, int Sq,
-                         int Sk, int causal, int window, float scale,
-                         cudaStream_t stream) {
+                         int Sk, int causal, int window, int prefix,
+                         float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t e = make_map<T, HD>(&tq, q, Sq, B * H, BQW);
   if (e == cudaSuccess) e = make_map<T, HD>(&tk, k, Sk, B * KV, BN);
@@ -332,7 +342,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   dim3 grid((Sq + BQW - 1) / BQW, H, B);
   flash_wgmma_kernel<T, HD><<<grid, WGS * 128, smem, stream>>>(
       tq, tk, tv, static_cast<T*>(out), lse, H, KV, Sq, Sk, causal, window,
-      scale * 1.4426950408889634f);
+      prefix, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -352,7 +362,7 @@ __global__ void __launch_bounds__(BQ * split<HD>())
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int H, int KV, int Sq, int Sk, int causal,
-                           int window, float scale) {
+                           int window, int prefix, float scale) {
   constexpr int SPLIT = split<HD>();      // threads per query row
   constexpr int DPT = HD / SPLIT;         // head dims each thread holds
   static_assert(DPT % 4 == 0 && DPT <= 64 && DPT * SPLIT == HD, "head dim");
@@ -388,7 +398,7 @@ __global__ void __launch_bounds__(BQ * split<HD>())
   }
 
   const size_t kv_base = ((size_t)b * KV + kvh) * Sk * HD;
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int k_end = causal ? min(Sk, rt::flash_key_end(q0, BQ, prefix)) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int u0 = k_lo / TK * TK; u0 < k_end; u0 += TK) {
     for (int e = threadIdx.x; e < TK * HD; e += NT) {
@@ -411,8 +421,8 @@ __global__ void __launch_bounds__(BQ * split<HD>())
 #pragma unroll
       for (int o = 1; o < SPLIT; o <<= 1)
         dot += __shfl_xor_sync(gmask, dot, o);
-      const bool valid = active && u < k_end && (!causal || u <= i) &&
-                         (window <= 0 || u > i - window);
+      const bool valid = active && u < k_end &&
+                         rt::flash_sees(i, u, causal, window, prefix);
       if (!valid) continue;
       const float s = dot * scale;
       if (s > m) {
@@ -452,12 +462,12 @@ template <typename T, int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, float* /* lse: wgmma only */, int B, int H,
                        int KV, int Sq, int Sk, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       int prefix, float scale, cudaStream_t stream) {
   dim3 grid(B, H, (Sq + BQ - 1) / BQ);
   flash_attention_kernel<T, HD><<<grid, BQ * split<HD>(), 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Sk, causal,
-      window, scale);
+      window, prefix, scale);
   return cudaGetLastError();
 }
 
@@ -468,23 +478,24 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   cudaError_t LAUNCH##_by_hd(int hd, const void* q, const void* k,           \
                              const void* v, void* out, float* lse, int B,    \
                              int H, int KV, int Sq, int Sk, int causal,      \
-                             int window, float scale, cudaStream_t st) {     \
+                             int window, int prefix, float scale,            \
+                             cudaStream_t st) {                              \
     switch (hd) {                                                            \
       case 16:                                                               \
         return LAUNCH<T, 16>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,    \
-                             window, scale, st);                             \
+                             window, prefix, scale, st);                     \
       case 64:                                                               \
         return LAUNCH<T, 64>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,    \
-                             window, scale, st);                             \
+                             window, prefix, scale, st);                     \
       case 80:                                                               \
         return LAUNCH<T, 80>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,    \
-                             window, scale, st);                             \
+                             window, prefix, scale, st);                     \
       case 128:                                                              \
         return LAUNCH<T, 128>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,   \
-                              window, scale, st);                            \
+                              window, prefix, scale, st);                    \
       case 256:                                                              \
         return LAUNCH<T, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, causal,   \
-                              window, scale, st);                            \
+                              window, prefix, scale, st);                    \
     }                                                                        \
     return cudaErrorInvalidValue;                                            \
   }
@@ -496,16 +507,17 @@ FLASH_BY_HD(launch_wgmma)
 
 // Both return the cudaError_t of the launch (0 = success). Shapes: q/out
 // (B, H, Sq, hd); k/v (B, KV, Sk, hd), all one dtype and contiguous,
-// checked by the Python wrapper. window <= 0: no window.
+// checked by the Python wrapper. window <= 0: no window. prefix: the
+// bidirectional prefix's length (0: none; read only when causal).
 
 // float32 q / k / v: the CUDA-core kernel.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int dtype, int B, int H, int KV,
                                int Sq, int Sk, int hd, int causal, int window,
-                               float scale, void* stream) {
+                               float scale, void* stream, int prefix) {
   if (H % KV != 0 || dtype != rt::F32) return cudaErrorInvalidValue;
   return launch_f32_by_hd<float>(hd, q, k, v, out, nullptr, B, H, KV, Sq, Sk,
-                                 causal, window, scale,
+                                 causal, window, max(prefix, 0), scale,
                                  static_cast<cudaStream_t>(stream));
 }
 
@@ -516,16 +528,17 @@ extern "C" int flash_attention_wgmma(const void* q, const void* k,
                                      int dtype,
                                      int B, int H, int KV, int Sq, int Sk,
                                      int hd, int causal, int window,
-                                     float scale, void* stream) {
+                                     float scale, void* stream, int prefix) {
   if (H % KV != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  prefix = max(prefix, 0);
   if (dtype == rt::BF16)
     return launch_wgmma_by_hd<__nv_bfloat16>(hd, q, k, v, out, l, B, H, KV,
-                                             Sq, Sk, causal, window, scale,
-                                             st);
+                                             Sq, Sk, causal, window, prefix,
+                                             scale, st);
   if (dtype == rt::F16)
     return launch_wgmma_by_hd<__half>(hd, q, k, v, out, l, B, H, KV, Sq, Sk,
-                                      causal, window, scale, st);
+                                      causal, window, prefix, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -8,9 +8,13 @@
 // gradient is a kernel too: a plain-torch backward would put the (Sq, Sk)
 // scores the forward keeps out of device memory back into it. Same masks
 // as the forward (csrc/flash_attention.cu): key u is visible to query i
-// when u <= i (causal) and, with window > 0, u > i - window; GQA maps
-// query head h to KV head h / (H / KV). Plain twin:
-// kernels/ref.py:flash_attention_bwd_ref.
+// when u <= i (causal), or both lie in a bidirectional prefix of `prefix`
+// positions, and, with window > 0, u > i - window (common.cuh:
+// flash_sees); GQA maps query head h to KV head h / (H / KV). With a
+// prefix, a query tile that starts inside it runs its keys to the prefix's
+// end (pass 1) and a key tile that starts inside it is seen by queries
+// from 0 (pass 2); tiles wholly inside the prefix square go unmasked.
+// Plain twin: kernels/ref.py:flash_attention_bwd_ref.
 //
 // With P = softmax(Q K^T * scale) recomputed from each row's log-sum-exp
 // and D_i = rowsum(dO_i * O_i):
@@ -172,10 +176,6 @@ __device__ __forceinline__ unsigned group_mask(int split) {
                     : ((1u << split) - 1u) << (lane & ~(split - 1));
 }
 
-__device__ __forceinline__ bool visible(int i, int u, int causal,
-                                        int window) {
-  return (!causal || u <= i) && (window <= 0 || u > i - window);
-}
 
 // Pass 1: dq, and each row's lse and D.
 template <typename T, int HD>
@@ -185,7 +185,7 @@ __global__ void __launch_bounds__(rows<HD>() * bsplit<HD>())
                   const T* __restrict__ dout, T* __restrict__ dq,
                   float* __restrict__ lse_out, float* __restrict__ d_out,
                   int H, int KV, int Sq, int Sk, int causal, int window,
-                  float scale) {
+                  int prefix, float scale) {
   constexpr int SPLIT = bsplit<HD>(), DPT = HD / SPLIT, R = rows<HD>();
   constexpr int NT = R * SPLIT, TK = tile<HD>();
   static_assert(DPT % 4 == 0 && DPT <= 32 && DPT * SPLIT == HD, "head dim");
@@ -216,7 +216,7 @@ __global__ void __launch_bounds__(rows<HD>() * bsplit<HD>())
   }
 
   const size_t kv_base = ((size_t)b * KV + h / (H / KV)) * Sk * HD;
-  const int k_end = causal ? min(Sk, q0 + R) : Sk;
+  const int k_end = causal ? min(Sk, rt::flash_key_end(q0, R, prefix)) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
 
   // sweep 1: the row's max m and sum l of exp(s - m) over visible keys
@@ -230,7 +230,9 @@ __global__ void __launch_bounds__(rows<HD>() * bsplit<HD>())
     for (int j = 0; j < TK; ++j) {
       const int u = u0 + j;
       const float s = dot_row<HD, SPLIT>(qr, Ks + j * HD, part, gmask) * scale;
-      if (!(active && u < k_end && visible(i, u, causal, window))) continue;
+      if (!(active && u < k_end &&
+            rt::flash_sees(i, u, causal, window, prefix)))
+        continue;
       if (s > m) {
         l *= expf(m - s);
         m = s;
@@ -254,7 +256,9 @@ __global__ void __launch_bounds__(rows<HD>() * bsplit<HD>())
       const int u = u0 + j;
       const float s = dot_row<HD, SPLIT>(qr, Ks + j * HD, part, gmask) * scale;
       const float dp = dot_row<HD, SPLIT>(dor, Vs + j * HD, part, gmask);
-      if (!(active && u < k_end && visible(i, u, causal, window))) continue;
+      if (!(active && u < k_end &&
+            rt::flash_sees(i, u, causal, window, prefix)))
+        continue;
       const float p = expf(s - lse);
       axpy_row<HD, SPLIT>(acc, p * (dp - d), Ks + j * HD, part);
     }
@@ -278,7 +282,7 @@ __global__ void __launch_bounds__(rows<HD>() * bsplit<HD>())
                     const float* __restrict__ lse,
                     const float* __restrict__ dd, T* __restrict__ dk,
                     T* __restrict__ dv, int H, int KV, int Sq, int Sk,
-                    int causal, int window, float scale) {
+                    int causal, int window, int prefix, float scale) {
   constexpr int SPLIT = bsplit<HD>(), DPT = HD / SPLIT, R = rows<HD>();
   constexpr int NT = R * SPLIT, TQ = tile<HD>();
   static_assert(DPT % 4 == 0 && DPT <= 32 && DPT * SPLIT == HD, "head dim");
@@ -299,8 +303,9 @@ __global__ void __launch_bounds__(rows<HD>() * bsplit<HD>())
 #pragma unroll
   for (int e = 0; e < DPT; ++e) dka[e] = dva[e] = 0.f;
 
-  // queries that can see one of the block's keys
-  const int q_lo = causal ? k0 : 0;
+  // queries that can see one of the block's keys (from 0 for keys that
+  // start inside the prefix)
+  const int q_lo = causal && k0 >= prefix ? k0 : 0;
   const int q_hi = window > 0 ? min(Sq, k0 + R - 1 + window) : Sq;
   for (int g = 0; g < G; ++g) {
     const size_t qbase = ((size_t)b * H + kvh * G + g) * Sq;
@@ -322,7 +327,9 @@ __global__ void __launch_bounds__(rows<HD>() * bsplit<HD>())
         const float s =
             dot_row<HD, SPLIT>(kr, Qs + j * HD, part, gmask) * scale;
         const float dp = dot_row<HD, SPLIT>(vr, Os + j * HD, part, gmask);
-        if (!(active && i < q_hi && visible(i, u, causal, window))) continue;
+        if (!(active && i < q_hi &&
+              rt::flash_sees(i, u, causal, window, prefix)))
+          continue;
         const float p = expf(s - Ls[j]);
         axpy_row<HD, SPLIT>(dva, p, Os + j * HD, part);
         axpy_row<HD, SPLIT>(dka, p * (dp - Ds[j]), Qs + j * HD, part);
@@ -342,15 +349,17 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        const float* o, const float* dout, float* dq,
                        float* dk, float* dv, float* lse, float* dd, int B,
                        int H, int KV, int Sq, int Sk, int causal, int window,
-                       float scale, cudaStream_t stream) {
+                       int prefix, float scale, cudaStream_t stream) {
   constexpr int R = rows<HD>(), NT = R * bsplit<HD>();
   bwd_dq_kernel<float, HD><<<dim3(B, H, (Sq + R - 1) / R), NT, 0, stream>>>(
-      q, k, v, o, dout, dq, lse, dd, H, KV, Sq, Sk, causal, window, scale);
+      q, k, v, o, dout, dq, lse, dd, H, KV, Sq, Sk, causal, window, prefix,
+      scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dkdv_kernel<float, HD><<<dim3(B, KV, (Sk + R - 1) / R), NT, 0,
                                stream>>>(q, k, v, dout, lse, dd, dk, dv, H,
-                                         KV, Sq, Sk, causal, window, scale);
+                                         KV, Sq, Sk, causal, window, prefix,
+                                         scale);
   return cudaGetLastError();
 }
 
@@ -412,9 +421,8 @@ struct Ring {
 
 // The (query, key) visibility of the masks.
 __device__ __forceinline__ bool sees(int i, int u, int Sq, int Sk,
-                                     int causal, int window) {
-  return i < Sq && u < Sk && (!causal || u <= i) &&
-         (window <= 0 || u > i - window);
+                                     int causal, int window, int prefix) {
+  return i < Sq && u < Sk && rt::flash_sees(i, u, causal, window, prefix);
 }
 
 // dS (or P) on an m64n64 accumulator fragment as the A operand of four
@@ -434,15 +442,15 @@ __device__ __forceinline__ void split_hi_lo(const float (&x)[BM / 2],
 }
 
 // Pass 1's scores of one K tile (keys u0 ..): S = Q K^T, masked (-inf)
-// where the tile crosses the diagonal, the window's edge or w_end, as the
-// forward masks them, and dP = dO V^T.
+// where the tile crosses the diagonal (outside the prefix square), the
+// window's edge or w_end, as the forward masks them, and dP = dO V^T.
 template <typename T, int HD>
 __device__ __forceinline__ void scores(float (&s)[BM / 2], float (&dp)[BM / 2],
                                        uint64_t dq, uint64_t ddo,
                                        uint64_t dk, uint64_t dv,
                                        uint64_t toff, int u0, int q0,
                                        int row, int w_end, int causal,
-                                       int window) {
+                                       int window, int prefix) {
   constexpr int NS = HD / 16;
   constexpr uint32_t KSTEP = BM * 32 >> 4;  // a panel, in 16-byte units
   const int tq_ = threadIdx.x & 3;
@@ -459,7 +467,9 @@ __device__ __forceinline__ void scores(float (&s)[BM / 2], float (&dp)[BM / 2],
   wg::wait<0>();
   wg::keep(s);
   wg::keep(dp);
-  const bool edge = u0 + BM > w_end || (causal && u0 + BM - 1 > q0) ||
+  const bool edge = u0 + BM > w_end ||
+                    (causal && u0 + BM - 1 > q0 &&
+                     !rt::flash_in_prefix(q0, BM, u0, BM, prefix)) ||
                     (window > 0 && u0 <= q0 + BM - 1 - window);
   if (edge) {
 #pragma unroll
@@ -470,8 +480,8 @@ __device__ __forceinline__ void scores(float (&s)[BM / 2], float (&dp)[BM / 2],
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int u = u0 + 8 * c + 2 * tq_ + e;
-          const bool ok = u < w_end && (!causal || u <= i) &&
-                          (window <= 0 || u > i - window);
+          const bool ok =
+              u < w_end && rt::flash_sees(i, u, causal, window, prefix);
           if (!ok) s[4 * c + 2 * r + e] = -INFINITY;
         }
     }
@@ -489,7 +499,7 @@ __global__ void __launch_bounds__(128, 1)
                         T* __restrict__ dq, const float* __restrict__ lse_in,
                         float* __restrict__ lse_out,
                         float* __restrict__ d_out, int H, int KV, int Sq,
-                        int Sk, int Sqp, int causal, int window,
+                        int Sk, int Sqp, int causal, int window, int prefix,
                         float scale_log2, float scale) {
   constexpr int NS = HD / 16, NP = BM / 16;
   constexpr uint32_t SW32 = 3, PANEL = BM * 32, TILE = NS * PANEL;
@@ -507,7 +517,7 @@ __global__ void __launch_bounds__(128, 1)
   const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
   const int kvz = b * KV + h / (H / KV);
   // the K tiles some row can see: the forward warpgroup's
-  const int w_end = causal ? min(Sk, q0 + BM) : Sk;
+  const int w_end = causal ? min(Sk, rt::flash_key_end(q0, BM, prefix)) : Sk;
   const int w_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int j0 = w_lo / BM, nt = max((w_end + BM - 1) / BM - j0, 0);
 
@@ -574,8 +584,8 @@ __global__ void __launch_bounds__(128, 1)
     ring.acquire(it, nt, fetch);
     const int j = j0 + it;
     const uint64_t toff = (it & 1) * (TILE >> 4);
-    scores<T, HD>(s, dp, dq_, ddo, dk0, dv0, toff, j * BM, q0, row,
-                        w_end, causal, window);
+    scores<T, HD>(s, dp, dq_, ddo, dk0, dv0, toff, j * BM, q0, row, w_end,
+                  causal, window, prefix);
     // P = 2^(S scale log2e - lse) (0 where masked), dS = P (dP - D) into dp
 #pragma unroll
     for (int c = 0; c < BM / 8; ++c)
@@ -637,7 +647,8 @@ __global__ void __launch_bounds__(128, 1)
                           float* __restrict__ dkp, float* __restrict__ dvp,
                           T* __restrict__ dk, T* __restrict__ dv, int H,
                           int KV, int Sq, int Sk, int Sqp, int causal,
-                          int window, float scale_log2, float scale) {
+                          int window, int prefix, float scale_log2,
+                          float scale) {
   constexpr int NS = HD / 16, NP = BM / 16, PARTS = HD / HDO;
   constexpr uint32_t SW32 = 3, PANEL = BM * 32, TILE = NS * PANEL;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -652,8 +663,9 @@ __global__ void __launch_bounds__(128, 1)
   const int part = blockIdx.x % PARTS, k0 = blockIdx.x / PARTS * BM;
   const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
   const int G = H / KV, kvz = b * KV + h / G;
-  // the query tiles that can see one of the block's keys
-  const int i_lo = causal ? k0 : 0;
+  // the query tiles that can see one of the block's keys (from 0 for keys
+  // that start inside the prefix)
+  const int i_lo = causal && k0 >= prefix ? k0 : 0;
   const int i_hi = window > 0 ? min(Sq, k0 + BM - 1 + window) : Sq;
   const int t0 = i_lo / BM, nt = max((i_hi + BM - 1) / BM - t0, 0);
 
@@ -715,7 +727,8 @@ __global__ void __launch_bounds__(128, 1)
     wg::keep(st);
     wg::keep(dpt);
     // P^T into st, dS^T into dpt; 0 where masked (edge tiles only)
-    const bool edge = (causal && i0 < k0 + BM - 1) ||
+    const bool edge = (causal && i0 < k0 + BM - 1 &&
+                       !rt::flash_in_prefix(i0, BM, k0, BM, prefix)) ||
                       (window > 0 && i0 + BM - 1 >= k0 + window) ||
                       i0 + BM > Sq || k0 + BM > Sk;
 #pragma unroll
@@ -726,7 +739,8 @@ __global__ void __launch_bounds__(128, 1)
         for (int e = 0; e < 2; ++e) {
           const int x = 4 * c + 2 * r + e;
           const int i = i0 + 8 * c + 2 * tq_ + e, u = row + 8 * r;
-          const bool ok = !edge || sees(i, u, Sq, Sk, causal, window);
+          const bool ok =
+              !edge || sees(i, u, Sq, Sk, causal, window, prefix);
           const float l2 = e ? ls[c].y : ls[c].x, d = e ? ds[c].y : ds[c].x;
           const float p = ok ? ex2(fmaf(st[x], scale_log2, -l2)) : 0.f;
           st[x] = p;
@@ -846,7 +860,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* dv, const float* lse_in, float* lse,
                          float* dd, float* dkp, float* dvp, int B, int H,
                          int KV, int Sq, int Sk, int causal, int window,
-                         float scale, cudaStream_t stream) {
+                         int prefix, float scale, cudaStream_t stream) {
   constexpr int HDO = part_cols<HD>();
   constexpr size_t smem = wgmma_smem_bytes<T, HD>();
   const int Sqp = (Sq + BM - 1) / BM * BM, G = H / KV;
@@ -863,13 +877,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   bwd_dq_wgmma_kernel<T, HD><<<dim3(Sqp / BM, H, B), 128, smem, stream>>>(
       tq, tdo, tk, tv, static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<T*>(dq), lse_in, lse, dd, H,
-      KV, Sq, Sk, Sqp, causal, window, scale_log2, scale);
+      KV, Sq, Sk, Sqp, causal, window, prefix, scale_log2, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const int kt = (Sk + BM - 1) / BM;
   bwd_dkdv_wgmma_kernel<T, HD, HDO>
       <<<dim3(kt * (HD / HDO), H, B), 128, smem, stream>>>(
           tk, tv, tq, tdo, lse, dd, dkp, dvp, static_cast<T*>(dk),
-          static_cast<T*>(dv), H, KV, Sq, Sk, Sqp, causal, window,
+          static_cast<T*>(dv), H, KV, Sq, Sk, Sqp, causal, window, prefix,
           scale_log2, scale);
   if ((e = cudaGetLastError()) != cudaSuccess || G == 1) return e;
   const size_t pairs = (size_t)B * KV * Sk * HD / 2;
@@ -901,11 +915,11 @@ cudaError_t wgmma_by_hd(int hd, const void* q, const void* k, const void* v,
                         const void* o, const void* dout, void* dq, void* dk,
                         void* dv, const float* lse_in, float* lse, float* dd,
                         float* dkp, float* dvp, int B, int H, int KV, int Sq,
-                        int Sk, int causal, int window, float scale,
-                        cudaStream_t st) {
+                        int Sk, int causal, int window, int prefix,
+                        float scale, cudaStream_t st) {
 #define CALL(N)                                                              \
   launch_wgmma<T, N>(q, k, v, o, dout, dq, dk, dv, lse_in, lse, dd, dkp, dvp, \
-                     B, H, KV, Sq, Sk, causal, window, scale, st)
+                     B, H, KV, Sq, Sk, causal, window, prefix, scale, st)
   FLASH_BWD_BY_HD(CALL)
 #undef CALL
 }
@@ -914,10 +928,10 @@ cudaError_t f32_by_hd(int hd, const float* q, const float* k, const float* v,
                       const float* o, const float* dout, float* dq,
                       float* dk, float* dv, float* lse, float* dd, int B,
                       int H, int KV, int Sq, int Sk, int causal, int window,
-                      float scale, cudaStream_t st) {
+                      int prefix, float scale, cudaStream_t st) {
 #define CALL(N)                                                          \
   launch_f32<N>(q, k, v, o, dout, dq, dk, dv, lse, dd, B, H, KV, Sq, Sk, \
-                causal, window, scale, st)
+                causal, window, prefix, scale, st)
   FLASH_BWD_BY_HD(CALL)
 #undef CALL
 }
@@ -927,8 +941,9 @@ cudaError_t f32_by_hd(int hd, const float* q, const float* k, const float* v,
 
 // Both return the cudaError_t of their launches (0 = success). q, o,
 // dout, dq: (B, H, Sq, hd); k, v, dk, dv: (B, KV, Sk, hd), all of one dtype
-// and contiguous; B, Sq and Sk > 0; window <= 0: no window. Checked by the
-// Python wrapper (kernels/flash_attention.py:flash_attention_bwd).
+// and contiguous; B, Sq and Sk > 0; window <= 0: no window; prefix: the
+// bidirectional prefix's length (0: none; read only when causal). Checked
+// by the Python wrapper (kernels/flash_attention.py:flash_attention_bwd).
 
 // float32: the CUDA-core kernels. lse, dd: (B, H, Sq) float32 scratch.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
@@ -937,7 +952,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    void* dv, void* lse, void* dd, int dtype,
                                    int B, int H, int KV, int Sq, int Sk,
                                    int hd, int causal, int window,
-                                   float scale, void* stream) {
+                                   float scale, void* stream, int prefix) {
   if (H % KV != 0 || dtype != rt::F32) return cudaErrorInvalidValue;
   return f32_by_hd(hd, static_cast<const float*>(q),
                    static_cast<const float*>(k), static_cast<const float*>(v),
@@ -945,7 +960,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                    static_cast<const float*>(dout), static_cast<float*>(dq),
                    static_cast<float*>(dk), static_cast<float*>(dv),
                    static_cast<float*>(lse), static_cast<float*>(dd), B, H,
-                   KV, Sq, Sk, causal, window, scale,
+                   KV, Sq, Sk, causal, window, max(prefix, 0), scale,
                    static_cast<cudaStream_t>(stream));
 }
 
@@ -958,8 +973,9 @@ extern "C" int flash_attention_bwd_wgmma(
     const void* dout, void* dq, void* dk, void* dv, const void* lse_in,
     void* lse, void* dd, void* dkp, void* dvp, int dtype, int B, int H,
     int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
-    void* stream) {
+    void* stream, int prefix) {
   if (H % KV != 0) return cudaErrorInvalidValue;
+  prefix = max(prefix, 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* li = static_cast<const float*>(lse_in);
   float* l = static_cast<float*>(lse);
@@ -969,10 +985,10 @@ extern "C" int flash_attention_bwd_wgmma(
   if (dtype == rt::BF16)
     return wgmma_by_hd<__nv_bfloat16>(hd, q, k, v, o, dout, dq, dk, dv, li,
                                       l, d, kp, vp, B, H, KV, Sq, Sk, causal,
-                                      window, scale, st);
+                                      window, prefix, scale, st);
   if (dtype == rt::F16)
     return wgmma_by_hd<__half>(hd, q, k, v, o, dout, dq, dk, dv, li, l, d,
                                kp, vp, B, H, KV, Sq, Sk, causal, window,
-                               scale, st);
+                               prefix, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -23,6 +23,12 @@ dK / dV partials; float32 runs the two CUDA-core passes.
 `flash_attention.launches` counts forward launches,
 `flash_attention_bwd.launches` backward calls (two or three kernels
 each).
+
+Both take the JAX model's masks: causal or not, a local `window`, and a
+bidirectional prefix (`prefix_len`, the prefix-LM mask of paligemma's
+vision tokens: the first prefix_len positions see one another both ways,
+and every later query sees them). Every route of both kernels has the
+prefix arm; prefix_len = 0 is the plain causal mask.
 """
 from __future__ import annotations
 
@@ -58,11 +64,13 @@ def _check(name, q, k, v, *more):
                          f"head_dim in {HEAD_DIMS}")
 
 
-def _forward(q, k, v, causal: bool, window: int, lse=None):
+def _forward(q, k, v, causal: bool, window: int, lse=None,
+             prefix_len: int = 0):
     """The forward launch. lse: None, or a (B, H, Sq) float32 buffer the
     tensor-core kernel fills with each row's log-sum-exp (log2 units)."""
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check("flash_attention", q, k, v)
@@ -80,7 +88,7 @@ def _forward(q, k, v, causal: bool, window: int, lse=None):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  *lse_arg, build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd,
                  int(causal), max(int(window), 0), hd ** -0.5,
-                 build.stream())
+                 build.stream(), max(int(prefix_len), 0))
     build.check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out
@@ -88,15 +96,15 @@ def _forward(q, k, v, causal: bool, window: int, lse=None):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, prefix_len):
         # the tensor-core forward also writes each row's log-sum-exp, which
         # spares the backward a second forward launch to write them
         lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
                if q.device.type == "cuda" and q.dtype != torch.float32
                else None)
-        o = _forward(q, k, v, causal, window, lse)
+        o = _forward(q, k, v, causal, window, lse, prefix_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.prefix_len = causal, window, prefix_len
         return o
 
     @staticmethod
@@ -104,27 +112,30 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
                                          causal=ctx.causal,
-                                         window=ctx.window, lse=lse)
-        return dq, dk, dv, None, None
+                                         window=ctx.window,
+                                         prefix_len=ctx.prefix_len, lse=lse)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    prefix_len: int = 0):
     """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd), one float dtype; KV head
     h // (H / KV). window > 0: key u is visible to query i only when
-    u > i - window (local attention). Returns (B, H, Sq, hd). Carries a
-    gradient to q, k and v when grad mode is on and one of them requires
-    it."""
+    u > i - window (local attention). prefix_len > 0 (causal): queries
+    and keys below prefix_len also see one another both ways (a
+    prefix-LM). Returns (B, H, Sq, hd). Carries a gradient to q, k and v
+    when grad mode is on and one of them requires it."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, prefix_len)
+    return _forward(q, k, v, causal, window, prefix_len=prefix_len)
 
 
 flash_attention.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
-                        window: int = 0, lse=None):
+                        window: int = 0, prefix_len: int = 0, lse=None):
     """The gradient of flash_attention: q, o (its output) and do (the
     output's gradient) (B, H, Sq, hd), k/v (B, KV, Sk, hd), one float
     dtype, contiguous. Returns (dq (B, H, Sq, hd), dk, dv (B, KV, Sk,
@@ -136,10 +147,11 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     lse: None, or the (B, H, Sq) float32 log-sum-exps the bf16 / f16
     forward saved under autograd; without them a bf16 / f16 call first
     runs the forward kernel to write them (one more forward launch). The
-    twin and float32 ignore it."""
+    twin and float32 ignore it. The masks are flash_attention's."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                           window=window)
+                                           window=window,
+                                           prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
@@ -150,7 +162,8 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     if Sq == 0 or Sk == 0 or B == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     args = (build.DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd, int(causal),
-            max(int(window), 0), hd ** -0.5, build.stream())
+            max(int(window), 0), hd ** -0.5, build.stream(),
+            max(int(prefix_len), 0))
     if q.dtype == torch.float32:
         # each query row's log-sum-exp and rowsum(dO * O), written by the
         # first pass and read by the second
@@ -166,7 +179,7 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
             # the first pass reads each row's lse as the forward writes it
             lse = torch.empty(B, H, Sq, dtype=torch.float32,
                               device=q.device)
-            _forward(q, k, v, causal, window, lse)
+            _forward(q, k, v, causal, window, lse, prefix_len)
         elif (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
               or lse.device != q.device or not lse.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "

@@ -93,11 +93,31 @@ def paged_prefill_ref(q, k_suf, v_suf, k_pool, v_pool, block_tables, starts,
     return o.permute(0, 3, 1, 2, 4).reshape(N, Ls, H, hd).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_visible(qpos, kpos, causal: bool, window: int, prefix_len: int):
+    """The flash kernels' mask: key u is visible to query i when u <= i or,
+    for a bidirectional prefix, both lie in it (i < prefix_len and u <
+    prefix_len) (causal; every key otherwise), and, for window > 0, when
+    u > i - window: the JAX model's chunked_causal_attention mask.
+    qpos: (Sq, 1), kpos: (1, Sk) positions; returns (Sq, Sk) bool."""
+    if causal:
+        valid = kpos <= qpos
+        if prefix_len > 0:
+            valid = valid | ((qpos < prefix_len) & (kpos < prefix_len))
+    else:
+        valid = torch.ones(qpos.shape[0], kpos.shape[1], dtype=torch.bool,
+                           device=qpos.device)
+    if window > 0:
+        valid = valid & (kpos > qpos - window)
+    return valid
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        prefix_len: int = 0):
     """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd); KV head h // (H / KV).
-    Key u is visible to query i when u <= i (causal) and, for window > 0,
-    u > i - window (the JAX path's local-attention mask). Returns
-    (B, H, Sq, hd) in q's dtype."""
+    Key u is visible to query i as `flash_visible` says: u <= i (causal),
+    or both in the first prefix_len positions (a bidirectional prefix),
+    and, for window > 0, u > i - window (the JAX path's local-attention
+    mask). Returns (B, H, Sq, hd) in q's dtype."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, KV, H // KV, Sq, hd)
@@ -105,27 +125,27 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     vf = v.float()[:, :, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     qpos = torch.arange(Sq, device=q.device)[:, None]
-    valid = (kpos <= qpos) if causal else torch.ones(
-        Sq, Sk, dtype=torch.bool, device=q.device)
-    if window > 0:
-        valid = valid & (kpos > qpos - window)
+    valid = flash_visible(qpos, kpos, causal, window, prefix_len)
     o = _masked_attention(qf, kf, vf, valid, hd ** -0.5)
     return o.reshape(B, H, Sq, hd).to(q.dtype)
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
-                            window: int = 0, chunk: int = 256):
+                            window: int = 0, prefix_len: int = 0,
+                            chunk: int = 256):
     """The gradient of flash_attention_ref, by the explicit flash-backward
     formulas, one chunk of `chunk` query rows at a time in float32: P
     recomputed from the scores and each row's log-sum-exp, D = rowsum(dO *
     O), dV = P^T dO, dS = P * (dO V^T - D), dQ = dS K * scale, dK = dS^T Q
     * scale, dK and dV summed over each KV head's group of query heads.
     q, o, do: (B, H, Sq, hd); k/v: (B, KV, Sk, hd); o is the forward's
-    output. Returns (dq, dk, dv) in the inputs' dtype."""
-    return _flash_bwd(q, k, v, o, do, causal, window, chunk, None)
+    output; the mask is flash_attention_ref's. Returns (dq, dk, dv) in the
+    inputs' dtype."""
+    return _flash_bwd(q, k, v, o, do, causal, window, prefix_len, chunk,
+                      None)
 
 
-def _flash_bwd(q, k, v, o, do, causal, window, chunk, rnd):
+def _flash_bwd(q, k, v, o, do, causal, window, prefix_len, chunk, rnd):
     """flash_attention_bwd_ref's math; rnd, where given, rounds P and dS
     before the products that take them (the tests' emulation)."""
     B, H, Sq, hd = q.shape
@@ -142,10 +162,7 @@ def _flash_bwd(q, k, v, o, do, causal, window, chunk, rnd):
         qf, of, dof = (t[:, :, rows].float().reshape(B, KV, G, -1, hd)
                        for t in (q, o, do))
         qpos = torch.arange(rows.start, rows.stop, device=q.device)[:, None]
-        valid = (kpos <= qpos) if causal else torch.ones(
-            qpos.shape[0], Sk, dtype=torch.bool, device=q.device)
-        if window > 0:
-            valid = valid & (kpos > qpos - window)
+        valid = flash_visible(qpos, kpos, causal, window, prefix_len)
         s = torch.einsum("bkgqh,bkgsh->bkgqs", qf, kf) * scale
         s = torch.where(valid, s, torch.full_like(s, -1e30))
         m = s.amax(-1, keepdim=True)
@@ -218,8 +235,8 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_tables, ctx_lens,
 
 
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
-                              window: int = 0, key_tile: int,
-                              p_split: bool):
+                              window: int = 0, prefix_len: int = 0,
+                              key_tile: int, p_split: bool):
     """flash_attention as the 16-bit tensor-core kernel orders it: keys in
     tiles of `key_tile`, an online softmax across tiles in float32, and P
     rounded to q's dtype before P.V, either once (p_split=False) or as a
@@ -238,10 +255,7 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
         kt = k[:, :, u0:u0 + key_tile].float()[:, :, None]
         vt = v[:, :, u0:u0 + key_tile].float()[:, :, None]
         kpos = torch.arange(u0, u0 + kt.shape[-2], device=q.device)[None, :]
-        valid = (kpos <= qpos) if causal else torch.ones(
-            Sq, kt.shape[-2], dtype=torch.bool, device=q.device)
-        if window > 0:
-            valid = valid & (kpos > qpos - window)
+        valid = flash_visible(qpos, kpos, causal, window, prefix_len)
         s = torch.einsum("...qh,...sh->...qs", qf, kt) * hd ** -0.5
         s = torch.where(valid, s, torch.full_like(s, -1e30))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -257,7 +271,8 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True,
 
 
 def flash_attention_bwd_split_ref(q, k, v, o, do, *, causal: bool = True,
-                                  window: int = 0, p_split: bool):
+                                  window: int = 0, prefix_len: int = 0,
+                                  p_split: bool):
     """flash_attention_bwd_ref with the roundings of the 16-bit tensor-core
     backward (csrc/flash_attention_bwd.cu): Q, K, V and dO go to the
     tensor cores exact, and P (for dV = P^T dO) and dS (for dQ = dS K and
@@ -271,7 +286,7 @@ def flash_attention_bwd_split_ref(q, k, v, o, do, *, causal: bool = True,
         hi = x.to(dt).float()
         return hi + (x - hi).to(dt).float() if p_split else hi
 
-    return _flash_bwd(q, k, v, o, do, causal, window, 256, rnd)
+    return _flash_bwd(q, k, v, o, do, causal, window, prefix_len, 256, rnd)
 
 
 def paged_prefill_tiled_ref(q, k_suf, v_suf, k_pool, v_pool, block_tables,

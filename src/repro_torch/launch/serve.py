@@ -29,6 +29,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama4-maverick-400b-a17b --mode naive
 
+    # the frontends' archs, paligemma-3b (text generate() on its backbone)
+    # and musicgen-medium (4 EnCodec codebooks a token), through the fixed
+    # batch only; the engine refuses them, as the JAX engine does:
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch musicgen-medium --mode naive --device cpu
+
     # sampled decoding (per-request threefry streams, JAX's draws) with
     # stop tokens and top-k logprobs; int8 / fp8 KV pools with the host
     # spill tier:
@@ -58,7 +64,9 @@ batch (`--mode naive`); `--full-width` serves the published config. The
 engine serves smollm-135m, recurrentgemma-2b, rwkv6-3b, the MoE archs
 (grok-1-314b, llama4-maverick-400b-a17b) and the other attention-only
 archs, greedy or sampled, on activation-dtype or
-int8 / fp8 pools, with or without the host spill tier. The weights are
+int8 / fp8 pools, with or without the host spill tier; not the
+frontends' archs (paligemma-3b, musicgen-medium), which `--mode naive`
+serves. The weights are
 cast to the compute dtype once, before any engine is built, so every
 replica of a cluster runs on one device copy of them.
 
@@ -106,19 +114,22 @@ from repro_torch.serving.slo import SLOPolicy, SLOSignal, SLOTracker
 @torch.inference_mode()
 def generate(params, cfg, prompts, gen_len: int, *, temperature: float = 0.0,
              seed: int = 0, device=None, return_margins: bool = False):
-    """prompts: (B, P) int (an array, list or tensor). Decode with a dense
-    KV cache primed token by token from the prompt: greedy, or with
-    temperature > 0 sampled as the JAX `generate()` samples (the first
-    token is the prompt's argmax; each later one splits the key of
-    PRNGKey(seed) and draws categorical(sub, logits / temperature)).
-    Returns (B, gen_len) int32 tokens on the device; with return_margins
-    also the (B, gen_len) float32 top-1 minus top-2 logit gap of the
-    step that chose each token. Runs on `device` (default CUDA; raises
-    without a GPU unless device="cpu" is given)."""
+    """prompts: (B, P) int (an array, list or tensor), or (B, P,
+    n_codebooks) for an audio model. Decode with a dense KV cache primed
+    token by token from the prompt: greedy, or with temperature > 0
+    sampled as the JAX `generate()` samples (the first token is the
+    prompt's argmax; each later one splits the key of PRNGKey(seed) and
+    draws categorical(sub, logits / temperature), over every codebook at
+    once for audio). Returns (B, gen_len) int32 tokens ((B, gen_len,
+    n_codebooks) for audio) on the device; with return_margins also the
+    float32 top-1 minus top-2 logit gap of the step that chose each token
+    (one a codebook for audio), of the tokens' shape. A vision model
+    generates from text alone, as in the JAX package. Runs on `device`
+    (default CUDA; raises without a GPU unless device="cpu" is given)."""
     dev = resolve_device(device)
     params = lm.cast_params(to_device(params, dev), cfg)
     prompts = torch.as_tensor(prompts, device=dev)
-    B, P = prompts.shape
+    B, P = prompts.shape[:2]
     state = lm.init_decode_state(cfg, B, P + gen_len + 1, device=dev)
     logits = None
     for pos in range(P):
@@ -128,7 +139,7 @@ def generate(params, cfg, prompts, gen_len: int, *, temperature: float = 0.0,
     key = prng.PRNGKey(seed, device=dev)
     for i in range(gen_len):
         top2 = torch.topk(logits.float(), 2, dim=-1).values
-        margins.append(top2[:, 0] - top2[:, 1])
+        margins.append(top2[..., 0] - top2[..., 1])
         if temperature > 0 and i > 0:
             key, sub = prng.split(key)
             tok = prng.categorical(sub, logits / temperature)
@@ -351,10 +362,14 @@ def _shared_weights(replicas) -> bool:
 
 def _naive_prompts(args, cfg):
     """The naive path's fixed batch of prompts: JAX's
-    jax.random.randint(PRNGKey(seed + 1), (batch, prompt_len), 0, vocab),
-    the same tokens (int64 on the CPU)."""
-    return prng.randint(prng.PRNGKey(args.seed + 1),
-                        (args.batch, args.prompt_len[0]), 0, cfg.vocab_size)
+    jax.random.randint(PRNGKey(seed + 1), (batch, prompt_len), 0, vocab)
+    ((batch, prompt_len, n_codebooks) for audio), the same tokens (int64
+    on the CPU)."""
+    shape = (args.batch, args.prompt_len[0])
+    if cfg.frontend == "audio":
+        shape += (cfg.n_codebooks,)
+    return prng.randint(prng.PRNGKey(args.seed + 1), shape, 0,
+                        cfg.vocab_size)
 
 
 def _run_naive(args, cfg, params, device):

@@ -20,8 +20,8 @@ flash, the paged decode's and the paged prefill's). Quantized (int8 /
 fp8-e4m3) pools carry float32 "k_scale" / "v_scale" tables, one max-abs
 scale per (token slot, KV head); K/V quantize on landing in the pool and
 the kernels dequantize what they read (their int8 / fp8 arms). The dense
-path's bidirectional `prefix_len` on CUDA belongs to a later slice and
-raises.
+path's bidirectional `prefix_len` (paligemma's vision prefix) runs
+through the flash kernels' prefix arm, forward and backward.
 """
 from __future__ import annotations
 
@@ -31,8 +31,6 @@ from repro_torch import prng
 from repro_torch.kernels import (flash_attention, paged_attention,
                                  paged_prefill_attention)
 from repro_torch.models.layers import apply_rope, init_dense
-
-NEG_INF = -1e30
 
 
 def init_attention(key, d_model, n_heads, n_kv_heads, head_dim, dtype):
@@ -109,63 +107,23 @@ def _write_pool(cache, blk, off, k, v):
     pool_bytes(cache["v"]).index_put_((blk, off), pool_bytes(v))
 
 
-def chunked_causal_attention(q, k, v, *, chunk: int = 512, window: int = 0,
-                             prefix_len: int = 0):
-    """Exact causal attention over query chunks: the plain version of the
-    flash kernel, with the JAX path's `window` (local attention) and
-    `prefix_len` (bidirectional prefix) options. q: (B, S, H, hd);
-    k/v: (B, S, KV, hd). Returns (B, S, H, hd) in v's dtype."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    group = H // KV
-    scale = hd ** -0.5
-    chunk = min(chunk, S)
-    kpos = torch.arange(S, device=q.device)
-    kf = k.float()
-    outs = []
-    for c0 in range(0, S, chunk):
-        qi = q[:, c0:c0 + chunk]
-        qpos = torch.arange(c0, c0 + qi.shape[1], device=q.device)
-        qg = qi.float().reshape(B, -1, KV, group, hd)
-        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
-        ok = kpos[None, :] <= qpos[:, None]
-        if prefix_len > 0:
-            ok = ok | ((qpos[:, None] < prefix_len)
-                       & (kpos[None, :] < prefix_len))
-        if window > 0:
-            ok = ok & (kpos[None, :] > qpos[:, None] - window)
-        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-        p = torch.softmax(s, dim=-1).to(v.dtype)
-        o = torch.einsum("bkgqs,bskh->bqkgh", p, v)
-        outs.append(o.reshape(B, -1, H, hd))
-    return torch.cat(outs, dim=1).to(v.dtype)
-
-
 def attention_block(params, x, positions, cfg, *, window: int = 0,
                     prefix_len: int = 0, return_kv: bool = False):
     """Full attention sub-layer (projections + causal attention).
 
-    Causal attention, with or without a local `window`, runs through the
-    flash kernel wrapper; `cfg.attn_impl` ("chunked" / "bisect") selects
-    between two TPU-side formulations of the same exact attention and has
-    no counterpart here. A bidirectional prefix (prefix_len > 0) takes
-    `chunked_causal_attention` on the CPU and raises on CUDA.
+    Causal attention, with or without a local `window` or a bidirectional
+    prefix (prefix_len > 0: the first prefix_len positions see one another
+    both ways), runs through the flash kernel wrapper; `cfg.attn_impl`
+    ("chunked" / "bisect") selects between two TPU-side formulations of
+    the same exact attention and has no counterpart here.
     return_kv=True also returns the rope'd (k, v)."""
     B, S, D = x.shape
     q, k, v = _qkv(params, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                    positions, cfg.rope_theta)
-    if prefix_len == 0:
-        o = flash_attention(q.transpose(1, 2).contiguous(),
-                            k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(),
-                            causal=True, window=window).transpose(1, 2)
-    elif x.device.type == "cuda":
-        raise NotImplementedError(
-            "flash attention with a bidirectional prefix has no CUDA kernel "
-            "yet (the MoE-and-frontends slice)")
-    else:
-        o = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk,
-                                     window=window, prefix_len=prefix_len)
+    o = flash_attention(q.transpose(1, 2).contiguous(),
+                        k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous(), causal=True,
+                        window=window, prefix_len=prefix_len).transpose(1, 2)
     out = o.reshape(B, S, -1) @ params["wo"]
     if return_kv:
         return out, (k, v)

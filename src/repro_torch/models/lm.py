@@ -2,11 +2,13 @@
 
 Layer layout mirrors the JAX param tree with the scan axis unstacked:
 
-  params = {"embed": (V, D),
+  params = {"embed": (V, D), or (n_codebooks, V, D) for audio,
+            "vision": {"proj": (vision_dim, D)} for vision,
             "prefix": [layer, ...],                  # cfg.prefix_pattern
             "blocks": {"p0": [layer] * n_super, ...}, # one list per
                                                       # block_pattern entry
-            "final_norm": (D,), "head": (D, V) if untied}
+            "final_norm": (D,), "head": (D, V) if untied
+                                        ((D, n_codebooks * V) for audio)}
 
 and the decode / paged states follow the same tree. The JAX package's
 `lax.scan` over superblocks is a loop over layers here (`_layers`).
@@ -18,10 +20,19 @@ decode_step_paged, decode_verify_paged and commit_decode_state. Attention layers
 `models/moe.py`; grok-1, llama4), RG-LRU layers ("rec", recurrentgemma)
 and RWKV6 layers ("rwkv", rwkv6) are ported, on every path. In the paged
 state (the serving engine's) attention and MoE layers hold block pools and
-recurrent layers slot-indexed state, (num_slots, ...) per leaf. The vision
-/ audio frontends raise NotImplementedError until their slice. Decode
+recurrent layers slot-indexed state, (num_slots, ...) per leaf. Decode
 state (dense caches, paged pools, recurrent state) is updated in place,
 and every function that takes a state returns the same object.
+
+The frontends (`models/frontends.py`) run on every dense path, as in the
+JAX module: a vision batch carries "vision_emb" (B, n_patches,
+vision_dim), projected and prepended to the text as a bidirectional prefix
+that every attention layer's flash kernel sees both ways (prefix_len =
+n_patches); logits cover the text only, while prefill's cache covers the
+whole sequence, so decode continues after it. Audio tokens are (B, S,
+n_codebooks), the codebooks' embeddings summed; the logits are (B, S,
+n_codebooks, V) and decode_step takes (B, n_codebooks) tokens. The paged
+paths refuse a frontend, as the JAX engine never reaches them.
 
 MoE capacity follows the tokens a call routes in each batch row, as in
 the JAX module: a paged prefill routes the row's suffix at its bucket
@@ -46,7 +57,7 @@ import torch.utils.checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, moe, recurrent
+from repro_torch.models import attention, frontends, moe, recurrent
 from repro_torch.models.layers import (init_embed, init_mlp, mlp, rms_norm,
                                        softmax_xent)
 
@@ -55,13 +66,23 @@ RECURRENT_KINDS = ("rec", "rwkv")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            f"(the frontends slice)")
+    if cfg.frontend not in ("none", "vision", "audio"):
+        raise ValueError(cfg.frontend)
     for kind in cfg.prefix_pattern + cfg.block_pattern:
         if kind not in ATTN_KINDS + RECURRENT_KINDS:
             raise ValueError(kind)
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    """The paged (serving engine) paths take text LMs only: the JAX engine
+    refuses the frontends (`ServingEngine`), so its paged functions never
+    see them."""
+    _check_supported(cfg)
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the paged paths serve text LMs only, as the "
+            f"serving engine does (the {cfg.frontend} frontend runs on the "
+            f"dense paths and generate())")
 
 
 def _layers(tree, cfg: ModelConfig) -> Iterator[Tuple[str, dict]]:
@@ -119,14 +140,22 @@ def init_params(seed: int, cfg: ModelConfig, *, device=None):
     JAX's key `PRNGKey(seed)` in JAX's key order (`repro/models/lm.py:
     init_params`): its split into 8, the embedding from the first, prefix
     layer i from fold_in(keys[2], i), superblock n of pattern position pi
-    from split(fold_in(keys[3], pi), n_super)[n], the head from keys[4].
-    So a seed gives the JAX package's weights (`prng.normal`: up to
-    erf_inv's last place)."""
+    from split(fold_in(keys[3], pi), n_super)[n], the head from keys[4]
+    ((D, n_codebooks * V) for audio); audio's codebook tables from
+    keys[0], the vision projection from keys[1]. So a seed gives the JAX
+    package's weights (`prng.normal`: up to erf_inv's last place)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     keys = prng.split(prng.PRNGKey(seed, device=dev), 8)
     D, V, dt = cfg.d_model, cfg.vocab_size, cfg.p_dtype
-    params = {"embed": init_embed(keys[0], V, D, dt)}
+    if cfg.frontend == "audio":
+        params = {"embed": frontends.init_audio_embed(
+            keys[0], cfg.n_codebooks, V, D, dt)}
+    else:
+        params = {"embed": init_embed(keys[0], V, D, dt)}
+    if cfg.frontend == "vision":
+        params["vision"] = frontends.init_vision_frontend(
+            keys[1], cfg.vision_dim, D, dt)
     params["prefix"] = [_init_block(prng.fold_in(keys[2], i), cfg, kind)
                         for i, kind in enumerate(cfg.prefix_pattern)]
     blocks = {}
@@ -136,7 +165,9 @@ def init_params(seed: int, cfg: ModelConfig, *, device=None):
     params["blocks"] = blocks
     params["final_norm"] = torch.zeros(D, dtype=dt, device=dev)
     if not cfg.tie_embeddings:
-        params["head"] = (prng.normal(keys[4], (D, V)) * D ** -0.5).to(dt)
+        n_out = V * (cfg.n_codebooks if cfg.frontend == "audio" else 1)
+        params["head"] = (prng.normal(keys[4], (D, n_out))
+                          * D ** -0.5).to(dt)
     return params
 
 
@@ -156,10 +187,38 @@ def cast_params(params, cfg: ModelConfig):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
+    """Token embeddings in the activation dtype: tokens (B, S), or (B, S,
+    n_codebooks) for audio (the codebooks' embeddings summed)."""
+    if cfg.frontend == "audio":
+        return frontends.audio_embed(params["embed"],
+                                     tokens).to(cfg.act_dtype)
     return params["embed"][tokens.long()].to(cfg.act_dtype)
 
 
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """(h (B, S, D), positions (B, S), prefix_len): a vision batch's
+    projected "vision_emb" (cast to the activation dtype before the
+    projection, as the JAX module casts it) prepended to its text tokens,
+    prefix_len = n_patches; otherwise the tokens' embeddings and 0."""
+    h = _embed(params, cfg, batch["tokens"])
+    prefix_len = 0
+    if cfg.frontend == "vision":
+        vis = frontends.vision_embed(
+            params["vision"], batch["vision_emb"].to(cfg.act_dtype))
+        h = torch.cat([vis.to(cfg.act_dtype), h], dim=1)
+        prefix_len = vis.shape[1]
+    return h, _positions(h.shape[0], h.shape[1], h.device), prefix_len
+
+
 def _head(params, cfg: ModelConfig, h):
+    """Logits (..., V) of h (..., D); for audio (B, S, n_codebooks, V) of
+    h (B, S, D)."""
+    if cfg.frontend == "audio":
+        if cfg.tie_embeddings:
+            return torch.einsum("bsd,cvd->bscv", h, params["embed"])
+        B, S, _ = h.shape
+        return (h @ params["head"]).reshape(B, S, cfg.n_codebooks,
+                                            cfg.vocab_size)
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["head"]
@@ -245,14 +304,16 @@ def _write_state(st, new, active=None):
 # ----------------------------------------------------------------------------
 
 def _seq_layer(kind: str, p, h, cfg: ModelConfig, positions,
-               collect_kv: bool = False, lengths=None):
+               collect_kv: bool = False, lengths=None, prefix_len: int = 0):
     """One layer over a full sequence: (h, its state when collect_kv, the
-    MoE aux dict or None)."""
+    MoE aux dict or None). prefix_len: the bidirectional prefix every
+    attention layer sees both ways."""
     if kind in RECURRENT_KINDS:
         return _recurrent_layer(kind, p, h, cfg, lengths=lengths) + (None,)
     o = attention.attention_block(
         p["attn"], rms_norm(h, p["norm1"], cfg.norm_eps), positions, cfg,
-        window=_window(cfg, kind), return_kv=collect_kv)
+        window=_window(cfg, kind), prefix_len=prefix_len,
+        return_kv=collect_kv)
     kv = None
     if collect_kv:
         o, (k, v) = o
@@ -270,7 +331,7 @@ def _add_aux(acc, aux):
 
 def _run_blocks_seq(params, cfg: ModelConfig, h, positions,
                     collect_kv: bool = False, lengths=None,
-                    remat: bool = False):
+                    remat: bool = False, prefix_len: int = 0):
     """All layers over a full sequence. Returns (h, per-layer states when
     collect_kv else None, aux): states {"k", "v"} for attention and MoE
     layers, {"rec": {"h", "conv"}} for RG-LRU layers, {"tmix": {"shift",
@@ -282,13 +343,14 @@ def _run_blocks_seq(params, cfg: ModelConfig, h, positions,
     tokens, which they cannot displace). remat=True recomputes each
     superblock in the backward pass (torch.utils.checkpoint,
     non-reentrant), as the JAX path wraps each in jax.checkpoint; prefix
-    layers run as they are, as there."""
+    layers run as they are, as there. prefix_len: the bidirectional
+    (vision) prefix of every attention layer."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     kvs: List = []
 
     def layer(kind, p, h, acc):
         h, st, aux = _seq_layer(kind, p, h, cfg, positions, collect_kv,
-                                lengths)
+                                lengths, prefix_len)
         if collect_kv:
             kvs.append(st)
         return h, _add_aux(acc, aux)
@@ -322,26 +384,27 @@ def _positions(B: int, S: int, device):
 
 
 def forward(params, cfg: ModelConfig, batch, remat: bool = False):
-    """Full-sequence logits. batch: {"tokens": (B, S) int}. Returns
-    (logits (B, S, V), aux): aux {"moe_aux", "moe_zloss"}, the MoE layers'
-    load-balancing and router z-losses summed over layers (float32 zeros
-    for a model without them). remat: recompute each superblock in the
-    backward pass."""
+    """Full-sequence logits. batch: {"tokens": (B, S) int} ((B, S,
+    n_codebooks) for audio; a vision batch also has "vision_emb" (B,
+    n_patches, vision_dim)). Returns (logits (B, S, V) (audio: (B, S,
+    n_codebooks, V); vision: the text's S only), aux): aux {"moe_aux",
+    "moe_zloss"}, the MoE layers' load-balancing and router z-losses
+    summed over layers (float32 zeros for a model without them). remat:
+    recompute each superblock in the backward pass."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    tokens = batch["tokens"]
-    h = _embed(params, cfg, tokens)
-    h, _, aux = _run_blocks_seq(params, cfg, h,
-                                _positions(*tokens.shape, tokens.device),
-                                remat=remat)
+    h, positions, prefix_len = _embed_inputs(params, cfg, batch)
+    h, _, aux = _run_blocks_seq(params, cfg, h, positions, remat=remat,
+                                prefix_len=prefix_len)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, h), aux
+    return _head(params, cfg, h[:, prefix_len:]), aux
 
 
 def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
     """Mean next-token cross-entropy of batch {"tokens", "targets"} (both
-    (B, S) int) plus the MoE terms, as the JAX train_loss: total = xent +
-    0.01 moe_aux + 1e-4 moe_zloss. Returns (total, {"xent", "moe_aux",
+    (B, S) int; (B, S, n_codebooks) for audio; a vision batch's targets
+    cover its text) plus the MoE terms, as the JAX train_loss: total = xent
+    + 0.01 moe_aux + 1e-4 moe_zloss. Returns (total, {"xent", "moe_aux",
     "moe_zloss"}). Differentiable through the flash kernel (its backward is
     a kernel too) and the MoE layers' products."""
     for kind in cfg.prefix_pattern + cfg.block_pattern:
@@ -374,17 +437,17 @@ def prefill(params, cfg: ModelConfig, batch):
     {"tmix": {"shift", "S"}, "cmix"}. A "lengths" entry in batch ((B,) true
     lengths of right-padded rows) freezes the recurrent layers past each
     row's length; attention needs no mask. MoE routes all S positions of a
-    row with capacity at S."""
+    row with capacity at S. A vision batch's cache covers its
+    n_patches + S positions and its logits the text's S; audio's logits
+    are (B, S, n_codebooks, V)."""
     _check_supported(cfg)
     params = cast_params(params, cfg)
-    tokens = batch["tokens"]
-    h = _embed(params, cfg, tokens)
-    h, kvs, _ = _run_blocks_seq(params, cfg, h,
-                                _positions(*tokens.shape, tokens.device),
-                                collect_kv=True,
-                                lengths=batch.get("lengths"))
+    h, positions, prefix_len = _embed_inputs(params, cfg, batch)
+    h, kvs, _ = _run_blocks_seq(params, cfg, h, positions, collect_kv=True,
+                                lengths=batch.get("lengths"),
+                                prefix_len=prefix_len)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, h), _to_tree(cfg, kvs)
+    return _head(params, cfg, h[:, prefix_len:]), _to_tree(cfg, kvs)
 
 
 # ----------------------------------------------------------------------------
@@ -462,10 +525,11 @@ def decode_state_from_prefill(cfg: ModelConfig, cache, max_len: int):
 
 
 def decode_step(params, cfg: ModelConfig, state, tokens, pos: int):
-    """tokens: (B,) int; pos: the position being fed (an int). Returns
-    (logits (B, V), state) — the caches are updated in place, and each
-    recurrent layer's entries are replaced by its new state (the blocks run
-    with S = 1)."""
+    """tokens: (B,) int ((B, n_codebooks) for audio); pos: the position
+    being fed (an int). Returns (logits (B, V) ((B, n_codebooks, V) for
+    audio), state) — the caches are updated in place, and each recurrent
+    layer's entries are replaced by its new state (the blocks run with
+    S = 1)."""
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
     for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):
@@ -514,7 +578,7 @@ def prefill_paged(params, cfg: ModelConfig, state, tokens, lengths,
     from zeros, or with resume=True (a chunked prefill's later chunk) from
     the state the row's slot holds. Returns (last-token logits (N, V),
     state)."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     params = cast_params(params, cfg)
     N, Ls = tokens.shape
     starts = torch.minimum(cached_lens, (lengths - 1).clamp_min(0))
@@ -557,7 +621,7 @@ def decode_verify_paged(params, cfg: ModelConfig, state, tokens, positions,
     snapshots): snapshots mirror the state tree with None for attention
     layers and, for recurrent ones, (T+1, B, ...) stacks whose index t is
     the state after t chain tokens (commit_decode_state takes them)."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     params = cast_params(params, cfg)
     B, T = tokens.shape
     pos_grid = (positions[:, None]
@@ -585,7 +649,7 @@ def commit_decode_state(cfg: ModelConfig, state, snapshots, idx):
     keep the pre-verify state, as for lanes that sat the verify out).
     Attention state needs no commit (positions are the rollback). Updates
     `state` in place and returns it."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     for (_, st), (_, snap) in zip(_layers(state, cfg),
                                   _layers(snapshots, cfg)):
         if snap is None:
@@ -606,7 +670,7 @@ def decode_step_paged(params, cfg: ModelConfig, state, tokens, positions,
     their new state only where `active` is true, so a lane that sits out
     keeps its state. MoE layers route each lane's token alone (capacity
     1). Returns (logits (B, V), state)."""
-    _check_supported(cfg)
+    _check_paged(cfg)
     params = cast_params(params, cfg)
     h = _embed(params, cfg, tokens[:, None])
     for (kind, p), (_, st) in zip(_layers(params, cfg), _layers(state, cfg)):

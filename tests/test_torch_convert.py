@@ -104,17 +104,6 @@ def test_full_width_smollm_count_and_dtypes():
     assert cfg.act_dtype == torch.bfloat16 and cfg.p_dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
-def test_unported_archs_raise(arch):
-    """Each arch whose model is not ported (the vision and audio
-    frontends) raises. recurrentgemma-2b, rwkv6-3b and the MoE archs run
-    every path, the paged engine's included (tests/test_torch_lm.py,
-    tests/test_torch_engine.py, tests/test_torch_moe*.py)."""
-    cfg = tconfigs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        tlm.init_params(0, cfg, device="cpu")
-
-
 def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k in sorted(tree):

@@ -1145,3 +1145,87 @@ def test_wrappers_refuse_grad_on_cuda(cuda):
     with torch.inference_mode():
         y, _ = rwkv6_scan(r, r, r, w, u)
     assert y.grad_fn is None
+
+
+# ----------------------------------------------------------------------------
+# the bidirectional prefix arm of both flash kernels (paligemma's vision
+# prefix), at chip_smoke.py's prefix arms' shapes
+# ----------------------------------------------------------------------------
+
+# (B, H, KV, S, hd, prefix, window): paligemma's 8 / 1 heads at hd 256 (256
+# patches + 64 text tokens); a prefix straddling a 64-row tile at hd 64,
+# with and without a window; the whole sequence as the prefix (MHA)
+PREFIX_SHAPES = [(2, 8, 1, 320, 256, 256, 0), (2, 4, 2, 200, 64, 100, 0),
+                 (2, 4, 2, 200, 64, 100, 48), (2, 4, 4, 200, 64, 200, 0)]
+
+
+@pytest.mark.parametrize("B,H_,KV_,S,hd,prefix,window", PREFIX_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_prefix_matches_twin(cuda, B, H_, KV_, S, hd, prefix, window,
+                                   dtype):
+    """The prefix arm of every route (tensor cores for bf16 / f16, CUDA
+    cores for float32), forward and backward (the 16-bit backward on the
+    forward's saved log-sum-exps), against the twins: float32 within 2e-5
+    of max(1, max|twin|), bf16 / f16 within 2 bf16 ulps; two backward
+    launches bit-equal; prefix_len = 0 gives the plain causal call's
+    bits."""
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import _forward
+    rng = np.random.default_rng(S + hd + prefix + window)
+    q, do = (_rand(rng, B, H_, S, hd, dtype=dtype, dev=cuda) for _ in "qd")
+    k, v = (_rand(rng, B, KV_, S, hd, dtype=dtype, dev=cuda) for _ in "kv")
+    lse = (None if dtype == torch.float32 else
+           torch.empty(B, H_, S, dtype=torch.float32, device=cuda))
+    o = _forward(q, k, v, True, window, lse, prefix)
+    assert torch.equal(flash_attention(q, k, v, window=window,
+                                       prefix_len=prefix), o)
+    assert torch.equal(flash_attention(q, k, v, window=window, prefix_len=0),
+                       flash_attention(q, k, v, window=window))
+    got = flash_attention_bwd(q, k, v, o, do, window=window,
+                              prefix_len=prefix, lse=lse)
+    again = flash_attention_bwd(q, k, v, o, do, window=window,
+                                prefix_len=prefix, lse=lse)
+    torch.cuda.synchronize()
+    want_o = ref.flash_attention_ref(q, k, v, window=window,
+                                     prefix_len=prefix)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, window=window,
+                                       prefix_len=prefix)
+    for name, g, a, w in (("o", o, o, want_o),) + tuple(
+            zip(("dq", "dk", "dv"), got, again, want)):
+        assert torch.equal(g, a), f"{name}: two launches differ"
+        if dtype == torch.float32:
+            bound = 2e-5 * max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) <= bound, name
+        else:
+            assert _ulps(g, w) <= 2, name
+
+
+def test_attention_block_prefix_launches_the_flash_kernels(cuda):
+    """attention_block with a vision prefix on the card runs the flash
+    kernels' prefix arm, forward and (under autograd) backward, and matches
+    the same block on the CPU (the twins) within 2e-5 in float32."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.models import attention
+    cfg = SimpleNamespace(n_heads=8, n_kv_heads=1, head_dim=64,
+                          rope_theta=10000.0)
+    rng = np.random.default_rng(11)
+    params = {n: _rand(rng, 256, 512, dtype=torch.float32) * 0.05
+              for n in ("wq", "wk", "wv")}
+    params["wo"] = _rand(rng, 512, 256) * 0.05
+    params["wk"], params["wv"] = params["wk"][:, :64], params["wv"][:, :64]
+    x = _rand(rng, 2, 96, 256)
+    pos = torch.arange(96, dtype=torch.int32).expand(2, 96)
+    want = attention.attention_block(params, x, pos, cfg, prefix_len=40)
+    cp = {n: t.to(cuda).requires_grad_() for n, t in params.items()}
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    got = attention.attention_block(cp, x.to(cuda), pos.to(cuda), cfg,
+                                    prefix_len=40)
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention.launches == f0 + 1
+    assert flash_attention_bwd.launches == b0 + 1
+    assert float((got.detach().cpu() - want).abs().max()) <= 2e-5 * max(
+        1.0, float(want.abs().max()))
+    assert all(t.grad is not None for t in cp.values())
