@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
-  1. build   the seven CUDA kernels from src/repro_torch/kernels/csrc/
+  1. build   the nine CUDA kernels from src/repro_torch/kernels/csrc/
              (one nvcc per source, all started together); cuobjdump -sass
              must find HGMMA (wgmma) in every bf16 / f16 instantiation of
              the tensor-core flash and paged_prefill kernels (paged_prefill
@@ -73,7 +73,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and 48), each timed beside SDPA with the same boolean mask;
              paged decode at generate()'s dense-cache shapes of
              paligemma-3b (hd 256, group 8) and musicgen-medium (hd 64,
-             group 1);
+             group 1); the recurrent scans' backward kernels (training):
+             rglru_scan_bwd at 4 / 2 x 512 x 2560, 1 x 2304, C = 2561, T
+             = 1 and 0, float32 and bf16, with and without h0 / dh_T (da,
+             dx, dh0 bit-equal to the twin), rwkv6_scan_bwd at 4 x 40 x
+             512 x 64 and 1 x 40 x 2048 x 64 bf16, 2 x 40 x 512 x 64
+             float32, padded at 2 x 4 x 40 x 12 and an unaligned 64 view,
+             with and without s0 / dS_T (bf16 dr / dk / dv within 2 bf16
+             ulps, float32 within 1e-5 of max(1, max |twin|)), each two
+             launches bit-equal;
   3. small   the reduced float32 smollm (head_dim 16) on the card against
              the same model on the CPU (forward logits, engine tokens vs
              generate());
@@ -84,7 +92,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              token: a 30-token prompt admitted in chunks of 8 beside a
              decoding lane (also equal to generate()), and four prompts at
              speculate=4 with partial scripted drafts (equal accepted
-             counts);
+             counts); and lm.train_loss with every gradient on the card
+             (the scans' and the flash kernel's backward) against the CPU:
+             the loss within 1e-5 relative, each leaf within 1e-4 of
+             max(1, max |g|);
      small_rwkv  the same for the reduced float32 rwkv6-3b (4 heads of 16);
      small_sampled  sampled decoding on the reduced float32 smollm: the
              engine on the card against the engine on the CPU over the
@@ -161,12 +172,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
              sketches, completions plus shed requests equal the requests;
      train   full-width smollm-135m training: float32 card vs CPU (one
              MBProx and one AdamW step at 2 x 64), the config's bf16
-             activations over float32 masters at 16 x 512 (6 MBProx and
-             4 AdamW outer steps, 10 and 6 before the MoE slice's cut:
-             tokens/s, ms a step, peak memory, one
+             activations over float32 masters at 16 x 512 (5 MBProx and
+             3 AdamW outer steps, 10 and 6 before the MoE slice's cut, 6
+             and 4 before the recurrent training slice's: tokens/s, ms a
+             step, peak memory, one
              profiled outer step; the first 5 losses against a float32
              card run), and the train CLI's checkpoint / resume on the card
-             (the resumed losses against an uninterrupted run, the card's
+             (3 steps with a checkpoint, resumed to 4; the resumed loss
+             against an uninterrupted run, the card's
              checkpoint restored on the CPU bit for bit);
   6. core    the paper core on paper-lsq (d = 64, m = 8 machines, b = 128,
              T = 8): MP-DSVRG, MP-DANE (exact) and minibatch-prox (exact)
@@ -204,6 +217,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              speculate=4 with partial scripted drafts, and bf16 (tokens/s,
              TTFT, TPOT, finite logprobs, every block returned), launches
              counted per dispatch;
+     train_recurrentgemma  the same float32 master cut to its first 5
+             layers (the rec, rec prefix and one rec, rec, attn_local
+             superblock; no new init), 4 bf16 MBProx outer steps at 4 x
+             512 tokens, n_micro 2 (ms a step, tokens/s, peak memory), the
+             first 3 losses within 0.05 of a float32 card run on the same
+             batches, rglru_scan_bwd launched once a rec layer per
+             gradient;
      paligemma  full-width paligemma-3b (18 layers, 8 / 1 heads of 256,
              vocab 257216; 2.51 B seeded params, bf16; the earlier models'
              weights freed first): 2 x (256 seeded patch embeddings + 64
@@ -226,6 +246,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      engine_rwkv6  the same weights through the engine as in
              engine_recurrentgemma (verify launches rwkv6_scan with
              return_states, 32 a dispatch);
+     train_rwkv6  as train_recurrentgemma, the master cut to 4 layers,
+             rwkv6_scan_bwd launched once a layer per gradient;
      rwkv6_4_layers  the bf16 gate at 4 layers on three seeds: bf16 prefill
              vs stepwise decode <= 0.125 and bf16 vs float32 <= 0.86 on the
              first token's logits, as the port runs (the bounds are twice
@@ -254,11 +276,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              window holds every call's kernels, CUDA events around calls
              queued behind a spin kernel), twin and library device time
              (those events first, one profiler window where they cannot
-             be taken) and
+             be taken, none for a call over 100 ms) and
              wall time on phase 2's inputs, then one profiled window of
-             engine decode steps, one profiled MP-DSVRG outer step at
-             d = 2^20, one profiled MP-DANE SAGA round at the quickstart's
-             widths and profiled rwkv6-3b and recurrentgemma decode steps,
+             2 engine decode steps (4 before the recurrent training
+             slice; the lm decode steps and cluster sweeps too), one
+             profiled MP-DSVRG outer step at d = 2^20, one profiled
+             MP-DANE SAGA round at the quickstart's widths and profiled
+             rwkv6-3b and recurrentgemma decode steps,
              through generate()'s lm.decode_step and through the engine
              (4 lanes; device busy vs wall, top kernels); the smollm
              engine's decode step is profiled greedy and sampled, and a
@@ -266,9 +290,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              in turn as the router steps them), and engine_moe's decode
              step (8 lanes) beside the bytes of weights it reads.
 Launch counters are zeroed just before phases 4, 5 (per stream), 6, 7, 8,
-train_small, train, small_frontends, paligemma (prefill, decode, the
-train step), musicgen (generate(), its reference forward) and the engine
-phases (their forwards, generate() and
+train_small, train, train_recurrentgemma, train_rwkv6, small_frontends,
+paligemma (prefill, decode, the train step), musicgen (generate(), its
+reference forward) and the engine phases (their forwards, generate() and
 engine runs; engine_cluster's per arm) and
 read just after, so the launches reported are the main paths' own; the
 paged kernels also count their launches over int8 / fp8 pools. The last lines are the card's name and
@@ -491,17 +515,24 @@ def _times(fn, reps=20, tries=2):
 
 
 # a twin slower than this a call is timed over SLOW_REPS calls: the
-# recurrent scans' twins at prompt lengths take 20-260 ms a call
+# recurrent scans' twins at prompt lengths take 20-260 ms a call, their
+# backward twins 40-1900 ms
 SLOW_MS = 10.0
 SLOW_REPS = 3
+# a call slower than this gets no profiler window: a backward scan twin
+# launches ~40 small kernels a step, and reading a window of a few such
+# calls took the profiler minutes (the timings phase grew from 114 to 557
+# s on one host); CUDA-event time of back-to-back calls stands in
+PROFILE_MAX_MS = 100.0
 
 
 def _times_spaced_first(fn, reps=20):
     """_times for a twin or a library call: their many small launches
     rarely all land in one profiler window, and each window costs about a
     second of host time, so CUDA events behind a spin kernel come first
-    and one profiler window only where those cannot be taken. A call
-    slower than SLOW_MS is timed over SLOW_REPS calls."""
+    and one profiler window only where those cannot be taken, and not for
+    a call slower than PROFILE_MAX_MS. A call slower than SLOW_MS is timed
+    over SLOW_REPS calls."""
     warmup = 5
     if _time_ms(fn, 1, warmup=1) > SLOW_MS:
         reps, warmup = SLOW_REPS, 0
@@ -509,6 +540,8 @@ def _times_spaced_first(fn, reps=20):
     dev = _spaced_ms(fn, reps, wall)
     if dev is not None:
         return dev, wall, "spaced"
+    if wall > PROFILE_MAX_MS:
+        return None, wall, None
     dev = _device_ms(fn, reps, 1)
     return dev, wall, None if dev is None else "profiler"
 
@@ -1687,6 +1720,159 @@ def phase_kernels(dev):
         **worst(arms, f"float32 {RWKV_TOL_F32} (1 + |twin|); bf16 "
                       f"{TOL_ULPS} bf16 ulps; S_T bit-equal to the twin, y "
                       f"to the split emulation")))
+    out += _scan_bwd_arms(dev, rn, arm, worst, rg_inputs, rwkv_inputs)
+    return out
+
+
+def _scan_bwd_arms(dev, rn, arm, worst, rg_inputs, rwkv_inputs):
+    """phase_kernels' rows of the two recurrent scans' backward kernels
+    (training recurrentgemma-2b and rwkv6-3b), each arm against its twin
+    and two launches bit-equal."""
+    from repro_torch.kernels import ref, rglru_scan_bwd, rwkv6_scan_bwd
+    bf = torch.bfloat16
+    out = []
+    # -- rglru_scan_bwd at recurrentgemma-2b's width: the train arm's 4 x
+    # 512 and its 2 x 512 micro-batch, lm.forward's 1 x 2304, an odd width,
+    # T = 1 and T = 0; float32 (the model's: its gates are float32) and
+    # bf16, with and without h0 / dh_T. da, dx and dh0 bit for bit the
+    # twin's (the kernel keeps its order)
+    arms = []
+    C = 2560
+
+    def rgb_inputs(B_, T_, C_, dt=torch.float32, with_state=True):
+        a_, x_, h0 = rg_inputs(B_, T_, C_, dt, with_state)
+        h_seq, _ = ref.rglru_scan_ref(a_, x_, h0)
+        return (a_, h_seq, h0, rn(B_, T_, C_, dt=dt),
+                rn(B_, C_, dt=torch.float32) if with_state else None)
+
+    for B_, T_, C_ in ((4, 512, C), (2, 512, C), (1, 2304, C),
+                       (2, 100, 2561), (4, 1, C), (2, 0, C)):
+        for dt in (torch.float32, bf):
+            for with_state in (False, True):
+                a_ = rgb_inputs(B_, T_, C_, dt, with_state)
+                got, again = rglru_scan_bwd(*a_), rglru_scan_bwd(*a_)
+                want = ref.rglru_scan_bwd_ref(*a_)
+                name = (f"rglru_scan_bwd {B_}x{T_}x{C_} {dt} h0 / dh_T "
+                        f"{'yes' if with_state else 'no'}")
+                for n_, g_, r_, w_ in zip(("da", "dx", "dh0"), got, again,
+                                          want):
+                    if not torch.equal(g_, r_):
+                        raise AssertionError(f"{name} {n_}: two launches "
+                                             f"differ")
+                    arm(arms, f"{name} {n_}", g_, w_, f32_tol=0.0)
+    print("[kernels] rglru_scan_bwd: two launches bit-equal ok")
+
+    def rgb_timed(label, a_, reps=20):
+        a0, h_, h0, dh, dhT = a_
+        # a, h and dh read, da and dx written; h0 / dh_T read and dh0
+        # written; a float32 add and two multiplies per element
+        b_ = _bound_ms(5 * _nbytes(a0) + 3 * 4 * a0.shape[0] * a0.shape[2],
+                       3 * a0.numel(), "f32")
+        return dict(label=label,
+                    _fns=(lambda: rglru_scan_bwd(*a_),
+                          lambda: ref.rglru_scan_bwd_ref(*a_), None),
+                    bound_ms=b_[0], bound_by=b_[1], _reps=reps)
+
+    main = rgb_timed("", rgb_inputs(4, 512, C), 3)
+    out.append(dict(
+        name="rglru_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        replaces="src/repro/kernels/rglru_scan.py:44",
+        _fns=main["_fns"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], _reps=3,
+        shape=dict(B=4, T=512, C=C, dtype="float32", state=True),
+        _extra=[rgb_timed(f"2 x 512 x {C} float32 (the train arm's "
+                          f"micro-batch)", rgb_inputs(2, 512, C), 3),
+                rgb_timed(f"1 x 2304 x {C} float32", rgb_inputs(1, 2304, C),
+                          3)],
+        **worst(arms, "da, dx and dh0 bit-equal to the twin (float32, "
+                      "bf16); two launches bit-equal")))
+
+    # -- rwkv6_scan_bwd at rwkv6-3b's width (40 heads of 64): bf16 at 4 x
+    # 512 (the train arm's batch) and lm.forward's 1 x 2048, float32 at the
+    # train arm's 2 x 512 micro-batch, the padded path at head dim 12 and
+    # at a view one element into its buffer; with and without s0 / dS_T.
+    # dr, dk, dv within TOL_ULPS bf16 ulps (bf16) or RWKV_TOL_F32 of max(1,
+    # max |twin|) (float32); dw, du, ds0 within RWKV_TOL_F32 of max(1, max
+    # |twin|); two launches bit-equal
+    arms = []
+
+    def rwb_inputs(shape, dt, with_state=True, offset=0):
+        r_, k_, v_, w_, u_, s0_ = rwkv_inputs(shape, dt, with_state, offset)
+        B_, H_, _, N_ = shape
+        return (r_, k_, v_, w_, u_, s0_, rn(*shape, dt=dt),
+                rn(B_, H_, N_, N_, dt=torch.float32) if with_state else None)
+
+    for shape, dt, off in (((4, 40, 512, 64), bf, 0),
+                           ((1, 40, 2048, 64), bf, 0),
+                           ((2, 40, 512, 64), torch.float32, 0),
+                           ((2, 4, 40, 12), bf, 0),
+                           ((2, 4, 40, 64), bf, 1)):
+        for with_state in (False, True):
+            a_ = rwb_inputs(shape, dt, with_state, off)
+            got, again = rwkv6_scan_bwd(*a_), rwkv6_scan_bwd(*a_)
+            want = ref.rwkv6_scan_bwd_ref(*a_)
+            name = (f"rwkv6_scan_bwd {'x'.join(map(str, shape))} {dt} s0 / "
+                    f"dS_T {'yes' if with_state else 'no'}"
+                    + (f" offset {off} (padded copy)" if off else "")
+                    + (" (padded to a multiple of 8)"
+                       if shape[-1] % 8 else ""))
+            for n_, g_, r_, w_ in zip(("dr", "dk", "dv", "dw", "du", "ds0"),
+                                      got, again, want):
+                if not torch.equal(g_, r_):
+                    raise AssertionError(f"{name} {n_}: two launches "
+                                         f"differ")
+                arm(arms, f"{name} {n_}", g_, w_)
+                if g_.dtype == torch.float32:
+                    err = (g_ - w_).abs().max().item()
+                    lim = RWKV_TOL_F32 * max(1.0, w_.abs().max().item())
+                    if err > lim:
+                        raise AssertionError(f"{name} {n_}: float32 error "
+                                             f"{err} > {lim}")
+    print("[kernels] rwkv6_scan_bwd: two launches bit-equal, float32 "
+          "outputs within 1e-5 of max(1, max |twin|) ok")
+
+    def rwb_timed(label, a_, reps=20):
+        r_, k_, v_, w_, u_, s0_, dy, dST = a_
+        B_, H_, T_, N_ = r_.shape
+        # inputs read and gradients written once (the states the kernel
+        # reads are its own work, not the function's); per state element
+        # and step ~7 float32 multiply-adds (the states' recomputation, A =
+        # G + r u dy, dk, dv, dr, dw, the step of G)
+        nb = (_nbytes(r_, k_, v_, w_, u_, s0_, dy, dST)
+              + _nbytes(r_, k_, v_, w_, u_, s0_))
+        b_ = _bound_ms(nb, 14 * B_ * H_ * T_ * N_ * N_, "f32")
+        return dict(label=label,
+                    _fns=(lambda: rwkv6_scan_bwd(*a_),
+                          lambda: ref.rwkv6_scan_bwd_ref(*a_), None),
+                    bound_ms=b_[0], bound_by=b_[1], _reps=reps)
+
+    main = rwb_timed("", rwb_inputs((4, 40, 512, 64), bf), 3)
+    B_, H_, T_, N_ = 4, 40, 512, 64
+    states = 4 * B_ * H_ * T_ * N_ * N_
+    partials = 4 * (3 * -(-N_ // 16) * B_ * H_ * T_ * N_)
+    print(f"[kernels] rwkv6_scan_bwd at {B_} x {H_} x {T_} x {N_}: the "
+          f"forward's per-step states it walks over {states / 1e9:.3f} GB "
+          f"(written, then read), the tiles' partial sums "
+          f"{partials / 1e9:.3f} GB (written, then read)")
+    out.append(dict(
+        name="rwkv6_scan_bwd", route="cuda",
+        states_bytes=states, partials_bytes=partials, _breakdown=True,
+        source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:55",
+        _fns=main["_fns"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], _reps=3,
+        shape=dict(B=4, H=40, T=512, N=64, dtype="bfloat16", state=True),
+        _extra=[rwb_timed("2 x 40 x 512 x 64 bf16 (the train arm's "
+                          "micro-batch)", rwb_inputs((2, 40, 512, 64), bf),
+                          3),
+                rwb_timed("1 x 40 x 2048 x 64 bf16",
+                          rwb_inputs((1, 40, 2048, 64), bf), 3),
+                rwb_timed("2 x 4 x 40 x 12 bf16 (padded to 16)",
+                          rwb_inputs((2, 4, 40, 12), bf))],
+        **worst(arms, f"bf16 dr / dk / dv {TOL_ULPS} bf16 ulps; float32 "
+                      f"{RWKV_TOL_F32} of max(1, max |twin|); two launches "
+                      f"bit-equal")))
     return out
 
 
@@ -1726,10 +1912,32 @@ def phase_timings(kern):
                    if r.get("event_timed") else ""))
 
     for r in kern:
+        if r.pop("_breakdown", False):
+            r["by_kernel"] = _by_kernel(r["_fns"][0], r["name"])
         print(f"[timings] {r['name']}: {timed(r)}")
         r["timed_arms"] = r.pop("_extra", [])
         for e in r["timed_arms"]:
             print(f"[timings]   {r['name']} at {e['label']}: {timed(e)}")
+
+
+def _by_kernel(fn, name, reps=3):
+    """Device ms per call of each kernel one call of fn launches (one
+    profiler window of reps calls), printed; {kernel name: ms}."""
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    fn()
+    torch.cuda.synchronize()
+    kern, _ = _profiled(window)
+    out = {e.key[:80]: e.self_device_time_total / 1e3 / reps for e in
+           sorted(kern, key=lambda e: -e.self_device_time_total)}
+    for k, ms in out.items():
+        print(f"[timings] {name} by kernel: {ms:.4f} ms  {k}")
+    return out
 
 
 def _first_divergence(a, b):
@@ -1856,8 +2064,54 @@ def phase_small_recurrent(dev, cfg, tag):
         raise AssertionError(f"{tag}: generate() differs between the card "
                              f"and the CPU")
     return {"forward_max_abs_err": err, "generate_equal": same,
+            "train_loss": _small_train_card_vs_cpu(params, cuda_params, cfg,
+                                                   dev, tag),
             "engine": _small_engine_card_vs_cpu(params, cuda_params, cfg,
                                                 dev, tag)}
+
+
+def _small_train_card_vs_cpu(params, cuda_params, cfg, dev, tag):
+    """lm.train_loss and every gradient leaf on the card (the scans'
+    backward kernels) against the CPU (their twins), 2 x 24 tokens: the
+    loss within TRAIN_LOSS_RTOL relative, each leaf within 1e-4 of max(1,
+    max |g|) (the CPU tests' tolerance against JAX)."""
+    from repro_torch import kernels
+    from repro_torch.models import lm
+    from repro_torch.optim.mbprox import value_and_grad
+    from repro_torch.tree import tree_leaves
+    g = torch.Generator().manual_seed(4)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+             for k in ("tokens", "targets")}
+
+    def loss(p, b):
+        return lm.train_loss(p, cfg, b)
+
+    (lc, _), gc = value_and_grad(loss, params, batch)
+    before = kernels.launch_counts()
+    (lg, _), gg = value_and_grad(loss, cuda_params,
+                                 {k: v.to(dev) for k, v in batch.items()})
+    after = kernels.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    lerr = abs(float(lg) - float(lc)) / abs(float(lc))
+    gerr = max((a.cpu() - b).abs().max().item()
+               / max(1.0, b.abs().max().item())
+               for a, b in zip(tree_leaves(gg), tree_leaves(gc)))
+    bwd = [k for k in ("rglru_scan_bwd", "rwkv6_scan_bwd")
+           if any(kind == {"rglru_scan_bwd": "rec",
+                           "rwkv6_scan_bwd": "rwkv"}[k]
+                  for kind in lm.layer_kinds(cfg))]
+    ok = (lerr <= TRAIN_LOSS_RTOL and gerr <= 1e-4
+          and all(launched[k] for k in bwd))
+    print(f"[{tag}] train_loss + gradients card vs cpu (2 x 24): loss "
+          f"{float(lg):.6f} vs {float(lc):.6f} (rel {lerr:.3g}, tolerance "
+          f"{TRAIN_LOSS_RTOL}); worst leaf {gerr:.3g} of max(1, max |g|) "
+          f"(tolerance 1e-4); backward launches "
+          f"{ {k: launched[k] for k in bwd} } {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: train_loss or its gradients differ "
+                             f"between the card and the CPU, or {bwd} "
+                             f"were not launched: {launched}")
+    return {"loss_rel_err": lerr, "grad_err": gerr, "launches": launched}
 
 
 class ScriptedProposer:
@@ -2122,11 +2376,11 @@ def _profile_step(step_fn, tag):
 def phase_train(dev):
     """Full-width smollm-135m: (a) float32, card against CPU (2 x 64,
     n_micro 2, one MBProx and one AdamW step); (b) the config's bf16
-    activations over float32 masters at 16 x 512, n_micro 2: 6 MBProx and
-    4 AdamW outer steps (tokens/s, ms per step, peak memory, one profiled
-    step), the first 5 MBProx losses against a float32 card run on the
-    same batches; (c) the train CLI's checkpoint and resume: 4 steps with
-    a checkpoint, resumed to 6, against 6 uninterrupted; the card's
+    activations over float32 masters at 16 x 512, n_micro 2: 5 MBProx and
+    3 AdamW outer steps (tokens/s, ms per step, peak memory, one profiled
+    step), the 5 MBProx losses against a float32 card run on the same
+    batches; (c) the train CLI's checkpoint and resume: 3 steps with a
+    checkpoint, resumed to 4, against 4 uninterrupted; the card's
     checkpoint restored on the CPU bit for bit."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -2163,20 +2417,20 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
     from repro_torch.tree import tree_leaves
     # (b)
     master = lm.init_params(0, cfg, device=dev)
-    batches = _train_batches(cfg, 7, 16, 512, 2)
+    batches = _train_batches(cfg, 6, 16, 512, 2)
     sched = Schedule(peak=3e-3, warmup=5, total=20)
-    lrs = [sched(i) for i in range(7)]
+    lrs = [sched(i) for i in range(6)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, p, secs = _train_run(cfg, master, dev, "mbprox", batches[:6],
-                                 lrs[:6], timed=True)
+    losses, p, secs = _train_run(cfg, master, dev, "mbprox", batches[:5],
+                                 lrs[:5], timed=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = 16 * 512
     step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
     l32, _ = _train_run(cfg32, master, dev, "mbprox", batches[:5], lrs[:5])
     gap = max(abs(a - b) for a, b in zip(losses[:5], l32))
-    adam, _, asecs = _train_run(cfg, master, dev, "baseline", batches[:4],
-                                lrs[:4], timed=True)
+    adam, _, asecs = _train_run(cfg, master, dev, "baseline", batches[:3],
+                                lrs[:3], timed=True)
     finite = all(math.isfinite(x) for x in losses + adam + l32)
     ok = finite and gap <= TRAIN_BF16_ATOL
     adam_ms = 1e3 * sorted(asecs[1:])[len(asecs[1:]) // 2]
@@ -2186,7 +2440,7 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
           f"{tokens / step_ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB "
           f"allocated")
     print(f"[train] first 5 losses bf16 vs float32 on the card: {l32} "
-          f"(max gap {gap:.4g}, tolerance {TRAIN_BF16_ATOL}); AdamW 4 steps"
+          f"(max gap {gap:.4g}, tolerance {TRAIN_BF16_ATOL}); AdamW 3 steps"
           f" {[round(x, 4) for x in adam]} median {adam_ms:.1f} ms "
           f"({tokens / adam_ms * 1e3:.0f} tokens/s); all finite {finite} "
           f"{'ok' if ok else 'FAIL'}")
@@ -2198,7 +2452,7 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
 
     def one_step():
         state["p"], state["s"], _ = step(state["p"], state["s"],
-                                         to_device(batches[6], dev), lrs[6])
+                                         to_device(batches[5], dev), lrs[5])
 
     prof = _profile_step(one_step, "train")
     rec["bf16"] = {"batch": [16, 512], "n_micro": 2, "mbprox_losses": losses,
@@ -2214,33 +2468,115 @@ def _train_bf16_and_resume(cfg, cfg32, dev, rec):
     shutil.rmtree(d, ignore_errors=True)
     kw = dict(reduced=False, log_every=1000, device=dev)
     t0 = time.perf_counter()
-    _, first = train("smollm-135m", 4, ckpt_dir=str(d), **kw)
-    resumed_p, resumed = train("smollm-135m", 6, ckpt_dir=str(d),
+    _, first = train("smollm-135m", 3, ckpt_dir=str(d), **kw)
+    resumed_p, resumed = train("smollm-135m", 4, ckpt_dir=str(d),
                                resume=True, **kw)
     ckpt_s = time.perf_counter() - t0
-    _, whole = train("smollm-135m", 6, **kw)
-    rerr = max(abs(a - b) for a, b in zip(resumed, whole[4:]))
-    bit = resumed == whole[4:]
+    _, whole = train("smollm-135m", 4, **kw)
+    rerr = max(abs(a - b) for a, b in zip(resumed, whole[3:]))
+    bit = resumed == whole[3:]
     cpu_params = to_device(resumed_p, "cpu")
     like = {"params": cpu_params,
             "opt": steps_lib.make_mbprox_train_step(cfg)[1].init(cpu_params)}
     restored, at = ckpt_lib.restore(str(d), like)
-    same = at == 5 and all(
+    same = at == 3 and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(restored["params"]),
                                           tree_leaves(cpu_params)))
-    ok = len(resumed) == 2 and rerr <= RESUME_ATOL and same
-    print(f"[train] train() 4 steps + checkpoint, resumed to 6 ({ckpt_s:.1f}"
+    ok = len(resumed) == 1 and rerr <= RESUME_ATOL and same
+    print(f"[train] train() 3 steps + checkpoint, resumed to 4 ({ckpt_s:.1f}"
           f" s with two saves and a restore): losses {resumed} vs "
-          f"uninterrupted {whole[4:]} (max {rerr:.3g}, tolerance "
+          f"uninterrupted {whole[3:]} (max {rerr:.3g}, tolerance "
           f"{RESUME_ATOL}; bit-equal {bit}); the card's checkpoint of step "
           f"{at} restored on the CPU equals the card's params bit for bit "
           f"{same} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("train: resume or the CPU restore failed")
     shutil.rmtree(d, ignore_errors=True)
-    rec["resume"] = {"losses": resumed, "uninterrupted": whole[4:],
+    rec["resume"] = {"losses": resumed, "uninterrupted": whole[3:],
                      "max_abs": rerr, "bit_equal": bit, "seconds": ckpt_s,
                      "cpu_restore_bit_equal": same}
+
+
+def _cut_depth(master, cfg, n_layers):
+    """The first n_layers layers of a full-width model: (cfg cut to that
+    depth, a params tree sharing master's tensors; the layer kinds in
+    execution order stay the full model's first n_layers)."""
+    from repro_torch.models import lm
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    layers = [p for _, p in lm._layers(master, cfg)][:n_layers]
+    if lm.layer_kinds(cut) != lm.layer_kinds(cfg)[:n_layers]:
+        raise AssertionError(f"{cfg.name} cut to {n_layers} layers changes "
+                             f"their kinds")
+    params = {k: v for k, v in master.items()
+              if k not in ("prefix", "blocks")}
+    params.update(lm._to_tree(cut, layers))
+    return cut, params
+
+
+TRAIN_REC_STEPS = 4
+
+
+def phase_train_recurrent(master, cfg, n_layers, dev, tag):
+    """A full-width recurrent model cut to n_layers, sliced from the
+    float32 master its phase drew (no new init), trained by MBProx with
+    the config's bf16 activations over float32 masters at 4 x 512 tokens,
+    n_micro 2: TRAIN_REC_STEPS outer steps (ms a step, tokens/s, peak
+    memory), the first 3 losses within TRAIN_BF16_ATOL of a float32 card
+    run on the same batches; the scans' backward kernels launched once a
+    recurrent layer per gradient (n_micro, plus the DANE correction's at
+    the anchor, per step)."""
+    from repro_torch import kernels
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import Schedule
+    cut, params = _cut_depth(master, cfg, n_layers)
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    kinds = lm.layer_kinds(cut)
+    bwd = {"rec": "rglru_scan_bwd", "rwkv": "rwkv6_scan_bwd"}
+    n_rec = {k: kinds.count(kind) for kind, k in bwd.items()}
+    mp_cfg = steps_lib.default_mbprox_config(cut)
+    grads = 2 + (mp_cfg.variant == "local" and mp_cfg.dane_correction)
+    B, S = 4, 512
+    batches = _train_batches(cut, TRAIN_REC_STEPS, B, S, 2)
+    sched = Schedule(peak=3e-3, warmup=5, total=20)
+    lrs = [sched(i) for i in range(TRAIN_REC_STEPS)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, _, secs = _train_run(cut, params, dev, "mbprox", batches, lrs,
+                                 timed=True)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    l32, _ = _train_run(cut32, params, dev, "mbprox", batches[:3], lrs[:3])
+    gap = max(abs(a - b) for a, b in zip(losses, l32))
+    step_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+    want = {k: TRAIN_REC_STEPS * grads * n for k, n in n_rec.items()}
+    finite = all(math.isfinite(x) for x in losses + l32)
+    ok = (finite and gap <= TRAIN_BF16_ATOL
+          and all(counts[k] == n for k, n in want.items())
+          and any(want.values()))
+    print(f"[{tag}] {cfg.name} cut to {n_layers} layers ({', '.join(kinds)}"
+          f"), bf16 MBProx {B} x {S}, n_micro 2: losses "
+          f"{[round(x, 4) for x in losses]}; median {step_ms:.1f} ms an "
+          f"outer step (first {1e3 * secs[0]:.1f}), "
+          f"{B * S / step_ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB "
+          f"allocated ({base:.2f} before); first 3 losses vs float32 on the "
+          f"card {[round(x, 4) for x in l32]} (max gap {gap:.4g}, tolerance "
+          f"{TRAIN_BF16_ATOL}); backward launches "
+          f"{ {k: counts[k] for k in want} } (expected {want}); all launches "
+          f"{counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: losses not finite, too far from "
+                             f"float32, or backward launches {counts} != "
+                             f"{want}")
+    return {"layers": n_layers, "kinds": kinds, "batch": [B, S],
+            "n_micro": 2, "lrs": lrs, "mbprox_losses": losses,
+            "float32_losses": l32, "bf16_vs_float32_gap": gap,
+            "step_ms": step_ms, "first_step_ms": 1e3 * secs[0],
+            "tokens_per_s": B * S / step_ms * 1e3,
+            "peak_allocated_gib": peak, "allocated_before_gib": base,
+            "launches": counts}
 
 
 def phase_serve_cli_default():
@@ -2623,7 +2959,8 @@ def phase_engine_recurrent(master, params, cfg, dev, tag):
                 "flash_attention": 0, "flash_attention_bwd": 0,
                 "svrg_update": 0,
                 "rglru_scan": n_rec * (prefills + eng.steps),
-                "rwkv6_scan": n_rwkv * (prefills + eng.steps)}
+                "rwkv6_scan": n_rwkv * (prefills + eng.steps),
+                "rglru_scan_bwd": 0, "rwkv6_scan_bwd": 0}
         stats.update(launches=counts, decode_or_verify_steps=eng.steps,
                      rwkv6_scan_with_states=rwkv6_scan.state_launches)
         print(f"[{tag}] {name}: {stats['requests']} requests, "
@@ -2953,7 +3290,8 @@ def phase_engine_moe(dev):
         want = {"paged_prefill": cfg.n_layers * prefills,
                 "paged_attention": cfg.n_layers * eng.steps,
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0}
+                "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0,
+                "rglru_scan_bwd": 0, "rwkv6_scan_bwd": 0}
         if counts != want:
             raise AssertionError(f"engine_moe {name}: launches {counts}, "
                                  f"expected {want} from the dispatches")
@@ -3037,7 +3375,7 @@ def profile_moe_decode(eng, params):
     return rec
 
 
-def profile_lm_decode(params, cfg, dev, n_steps=4):
+def profile_lm_decode(params, cfg, dev, n_steps=2):
     """Where one full-width decode step's time goes (recurrentgemma-2b,
     rwkv6-3b): 4 lanes at position 100 (8 warm-up steps first), n_steps
     lm.decode_step calls under torch.profiler. Wall and device-busy ms per
@@ -3188,7 +3526,8 @@ def phase_engine(params, cfg, dev):
         want = {"paged_prefill": cfg.n_layers * (prefills + verifies),
                 "paged_attention": cfg.n_layers * (eng.steps - verifies),
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0}
+                "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0,
+                "rglru_scan_bwd": 0, "rwkv6_scan_bwd": 0}
         results.append((name, reqs, done, stats))
         print(f"[engine] {name}: {stats['requests']} requests, "
               f"{stats['generated_tokens']} tokens, "
@@ -3227,7 +3566,8 @@ def phase_engine(params, cfg, dev):
                                               + sverifies),
              "paged_attention": cfg.n_layers * (eng.steps - sverifies),
              "flash_attention": 0, "flash_attention_bwd": 0,
-             "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0}
+             "svrg_update": 0, "rglru_scan": 0, "rwkv6_scan": 0,
+                "rglru_scan_bwd": 0, "rwkv6_scan_bwd": 0}
     sstats.update(launches=scounts, decode_or_verify_steps=eng.steps,
                   sampled_dispatches=eng.runner.sampled_dispatches)
     print(f"[engine] sampled_speculate4 (temperature 0.8, top-k 50, top-p "
@@ -4655,7 +4995,7 @@ def phase_serve_cli_cluster():
     return rec
 
 
-def profile_cluster(replicas, vocab, n_sweeps=4):
+def profile_cluster(replicas, vocab, n_sweeps=2):
     """Where one cluster sweep's time goes: the replicas each with every
     lane decoding (prompts of 128, all admitted first), n_sweeps sweeps
     (each replica steps once, in turn, as Router.run does) under
@@ -4709,7 +5049,7 @@ def profile_cluster(replicas, vocab, n_sweeps=4):
 
 
 
-def profile_decode(eng, vocab, n_steps=4, sampling=None):
+def profile_decode(eng, vocab, n_steps=2, sampling=None):
     """Where one decode step's time goes: every lane decoding (prompts of
     128, all admitted first), n_steps engine steps under torch.profiler;
     with `sampling`, every lane sampled with it. Returns wall ms per step,
@@ -5128,6 +5468,11 @@ def main(argv=None):
         "engine_recurrentgemma", phase_engine_recurrent, rg_master,
         rg_params, get_config("recurrentgemma-2b"), dev,
         "engine_recurrentgemma")
+    # recurrentgemma-2b's (rec, rec) prefix and one (rec, rec, attn_local)
+    # superblock, sliced from phase 7's float32 master
+    record["train_recurrentgemma"] = phase(
+        "train_recurrentgemma", phase_train_recurrent, rg_master,
+        get_config("recurrentgemma-2b"), 5, dev, "train_recurrentgemma")
     # the other models' weights leave the card before paligemma-3b's and
     # rwkv6-3b's
     del rg_master, rg_params, params
@@ -5138,6 +5483,9 @@ def main(argv=None):
     record["engine_rwkv6"], rw_engine = phase(
         "engine_rwkv6", phase_engine_recurrent, rw_master, rwkv_params,
         get_config("rwkv6-3b"), dev, "engine_rwkv6")
+    record["train_rwkv6"] = phase(
+        "train_rwkv6", phase_train_recurrent, rw_master,
+        get_config("rwkv6-3b"), 4, dev, "train_rwkv6")
     del rw_master
     torch.cuda.empty_cache()
     record["rwkv6_4_layers"] = phase("rwkv6_4_layers", phase_rwkv6_4_layers,
@@ -5150,7 +5498,7 @@ def main(argv=None):
                                      engine, cfg.vocab_size)
     from repro_torch.serving.sampling import SamplingParams
     record["sampled_decode_profile"] = phase(
-        "sampled_decode_profile", profile_decode, engine, cfg.vocab_size, 4,
+        "sampled_decode_profile", profile_decode, engine, cfg.vocab_size, 2,
         SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5))
     record["cluster_decode_profile"] = phase(
         "cluster_decode_profile", profile_cluster, cluster_replicas,
@@ -5188,13 +5536,16 @@ def main(argv=None):
     # paligemma-3b and musicgen-medium
     fe = (record["small_frontends"]["launches"],
           record["paligemma"]["launches"], record["musicgen"]["launches"])
+    # the recurrent train arms
+    trg, trw = (record["train_recurrentgemma"]["launches"],
+                record["train_rwkv6"]["launches"])
     launches = {"flash_attention":
                 record["forward"]["launches"]["flash_attention"]
                 + rg["forward"]["launches"]["flash_attention"]
-                + sum(t["flash_attention"] for t in tr + fe)
+                + sum(t["flash_attention"] for t in tr + fe + (trg,))
                 + mo["flash_attention"],
                 "flash_attention_bwd":
-                sum(t["flash_attention_bwd"] for t in tr + fe),
+                sum(t["flash_attention_bwd"] for t in tr + fe + (trg,)),
                 "paged_attention":
                 record["engine"]["launches"]["paged_attention"]
                 + quant_launches["paged_attention"]
@@ -5211,10 +5562,12 @@ def main(argv=None):
                 "svrg_update": record["core"]["svrg_update_launches"],
                 "rglru_scan": rg["forward"]["launches"]["rglru_scan"]
                 + rg["generate"]["launches"]["rglru_scan"]
-                + rg_engine["rglru_scan"],
+                + rg_engine["rglru_scan"] + trg["rglru_scan"],
                 "rwkv6_scan": rw["forward"]["launches"]["rwkv6_scan"]
                 + rw["generate"]["launches"]["rwkv6_scan"]
-                + rw_engine["rwkv6_scan"]}
+                + rw_engine["rwkv6_scan"] + trw["rwkv6_scan"],
+                "rglru_scan_bwd": trg["rglru_scan_bwd"],
+                "rwkv6_scan_bwd": trw["rwkv6_scan_bwd"]}
     for k in kern:
         k["launches"] = launches[k["name"]]
     record["kernels"] = kern

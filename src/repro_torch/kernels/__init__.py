@@ -7,6 +7,8 @@
   svrg_update        csrc/svrg_update.cu       every step of MP-DSVRG's pass
   rglru_scan         csrc/rglru_scan.cu        every RG-LRU layer, T = S or 1
   rwkv6_scan         csrc/rwkv6_scan.cu        every RWKV6 layer, T = S or 1
+  rglru_scan_bwd     csrc/rglru_scan_bwd.cu    its gradient (training)
+  rwkv6_scan_bwd     csrc/rwkv6_scan_bwd.cu    its gradient (training)
 
 Each wrapper takes its plain twin (`ref.py`) for a CPU tensor and launches
 its kernel (built by `build.py` at first use) for a CUDA tensor.
@@ -15,8 +17,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
-from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 from repro_torch.kernels.svrg_update import svrg_update
 
 WRAPPERS = {"paged_attention": paged_attention,
@@ -25,7 +27,9 @@ WRAPPERS = {"paged_attention": paged_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "svrg_update": svrg_update,
             "rglru_scan": rglru_scan,
-            "rwkv6_scan": rwkv6_scan}
+            "rwkv6_scan": rwkv6_scan,
+            "rglru_scan_bwd": rglru_scan_bwd,
+            "rwkv6_scan_bwd": rwkv6_scan_bwd}
 
 
 def launch_counts():

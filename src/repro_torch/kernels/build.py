@@ -32,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 KERNELS = ("paged_attention", "paged_prefill", "flash_attention",
-           "flash_attention_bwd", "svrg_update", "rglru_scan", "rwkv6_scan")
+           "flash_attention_bwd", "svrg_update", "rglru_scan", "rwkv6_scan",
+           "rglru_scan_bwd", "rwkv6_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -69,6 +70,8 @@ SIGNATURES = {
     "svrg_update": [_P] * 6 + [_I, _L, _F, _F, _P],
     "rglru_scan": [_P] * 5 + [_I] * 5 + [_P],
     "rwkv6_scan": [_P] * 9 + [_I] * 5 + [_P],
+    "rglru_scan_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    "rwkv6_scan_bwd": [_P] * 17 + [_I] * 5 + [_P],
 }
 
 
@@ -178,9 +181,11 @@ def refuse_grad(name: str, *tensors) -> None:
     input requires grad. A kernel launched through raw pointers into a
     fresh buffer returns an output with no grad_fn, so the gradient to
     its inputs would be cut without a word. Every CUDA wrapper calls this
-    before it launches, except flash_attention, whose autograd Function
-    launches the backward kernel. None entries are skipped; with grad
-    mode off (no_grad, inference_mode) it checks nothing."""
+    before it launches, except those whose autograd Function launches a
+    backward kernel: flash_attention, rglru_scan and rwkv6_scan (which
+    still refuses return_states under autograd). None entries are
+    skipped; with grad mode off (no_grad, inference_mode) it checks
+    nothing."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

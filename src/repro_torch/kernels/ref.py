@@ -451,3 +451,81 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None, return_states=False):
                  else torch.empty(B, H, 0, N, N, device=r.device))
         return y.to(r.dtype), S, steps
     return y.to(r.dtype), S
+
+
+def rglru_scan_bwd_ref(a, h_seq, h0, dh_seq, dh_T):
+    """The gradient of rglru_scan, a reverse scan in float32. The forward
+    h_t = a_t h_{t-1} + x_t (h_{-1} = h0, zeros if None) gives, with g_t =
+    dL/dh_t in total and g_T = 0 past the end,
+
+        g_t   = dh_seq_t + a_{t+1} g_{t+1}     (g_{T-1} = dh_seq_{T-1} + dh_T)
+        dx_t  = g_t
+        da_t  = g_t h_{t-1}
+        dh0   = a_0 g_0                        (dh_T when T = 0)
+
+    a: (B, T, C); h_seq: the forward's (B, T, C) output; h0 / dh_T: (B, C)
+    float32 or None (zeros); dh_seq: (B, T, C). Each step is a float32 add
+    then two float32 multiplies, each rounded on its own, as the kernel
+    does them. Returns (da in a's dtype, dx in h_seq's dtype, dh0 (B, C)
+    float32)."""
+    B, T, C = a.shape
+    af, hf, dhf = a.float(), h_seq.float(), dh_seq.float()
+    carry = (torch.zeros(B, C, dtype=torch.float32, device=a.device)
+             if dh_T is None else dh_T.float())
+    hprev0 = (torch.zeros(B, C, dtype=torch.float32, device=a.device)
+              if h0 is None else h0.float())
+    da = torch.empty(B, T, C, dtype=torch.float32, device=a.device)
+    dx = torch.empty_like(da)
+    for t in range(T - 1, -1, -1):
+        g = dhf[:, t] + carry
+        dx[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else hprev0)
+        carry = af[:, t] * g
+    return da.to(a.dtype), dx.to(h_seq.dtype), carry
+
+
+def rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, dS_T):
+    """The gradient of rwkv6_scan in float32, in explicit formulas. With
+    S_{t-1} the state before step t (S_{-1} = s0, zeros if None) and G_t
+    = dL/dS_t in total, starting from G_{T-1} = dS_T (zeros if None), the
+    walk t = T - 1 .. 0 takes
+
+        dr_t = (S_{t-1} + diag(u) k_t^T v_t) dy_t
+        dk_t = r_t * u * (v_t . dy_t) + G_t v_t
+        dv_t = (sum_i r_ti u_i k_ti) dy_t + k_t G_t
+        du  += r_t * k_t * (v_t . dy_t)          (summed over B and T)
+        dw_t = rowsum(G_t * S_{t-1})
+        G_{t-1} = diag(w_t) G_t + r_t^T dy_t
+
+    and ds0 = G_{-1}. The states S_{t-1} are the forward's, recomputed
+    from s0 (rwkv6_scan_ref's per-step states), never recovered by
+    dividing by w. r, k, v, dy: (B, H, T, N) of one float dtype; w: (B,
+    H, T, N) float32; u: (H, N) float32; s0 / dS_T: (B, H, N, N) float32
+    or None. Returns (dr, dk, dv in r's dtype, dw (B, H, T, N), du (H, N),
+    ds0 (B, H, N, N) float32)."""
+    B, H, T, N = r.shape
+    dev = r.device
+    s_in = (torch.zeros(B, H, N, N, dtype=torch.float32, device=dev)
+            if s0 is None else s0.float())
+    _, _, steps = rwkv6_scan_ref(r, k, v, w, u, s0, return_states=True)
+    rf, kf, vf, wf, dyf = (t.float() for t in (r, k, v, w, dy))
+    uf = u.float()[None]                                  # (1, H, N)
+    G = (torch.zeros(B, H, N, N, dtype=torch.float32, device=dev)
+         if dS_T is None else dS_T.float().clone())
+    dr, dk, dv, dw = (torch.empty(B, H, T, N, dtype=torch.float32,
+                                  device=dev) for _ in range(4))
+    du = torch.zeros(B, H, N, dtype=torch.float32, device=dev)
+    for t in range(T - 1, -1, -1):
+        rt, kt, vt, wt, dyt = (x[:, :, t] for x in (rf, kf, vf, wf, dyf))
+        S_prev = steps[:, :, t - 1] if t > 0 else s_in
+        vd = (vt * dyt).sum(-1, keepdim=True)             # (B, H, 1)
+        bonus = (uf * kt)[..., :, None] * vt[..., None, :]
+        dr[:, :, t] = torch.einsum("bhij,bhj->bhi", S_prev + bonus, dyt)
+        dk[:, :, t] = rt * uf * vd + torch.einsum("bhij,bhj->bhi", G, vt)
+        dv[:, :, t] = ((rt * uf * kt).sum(-1, keepdim=True) * dyt
+                       + torch.einsum("bhi,bhij->bhj", kt, G))
+        du = du + rt * kt * vd
+        dw[:, :, t] = (G * S_prev).sum(-1)
+        G = wt[..., :, None] * G + rt[..., :, None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du.sum(0),
+            G)

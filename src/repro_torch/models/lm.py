@@ -405,14 +405,9 @@ def train_loss(params, cfg: ModelConfig, batch, remat: bool = True):
     (B, S) int; (B, S, n_codebooks) for audio; a vision batch's targets
     cover its text) plus the MoE terms, as the JAX train_loss: total = xent
     + 0.01 moe_aux + 1e-4 moe_zloss. Returns (total, {"xent", "moe_aux",
-    "moe_zloss"}). Differentiable through the flash kernel (its backward is
-    a kernel too) and the MoE layers' products."""
-    for kind in cfg.prefix_pattern + cfg.block_pattern:
-        if kind in RECURRENT_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: training {kind!r} layers needs backward "
-                f"kernels for the recurrent scans (ROADMAP queue 1, "
-                f"'Recurrent training')")
+    "moe_zloss"}). Differentiable through the flash kernel and the two
+    recurrent scans (each backward a kernel too) and the MoE layers'
+    products."""
     logits, aux = forward(params, cfg, batch, remat=remat)
     loss = softmax_xent(logits, batch["targets"]).mean()
     total = loss + 0.01 * aux["moe_aux"] + 1e-4 * aux["moe_zloss"]

@@ -8,7 +8,10 @@ return_states=True, which also returns the state after every step (index
 0 the input state), the snapshots a rejected draft rolls back to.
 The RWKV6 time mix's recurrence goes through the `rwkv6_scan` kernel
 wrapper and the RG-LRU block's through `rglru_scan` (each the CUDA kernel on
-CUDA tensors, its plain twin on CPU tensors).
+CUDA tensors, its plain twin on CPU tensors). Under autograd each is an
+autograd Function whose backward is a kernel too, so `lm.train_loss`
+trains both archs; gradients reach the params through the inputs'
+`.contiguous()` copies and `bonus_u.float()`.
 
 The casts follow the JAX module one for one. RWKV6: r, k, v and g stay in
 the activation dtype, the decay adds in float32 and w = exp(-exp(d)) is

@@ -16,16 +16,16 @@ of its tests then fails by itself once it has run TEST_LIMIT_S seconds,
 instead of holding the whole run until the run's own clock cuts it (a cut
 run reports nothing past the cut). The longest port test takes ~40 s
 alone on 8 cores; the limit leaves six times that for a host shared with
-other runs.
+other runs. Every other test has the suite's looser limit
+(tests/conftest.py).
 
 `StepClock` is the clock engine, SLO and cluster tests inject (`now_fn=`)
 so that no test loop is driven by the wall clock."""
 import os
-import signal
-import threading
 
 import pytest
 import torch
+from _limits import alarm_after
 
 TEST_LIMIT_S = 240
 
@@ -39,25 +39,12 @@ def share_cores() -> None:
 
 @pytest.fixture(autouse=True)
 def time_limit(request):
-    """SIGALRM after TEST_LIMIT_S seconds raises TimeoutError in the
-    running test (set-up and tear-down included). Off where signals cannot
-    be taken: outside the main thread, or without SIGALRM."""
-    if (threading.current_thread() is not threading.main_thread()
-            or not hasattr(signal, "SIGALRM")):
+    """TEST_LIMIT_S (read when the test starts) on the test, set-up and
+    tear-down included (_limits.alarm_after). It overrides the suite's
+    looser limit of the same name (tests/conftest.py) in the files that
+    import it."""
+    with alarm_after(TEST_LIMIT_S, request.node.nodeid):
         yield
-        return
-
-    def expire(signum, frame):
-        raise TimeoutError(f"{request.node.nodeid}: still running after its "
-                           f"time limit of {TEST_LIMIT_S} s")
-
-    previous = signal.signal(signal.SIGALRM, expire)
-    signal.alarm(TEST_LIMIT_S)
-    try:
-        yield
-    finally:
-        signal.alarm(0)
-        signal.signal(signal.SIGALRM, previous)
 
 
 class StepClock:

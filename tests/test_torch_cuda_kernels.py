@@ -21,7 +21,12 @@ wrapper that reads with TMA gives the aligned call's bits on bf16 views
 off a 16-byte boundary. The flash backward kernel is held to
 ref.flash_attention_bwd_ref at every head dim: float32 within 2e-5 of
 max(1, max |twin|), bf16 / f16 within 2 bf16 ulps, two launches
-bit-equal; the wrappers without a backward raise under autograd."""
+bit-equal; the wrappers without a backward raise under autograd. The
+recurrent scans' backward kernels: rglru_scan_bwd bit for bit its twin's
+(ref.rglru_scan_bwd_ref) in every dtype; rwkv6_scan_bwd within 1e-5 of
+max(1, max |twin|) in float32 and 2 bf16 ulps in bf16, padded head dims
+and unaligned views included; both bit-equal across two launches and
+reached through the scans' autograd Functions."""
 import numpy as np
 import pytest
 
@@ -1127,7 +1132,9 @@ def test_flash_autograd_launches_the_backward_kernel(cuda):
 
 def test_wrappers_refuse_grad_on_cuda(cuda):
     """A kernel with no backward raises under autograd instead of cutting
-    the gradient; under no_grad the same call launches."""
+    the gradient (rwkv6_scan's per-step states arm among them: its
+    Function carries y and S_T only); under no_grad the same call
+    launches."""
     rng = np.random.default_rng(1)
     q = _rand(rng, 2, H, HD, dev=cuda).requires_grad_()
     kp = _rand(rng, 5, BS, KV, HD, dev=cuda)
@@ -1141,9 +1148,9 @@ def test_wrappers_refuse_grad_on_cuda(cuda):
     w = torch.rand(1, 2, 3, 16, device=cuda)
     u = torch.zeros(2, 16, device=cuda)
     with pytest.raises(RuntimeError, match="rwkv6_scan"):
-        rwkv6_scan(r, r, r, w, u)
+        rwkv6_scan(r, r, r, w, u, return_states=True)
     with torch.inference_mode():
-        y, _ = rwkv6_scan(r, r, r, w, u)
+        y, _, _ = rwkv6_scan(r, r, r, w, u, return_states=True)
     assert y.grad_fn is None
 
 
@@ -1229,3 +1236,132 @@ def test_attention_block_prefix_launches_the_flash_kernels(cuda):
     assert float((got.detach().cpu() - want).abs().max()) <= 2e-5 * max(
         1.0, float(want.abs().max()))
     assert all(t.grad is not None for t in cp.values())
+
+
+# ----------------------------------------------------------------------------
+# the recurrent scans' backward kernels (training rwkv6-3b and
+# recurrentgemma-2b), at chip_smoke.py's kernel arms' shapes
+# ----------------------------------------------------------------------------
+
+def _rglru_bwd_inputs(rng, B, T, C, dtype, dev, with_state=True):
+    a = torch.sigmoid(_rand(rng, B, T, C, dev=dev) * 2).to(dtype)
+    x = (_rand(rng, B, T, C, dev=dev) * 0.3).to(dtype)
+    h0 = _rand(rng, B, C, dev=dev) if with_state else None
+    h_seq, _ = ref.rglru_scan_ref(a, x, h0)
+    dh = _rand(rng, B, T, C, dtype=dtype, dev=dev)
+    dh_T = _rand(rng, B, C, dev=dev) if with_state else None
+    return a, h_seq, h0, dh, dh_T
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 512, 2560), (1, 2304, 2560),
+                                   (2, 100, 2561), (2, 1, 13), (2, 0, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rglru_scan_bwd_bit_equal_to_twin(cuda, B, T, C, dtype, with_state):
+    """da, dx and dh0 bit for bit the twin's (each step a float32 add and
+    two multiplies, each rounded once), and two launches bit-equal."""
+    from repro_torch.kernels import rglru_scan_bwd
+    rng = np.random.default_rng(B * T + C)
+    args = _rglru_bwd_inputs(rng, B, T, C, dtype, cuda, with_state)
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(*args)
+    again = rglru_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert rglru_scan_bwd.launches == before + 2
+    want = ref.rglru_scan_bwd_ref(*args)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.equal(g, w)
+
+
+def _rwkv_bwd_inputs(rng, shape, dtype, dev, with_state=True):
+    B, H, T, N = shape
+    r, k, v = (_rand(rng, *shape, dev=dev).mul(0.5).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(_rand(rng, *shape, dev=dev) - 1))
+    u = _rand(rng, H, N, dev=dev) * 0.1
+    s0 = _rand(rng, B, H, N, N, dev=dev) if with_state else None
+    dy = _rand(rng, *shape, dtype=dtype, dev=dev)
+    dS_T = _rand(rng, B, H, N, N, dev=dev) if with_state else None
+    return r, k, v, w, u, s0, dy, dS_T
+
+
+def _rwkv_bwd_close(got, want, dtype):
+    """dr, dk, dv in r's dtype: float32 within 1e-5 of max(1, max |twin|),
+    bf16 within 2 bf16 ulps; dw, du, ds0 (float32) within 1e-5 of max(1,
+    max |twin|)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if i < 3 and dtype != torch.float32:
+            assert _bf16_ulps(g, w) <= 2, i
+        else:
+            tol = 1e-5 * max(1.0, float(w.abs().max()))
+            assert float((g.float() - w.float()).abs().max()) <= tol, i
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 40, 512, 64), torch.bfloat16), ((1, 40, 2048, 64), torch.bfloat16),
+    ((2, 40, 300, 64), torch.float32), ((2, 4, 40, 16), torch.float32),
+    ((2, 4, 40, 12), torch.bfloat16), ((2, 3, 17, 40), torch.float32),
+    ((1, 2, 1, 64), torch.float32)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_scan_bwd_matches_twin(cuda, shape, dtype, with_state):
+    """The backward kernel against ref.rwkv6_scan_bwd_ref, with and without
+    s0 / dS_T; two launches bit-equal (no atomics: the tiles' partial sums
+    are added in a fixed order)."""
+    from repro_torch.kernels import rwkv6_scan_bwd
+    rng = np.random.default_rng(sum(shape) + with_state)
+    args = _rwkv_bwd_inputs(rng, shape, dtype, cuda, with_state)
+    before = rwkv6_scan_bwd.launches
+    got = rwkv6_scan_bwd(*args)
+    again = rwkv6_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_bwd.launches == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _rwkv_bwd_close(got, ref.rwkv6_scan_bwd_ref(*args), dtype)
+
+
+def test_rwkv6_scan_bwd_unaligned_view_gives_the_aligned_bits(cuda):
+    """r one element off a 16-byte boundary: the wrapper pads / copies, so
+    the gradients are the aligned call's bit for bit."""
+    from repro_torch.kernels import rwkv6_scan_bwd
+    rng = np.random.default_rng(5)
+    args = _rwkv_bwd_inputs(rng, (2, 4, 40, 64), torch.bfloat16, cuda)
+    buf = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    r_off = buf[1:].view(args[0].shape).copy_(args[0])
+    assert r_off.data_ptr() % 16
+    got = rwkv6_scan_bwd(r_off, *args[1:])
+    want = rwkv6_scan_bwd(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_scan_autograd_launches_the_backward_kernels(cuda):
+    """Under autograd both scans carry the gradient through their backward
+    kernels (the bits of a direct backward call); under no_grad they
+    record nothing."""
+    from repro_torch.kernels import rglru_scan_bwd, rwkv6_scan_bwd
+    rng = np.random.default_rng(9)
+    a, h_seq, h0, dh, dh_T = _rglru_bwd_inputs(rng, 2, 96, 64,
+                                               torch.float32, cuda)
+    x = (_rand(rng, 2, 96, 64, dev=cuda) * 0.3)
+    leaves = [t.clone().requires_grad_() for t in (a, x, h0)]
+    with torch.no_grad():
+        assert rglru_scan(*leaves)[0].grad_fn is None
+    before = rglru_scan_bwd.launches
+    hs, hT = rglru_scan(*leaves)
+    torch.autograd.backward((hs, hT), (dh, dh_T))
+    assert rglru_scan_bwd.launches == before + 1
+    want = rglru_scan_bwd(a, hs.detach(), h0, dh, dh_T)
+    for g, w in zip((t.grad for t in leaves), want):
+        assert torch.equal(g, w)
+    r, k, v, w_, u, s0, dy, dS_T = _rwkv_bwd_inputs(
+        rng, (2, 4, 40, 64), torch.bfloat16, cuda)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, w_, u, s0)]
+    before = rwkv6_scan_bwd.launches
+    y, sT = rwkv6_scan(*leaves)
+    torch.autograd.backward((y, sT), (dy, dS_T))
+    assert rwkv6_scan_bwd.launches == before + 1
+    want = rwkv6_scan_bwd(r, k, v, w_, u, s0, dy, dS_T)
+    for g, w in zip((t.grad for t in leaves), want):
+        assert torch.equal(g, w)

@@ -184,17 +184,6 @@ def test_remat_gives_the_same_gradients(models):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch,what", [("rwkv6-3b", "Recurrent training"),
-                                       ("recurrentgemma-2b",
-                                        "Recurrent training")])
-def test_untrainable_archs_raise(arch, what):
-    cfg = tget(arch).reduced()
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long),
-             "targets": torch.zeros(1, 4, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match=what):
-        tlm.train_loss({}, cfg, batch)
-
-
 LRS = {"local": 5e-2, "sync": 5e-2, "baseline": 3e-3}
 
 
